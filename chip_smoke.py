@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
+2. hold every kernel against its plain PyTorch version on the card,
+   under the tolerance ladder (fp32 5e-5, bf16 5e-2, on outputs scaled
+   by the reference's RMS), at the main path's shapes in bf16 and fp32;
+3. serve llama3.2-1b at full width (16 layers, d_model 2048, 32/8
+   heads, d_ff 8192, vocab 128256, rank 128, bf16; random weights from
+   seed 0) through ``ServingEngine``: one warm-up trace, then the
+   measured staggered 8-request trace, with the kernel launch counts
+   zeroed just before it and read just after; replay two requests
+   through ``static_greedy_reference`` and require identical tokens;
+4. time each kernel, its plain version and a library call computing the
+   same function at the decode shapes, in device time only;
+5. trace a decode-heavy stretch of serving with ``torch.profiler`` and
+   print device time by kernel and the device's busy share of the wall
+   clock.
+
+The last line is ``{"ok": true, "device": {...}}``. The script needs
+the repository around it: alone, or without a CUDA device, it fails.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM: HBM3 bandwidth and dense peaks (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+SEED = 0
+SPIN_CYCLES = 1 << 21   # ~1 ms at the H100's 1.98 GHz: longer than queueing one call
+
+# the full-width trace: (prompt_len, max_new_tokens), four per arrival wave
+TRACE = [(32, 16), (160, 32), (75, 24), (118, 20), (47, 28), (140, 18), (96, 32), (60, 24)]
+SLOTS, PAGE, NUM_PAGES, PAGES_PER_SEQ, ARRIVE_EVERY = 4, 16, 96, 16, 4
+REPLAYS = (0, 1)
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    return 1
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip()
+
+
+def time_cold(torch, fn, iters: int = 30) -> float:
+    """Median device time of ``fn()`` in ms: CUDA events around each
+    call, L2 flushed before each (the decode step finds each layer's
+    weights cold: 1 GB of weights cycle through a 50 MB L2).
+
+    A spin kernel is queued ahead of the flush, so the device reaches
+    the start event only after the host has queued the whole call:
+    the events then bracket device work alone, not host dispatch. A
+    sample whose spin ended before the host was done is dropped and
+    the spin doubled."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    spin = SPIN_CYCLES
+    times = []
+    while len(times) < iters:
+        lead = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        lead.record()
+        torch.cuda._sleep(spin)
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if lead.elapsed_time(start) <= host_ms:
+            if spin >= SPIN_CYCLES << 6:
+                raise RuntimeError(f"time_cold: the host took {host_ms:.3f} ms to queue "
+                                   "one call; the spin cannot cover it")
+            spin *= 2
+            continue
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+# ----------------------------------------------------------------- inputs --
+
+def spectral_inputs(torch, M, m, n, k, dtype, gen):
+    x = torch.randn((M, m), generator=gen, device="cuda").to(dtype)
+    U = (torch.randn((m, k), generator=gen, device="cuda") / math.sqrt(m)).to(dtype)
+    s = torch.rand((k,), generator=gen, device="cuda")
+    V = (torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)).to(dtype)
+    return x, U, s, V
+
+
+def paged_inputs(torch, seq_lens, n_pages, kvh, rep, hd, dtype, gen, *, null_slot):
+    """Pools with random content everywhere (null page included), a
+    shuffled block table whose rows end in null pages, and optionally
+    slot 0 made an inactive null-page slot."""
+    from repro_torch.kernels.testing import make_block_table
+
+    b = len(seq_lens)
+    num_pages = b * n_pages + 3
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    bt = make_block_table(b, n_pages, num_pages, sl.cpu(), PAGE, seed=SEED, device="cuda")
+    if null_slot:
+        bt[0, :] = num_pages
+        sl[0] = 0
+    shape = (num_pages + 1, PAGE, kvh, hd)
+    k_pool = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    v_pool = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((b, kvh, rep, hd), generator=gen, device="cuda").to(dtype)
+    return q, k_pool, v_pool, bt, sl
+
+
+# ----------------------------------------------------------------- phases --
+
+def phase_build():
+    from repro_torch.kernels import build
+
+    t0 = time.time()
+    build.library()
+    print(f"[build] kernels built and loaded in {time.time() - t0:.1f} s "
+          f"(nvcc {build.BUILD_LOG.get('seconds', 0.0):.1f} s)")
+    for src, report in build.BUILD_LOG.get("ptxas", {}).items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {src}: {line.strip()}")
+
+
+def phase_kernels(torch, cfg):
+    """Kernel vs plain version on the card; returns max abs errors."""
+    from repro_torch.kernels.ops import spectral_matmul
+    from repro_torch.kernels.paged_decode import paged_gqa_decode
+    from repro_torch.kernels.paged_ref import paged_gqa_decode_ref
+    from repro_torch.kernels.ref import spectral_matmul_ref
+    from repro_torch.kernels.testing import assert_kernel_matches, ragged_seq_lens
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    k = cfg.sct.rank
+    errs = {"spectral_matmul": 0.0, "paged_gqa_decode": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, n in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+            for M in (1, 8, 37, 256):
+                args = spectral_inputs(torch, M, m, n, k, dtype, gen)
+                err = assert_kernel_matches(spectral_matmul, spectral_matmul_ref, args,
+                                            label=f"spectral_matmul {M}x{m}->{n} {dtype}")
+                errs["spectral_matmul"] = max(errs["spectral_matmul"], err)
+        n_pages = 12
+        lens = ragged_seq_lens(8, PAGE * n_pages - 1, PAGE, seed=SEED).tolist()
+        args = paged_inputs(torch, lens, n_pages, cfg.n_kv_heads,
+                            cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, dtype, gen,
+                            null_slot=True)
+        # the null slot's output is one raw V row, larger than the live
+        # slots' averages: compared on its own so it does not set their scale
+        for part, what in ((slice(1, None), "live slots"), (slice(0, 1), "null slot")):
+            err = assert_kernel_matches(lambda *a: paged_gqa_decode(*a)[part],
+                                        lambda *a: paged_gqa_decode_ref(*a)[part], args,
+                                        label=f"paged_gqa_decode {dtype} {what}")
+            errs["paged_gqa_decode"] = max(errs["paged_gqa_decode"], err)
+        print(f"[kernels] {dtype}: spectral_matmul (M in 1/8/37/256, both MLP shapes) "
+              f"and paged_gqa_decode (ragged lens {lens}, null slot) match")
+    torch.cuda.synchronize()
+    return errs
+
+
+def make_trace(vocab, seed, rid0=0):
+    import numpy as np
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(rid=rid0 + i, prompt=rng.integers(0, vocab, size=(plen,)).astype(np.int32),
+                    max_new_tokens=gen, arrival=i // SLOTS * ARRIVE_EVERY)
+            for i, (plen, gen) in enumerate(TRACE)]
+
+
+def phase_serving(torch, cfg, device):
+    """Full-width serving through the engine; returns (engine, results)."""
+    import numpy as np
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch.serve import static_greedy_reference
+    from repro_torch.models.model import (
+        init_decode_state,
+        init_model,
+        param_count,
+        prefill,
+    )
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paged_cache import PagedCacheConfig
+
+    t0 = time.time()
+    params = init_model(cfg, seed=SEED, device=device)
+    n_params = param_count(params)
+    pcfg = PagedCacheConfig(page_size=PAGE, num_pages=NUM_PAGES, max_slots=SLOTS,
+                            max_pages_per_seq=PAGES_PER_SEQ)
+    engine = ServingEngine(cfg, params, pcfg, device=device, prefill_token_budget=64)
+    del params                                  # the engine holds its bf16 copy
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: {n_params} parameters, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}, rank {cfg.sct.rank}, "
+          f"{cfg.dtype}; init + load {time.time() - t0:.1f} s")
+    # warm-up: the same trace shape with other prompts pays the first-use
+    # costs (cuBLAS handles, module loads) outside the measured run
+    engine.run(make_trace(cfg.vocab, SEED + 3, rid0=len(TRACE)))
+    trace = make_trace(cfg.vocab, SEED)
+    before = engine.stats()
+    print(f"[serve] warm-up run (cold): ITL p50 {before['itl_p50_s'] * 1e3:.3f} ms "
+          f"p99 {before['itl_p99_s'] * 1e3:.3f} ms, {before['tokens_per_s']:.1f} tok/s")
+    gaps_before = len(engine.step_times)
+
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    out = engine.run(trace)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    peak_mem = torch.cuda.max_memory_allocated()
+
+    engine.sched.check_invariants()
+    if engine.sched.pool.allocated_count != 0:
+        raise AssertionError("pages still allocated after the trace")
+    for name in ("spectral_matmul", "paged_gqa_decode"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"the main path never launched {name}: {launches}")
+    for r in trace:
+        got = out[r.rid]
+        if (engine.last_statuses.get(r.rid) != "finished" or len(got) != r.max_new_tokens
+                or got.min() < 0 or got.max() >= cfg.vocab):
+            raise AssertionError(f"request {r.rid}: status "
+                                 f"{engine.last_statuses.get(r.rid)}, tokens {got}")
+    # the measured run's own numbers: engine counters less the warm-up's
+    after = engine.stats()
+    st = {key: after[key] - before[key] for key in
+          ("requests", "prefill_tokens", "generated_tokens", "decode_steps", "wall_s")}
+    st["tokens_per_s"] = (st["prefill_tokens"] + st["generated_tokens"]) / st["wall_s"]
+    gaps = np.asarray(list(engine.step_times)[gaps_before:])
+    st["itl_p50_s"] = float(np.percentile(gaps, 50))
+    st["itl_p99_s"] = float(np.percentile(gaps, 99))
+    print(f"[serve] {int(st['requests'])} requests, {int(st['prefill_tokens'])} prefill + "
+          f"{int(st['generated_tokens'])} generated tokens in {st['wall_s']:.3f} s "
+          f"({st['tokens_per_s']:.1f} tok/s), {int(st['decode_steps'])} decode steps, "
+          f"{len(gaps)} inter-token gaps, ITL p50 {st['itl_p50_s'] * 1e3:.3f} ms "
+          f"p99 {st['itl_p99_s'] * 1e3:.3f} ms, peak pages {int(after['peak_pages'])}, "
+          f"launches {launches}")
+
+    for rid in REPLAYS:
+        r = trace[rid]
+        ref = static_greedy_reference(cfg, engine.params, r.prompt, r.max_new_tokens,
+                                      pcfg.max_seq, device=device)
+        if not np.array_equal(ref, out[rid]):
+            first = int(np.argmax(ref != out[rid]))
+            raise AssertionError(f"request {rid}: engine tokens differ from the static "
+                                 f"greedy reference at position {first}:\n  static "
+                                 f"{ref}\n  engine {out[rid]}")
+        print(f"[serve] request {rid} ({r.prompt_len}-token prompt, {r.max_new_tokens} "
+              f"new): engine tokens == static greedy reference")
+
+    # logits of the static path are finite and of the expected shape
+    with torch.no_grad():
+        state = init_decode_state(cfg, 1, pcfg.max_seq, device=device)
+        toks = torch.as_tensor(trace[0].prompt, dtype=torch.int64, device=device)[None]
+        logits, _ = prefill(engine.params, toks, cfg, state)
+    if tuple(logits.shape) != (1, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits: shape {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    serving = {
+        "arch": cfg.name, "params": n_params, "requests": int(st["requests"]),
+        "prefill_tokens": int(st["prefill_tokens"]),
+        "generated_tokens": int(st["generated_tokens"]),
+        "decode_steps": int(st["decode_steps"]), "wall_s": st["wall_s"],
+        "tokens_per_s": st["tokens_per_s"],
+        "itl_gaps": len(gaps), "cold_itl_p50_ms": before["itl_p50_s"] * 1e3,
+        "cold_itl_p99_ms": before["itl_p99_s"] * 1e3,
+        "itl_p50_ms": st["itl_p50_s"] * 1e3, "itl_p99_ms": st["itl_p99_s"] * 1e3,
+        "max_memory_allocated": peak_mem, "launches": launches,
+        "replays_identical": len(REPLAYS),
+    }
+    return engine, trace, serving
+
+
+def phase_timing(torch, cfg, engine, trace, launches, errs):
+    """Kernel, plain and library times at the main path's decode shapes."""
+    import torch.nn.functional as F
+    from repro_torch.core.spectral import spectral_apply
+    from repro_torch.kernels.ops import spectral_matmul
+    from repro_torch.kernels.paged_decode import paged_gqa_decode
+    from repro_torch.kernels.paged_ref import paged_gqa_decode_ref
+    from repro_torch.kernels.ref import spectral_matmul_ref
+    from repro_torch.serving.paged_cache import paged_gather
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dt = torch.bfloat16
+    k, d, f = cfg.sct.rank, cfg.d_model, cfg.d_ff
+
+    # one layer's MLP at decode: up and gate (d -> f), down (f -> d), M = slots
+    shapes = [(d, f), (d, f), (f, d)]
+    sm = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0,
+          "err": 0.0}
+    for m, n in shapes:
+        x, U, s, V = spectral_inputs(torch, SLOTS, m, n, k, dt, gen)
+        sm["ms"] += time_cold(torch, lambda: spectral_matmul(x, U, s, V))
+        sm["plain_ms"] += time_cold(torch, lambda: spectral_matmul_ref(x, U, s, V))
+        fac = {"U": U, "s": s, "V": V}
+        sm["library_ms"] += time_cold(torch, lambda: spectral_apply(fac, x))
+        sm["bytes"] += 2 * (SLOTS * m + m * k + n * k + SLOTS * n) + 4 * k
+        sm["flops"] += 2 * SLOTS * k * (m + n)
+        y = spectral_matmul(x, U, s, V)
+        sm["err"] = max(sm["err"], float((y.float() - spectral_matmul_ref(x, U, s, V)
+                                          .float()).abs().max()))
+
+    # one layer's decode attention: all slots mid-trace (prompt + half the
+    # generation cached), pools at the engine's geometry
+    lens = [r.prompt_len + r.max_new_tokens // 2 for r in trace[:SLOTS]]
+    kvh, rep, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    q, kp, vp, bt, sl = paged_inputs(torch, lens, PAGES_PER_SEQ, kvh, rep, hd, dt, gen,
+                                     null_slot=False)
+    pd = {"ms": time_cold(torch, lambda: paged_gqa_decode(q, kp, vp, bt, sl)),
+          "plain_ms": time_cold(torch, lambda: paged_gqa_decode_ref(q, kp, vp, bt, sl))}
+    # library yardstick: SDPA over the pre-gathered pages (gather not timed)
+    b, h = len(lens), cfg.n_heads
+    S = PAGES_PER_SEQ * PAGE
+    ck = paged_gather(kp, bt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    cv = paged_gather(vp, bt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    qh = q.reshape(b, h, 1, hd)
+    mask = (torch.arange(S, device="cuda")[None, :] <= sl[:, None].long())[:, None, None, :]
+    pd["library_ms"] = time_cold(
+        torch, lambda: F.scaled_dot_product_attention(qh, ck, cv, attn_mask=mask))
+    live = sum(n + 1 for n in lens)
+    pd["bytes"] = (2 * live * kvh * hd * 2 + 2 * q.numel() * 2
+                   + bt.numel() * 4 + sl.numel() * 4)
+    pd["flops"] = 4 * h * hd * live
+    pd["err"] = float((paged_gqa_decode(q, kp, vp, bt, sl).float()
+                       - paged_gqa_decode_ref(q, kp, vp, bt, sl).float()).abs().max())
+
+    def entry(name, source, replaces, t, peak_key, shape):
+        t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = t["flops"] / PEAK_FLOPS[peak_key] * 1e3
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches.get(name, 0), "max_abs_err": t["err"],
+            "max_err": max(t["err"], errs[name]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": t["library_ms"], "shape": shape,
+        }
+
+    return [
+        entry("spectral_matmul", "src/repro_torch/csrc/spectral_matmul.cu",
+              "src/repro/kernels/spectral_matmul.py:57", sm, "bfloat16",
+              f"one decode layer's MLP: 2x({SLOTS},{d})->{f} + ({SLOTS},{f})->{d}, "
+              f"rank {k}, bf16"),
+        entry("paged_gqa_decode", "src/repro_torch/csrc/paged_decode.cu",
+              "src/repro/kernels/paged_decode.py:110", pd, "float32",
+              f"one decode layer: b={b} kvh={kvh} rep={rep} hd={hd} page={PAGE} "
+              f"lens={lens}, bf16 pools, fp32 math"),
+    ]
+
+
+def phase_profile(torch, cfg, engine):
+    """Device time by kernel over a decode-heavy stretch of serving (four
+    96-token prompts, 32 new tokens each, all slots decoding)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(SEED + 2)
+
+    def trace(base):
+        return [Request(rid=base + i, prompt=rng.integers(0, cfg.vocab, size=(96,))
+                        .astype(np.int32), max_new_tokens=32) for i in range(SLOTS)]
+
+    engine.run(trace(100))                       # warm
+    steps0 = engine.decode_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        engine.run(trace(200))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    steps = engine.decode_steps - steps0
+    rows = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue                             # host ops: their kernels are rows too
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            rows.append((dev / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    print(f"[profile] {SLOTS} requests x (96 prompt + 32 new): wall {wall * 1e3:.1f} ms, "
+          f"{steps} decode steps, device busy {busy_ms:.1f} ms "
+          f"({100.0 * busy_ms / (wall * 1e3):.1f}% of wall)")
+    for ms, count, key in rows[:15]:
+        print(f"[profile] {ms:10.3f} ms {count:7d}x  {key[:160]}")
+    return {"wall_ms": wall * 1e3, "decode_steps": steps, "device_busy_ms": busy_ms}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        return fail(f"the port's package is not next to this script ({e})")
+    from repro_torch.config import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    device = torch.device("cuda", 0)
+    cfg = get_config("llama3.2-1b")
+    t_start = time.time()
+    try:
+        phase_build()
+        print(f"[card] {smi}")
+        errs = phase_kernels(torch, cfg)
+        engine, trace, serving = phase_serving(torch, cfg, device)
+        kernels = phase_timing(torch, cfg, engine, trace, serving["launches"], errs)
+        serving["profile"] = phase_profile(torch, cfg, engine)
+    except Exception:                            # every phase failure fails the run
+        traceback.print_exc()
+        return fail("a phase failed")
+    for kern in kernels:
+        print(f"[timing] {kern['name']}: {kern['ms']:.4f} ms kernel, "
+              f"{kern['plain_ms']:.4f} ms plain, {kern['library_ms']:.4f} ms library, "
+              f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}), "
+              f"{kern['launches']} launches on the main path ({kern['shape']})")
+    print(f"[total] {time.time() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"serving": serving}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,38 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel is exposed through a plain C function (no PyTorch headers)
+// that launches on the caller's stream and returns the cudaError_t of the
+// launch; the Python wrapper loads the library with ctypes and raises on a
+// non-zero code. Kernels allocate nothing: outputs come from the wrapper.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace sct {
+
+// dtype codes shared with kernels/build.py
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+// round-to-nearest-even, the rounding torch's .to(torch.bfloat16) uses
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Opt a kernel into more than the default 48 KB of dynamic shared memory.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace sct

@@ -1,0 +1,114 @@
+"""Differential kernel-vs-plain-version harness (the subset of the
+reference's ``kernels/testing.py`` the port uses).
+
+Every CUDA kernel of the port has a plain PyTorch version with the same
+signature; tests and ``chip_smoke.py`` run both on the same inputs and
+compare through :func:`assert_kernel_matches` under the per-precision
+:data:`TOLERANCE_LADDER` — the same rungs the reference uses, so "close
+enough in bf16" means the same thing on both sides of the port.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+class Tol(NamedTuple):
+    """Relative / absolute tolerance pair for one precision rung."""
+
+    rtol: float
+    atol: float
+
+
+# One rung per compute precision. fp32 kernels accumulate in fp32 and
+# differ from the plain version only by reassociation (~1e-6 observed;
+# 5e-5 leaves headroom for unlucky shapes). bf16 inputs carry ~3 decimal
+# digits, so anything tighter than ~1e-2 tests the rounding of the
+# inputs, not the kernel.
+TOLERANCE_LADDER: dict = {
+    torch.float32: Tol(rtol=5e-5, atol=5e-5),
+    torch.bfloat16: Tol(rtol=5e-2, atol=5e-2),
+    torch.float16: Tol(rtol=5e-3, atol=5e-3),
+}
+
+
+def tolerance_for(dtype: torch.dtype, ladder: Optional[dict] = None) -> Tol:
+    """The rung for ``dtype`` (KeyError for a precision without one)."""
+    return (TOLERANCE_LADDER if ladder is None else ladder)[dtype]
+
+
+def assert_kernel_matches(
+    kernel_fn: Callable[..., torch.Tensor],
+    ref_fn: Callable[..., torch.Tensor],
+    args: tuple,
+    *,
+    dtype: Any = None,
+    tol: Optional[Tol] = None,
+    ref_args: Optional[tuple] = None,
+    label: str = "",
+) -> float:
+    """Run ``kernel_fn(*args)`` and ``ref_fn(*(ref_args or args))`` and
+    assert they agree within the ladder rung for ``dtype`` (default: the
+    kernel output's dtype). Both are compared in fp32 after dividing by
+    the reference's root mean square, so the rung is a fraction of a
+    typical output value whatever the outputs' magnitude. (The
+    reference package divides by ``max(1, max|ref|)``; for outputs well
+    below 1, or with a few large entries, that makes the atol term as
+    large as a typical output, and a wrong bf16 kernel can pass.)
+    Returns the unscaled max abs error."""
+    y = kernel_fn(*args)
+    yr = ref_fn(*(args if ref_args is None else ref_args))
+    name = label or getattr(kernel_fn, "__name__", "kernel")
+    if tuple(y.shape) != tuple(yr.shape):
+        raise AssertionError(f"{name}: kernel shape {tuple(y.shape)} != "
+                             f"reference shape {tuple(yr.shape)}")
+    if tol is None:
+        tol = tolerance_for(y.dtype if dtype is None else dtype)
+    yf = y.detach().float().cpu().numpy()
+    yrf = yr.detach().float().cpu().numpy()
+    assert_scaled_close(yf, yrf, tol, err_msg=f"{name}: kernel vs reference")
+    return float(np.max(np.abs(yf - yrf))) if yf.size else 0.0
+
+
+def assert_scaled_close(y, yr, tol: Tol, err_msg: str = "") -> None:
+    """``y`` and ``yr`` agree within ``tol`` after both are divided by
+    the root mean square of ``yr`` (1 when ``yr`` is all zeros)."""
+    y = np.asarray(y, np.float32)
+    yr = np.asarray(yr, np.float32)
+    rms = float(np.sqrt(np.mean(np.square(yr)))) if yr.size else 0.0
+    scale = rms if rms > 0.0 else 1.0
+    np.testing.assert_allclose(y / scale, yr / scale, rtol=tol.rtol, atol=tol.atol,
+                               err_msg=f"{err_msg} (outputs scaled by 1/{scale:g})")
+
+
+def ragged_seq_lens(batch: int, max_len: int, page: int, seed: int = 0,
+                    device="cpu") -> torch.Tensor:
+    """(batch,) int32 lengths covering the masking edge cases: slot 0
+    empty (len 0, the inactive-slot convention), slot 1 on a page
+    boundary, slot 2 one before a boundary, slot 3 full; the rest
+    uniform. ``pos <= len`` is in-bounds, so ``max_len`` is the largest
+    legal index. Same draws as the reference for the same seed."""
+    edges = [0, min(page, max_len), min(2 * page - 1, max_len), max_len]
+    rng = np.random.default_rng(seed)
+    body = rng.integers(0, max_len + 1, size=max(0, batch - len(edges)))
+    lens = np.concatenate([np.asarray(edges[:batch]), body])[:batch]
+    return torch.tensor(lens, dtype=torch.int32, device=device)
+
+
+def make_block_table(batch: int, n_pages_per_seq: int, num_pages: int,
+                     seq_lens: torch.Tensor, page: int, seed: int = 0,
+                     device="cpu") -> torch.Tensor:
+    """(batch, n_pages_per_seq) int32 block table with shuffled physical
+    page ids; pages past each row's live prefix point at the null page
+    (id ``num_pages``). Same table as the reference for the same seed."""
+    if batch * n_pages_per_seq > num_pages:
+        raise ValueError("pool too small to fuzz")
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(num_pages)[: batch * n_pages_per_seq]
+    table = perm.reshape(batch, n_pages_per_seq).astype(np.int32)
+    lens = seq_lens.cpu().numpy()
+    for i in range(batch):
+        table[i, int(lens[i]) // page + 1:] = num_pages
+    return torch.tensor(table, dtype=torch.int32, device=device)

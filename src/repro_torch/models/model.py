@@ -1,0 +1,101 @@
+"""Model dispatcher: one API over the ported families (``dense_lm``).
+
+  init_model(cfg, seed=, device=)                 -> params
+  forward(params, tokens, cfg)                    -> (logits, aux)
+  init_decode_state / prefill / decode_step       (static cache)
+  init_paged_state / decode_step_paged / prefill_chunk_paged
+  serving_params(params, cfg, device)             -> params cast once
+
+Params are nested dicts of tensors in the reference's layout;
+``bridge.as_module`` wraps them in an ``nn.Module`` whose parameter
+names are the npz keys with ``.`` for ``/``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.config.model_config import ModelConfig
+from repro_torch.core.tree import tree_leaves
+from repro_torch.device import DeviceLike, compute_dtype, generator_for, resolve_device
+from repro_torch.models import decode as decode_mod
+from repro_torch.models import lm as lm_mod
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0,
+               generator: Optional[torch.Generator] = None,
+               device: DeviceLike = None):
+    """Random fp32 master parameters from a seeded generator on
+    ``device`` (the CUDA device unless told otherwise). Same
+    distributions as the reference's init; other draws."""
+    dev = resolve_device(device)
+    lm_mod.require_dense(cfg)
+    return lm_mod.init_lm(cfg, generator=generator_for(dev, seed, generator), device=dev)
+
+
+def forward(params, tokens, cfg: ModelConfig):
+    return lm_mod.forward_lm(params, tokens, cfg)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *, device):
+    return decode_mod.lm_init_state(cfg, batch, max_seq, device=device)
+
+
+def prefill(params, tokens, cfg: ModelConfig, state):
+    return decode_mod.prefill_lm(params, tokens, cfg, state)
+
+
+def decode_step(params, tokens, state, cache_len: int, cfg: ModelConfig):
+    return decode_mod.decode_step_lm(params, tokens, state, cache_len, cfg)
+
+
+def init_paged_state(cfg: ModelConfig, pcfg, *, device):
+    return decode_mod.lm_init_paged_state(cfg, pcfg, device=device)
+
+
+def decode_step_paged(params, tokens, state, block_table, seq_lens, cfg: ModelConfig):
+    return decode_mod.decode_step_lm_paged(params, tokens, state, block_table,
+                                           seq_lens, cfg)
+
+
+def prefill_chunk_paged(params, tokens, state, block_table, start: int, cfg: ModelConfig):
+    return decode_mod.prefill_chunk_lm_paged(params, tokens, state, block_table,
+                                             start, cfg)
+
+
+def serving_params(params, cfg: ModelConfig, device: torch.device):
+    """Params on ``device`` with every floating leaf cast once to the
+    compute dtype, except the spectral ``s`` vectors, which stay fp32
+    (the kernel scales h by s in fp32). The reference casts at every
+    apply, which gives the same numbers; casting once keeps the
+    128k-row embedding/LM-head table out of every decode step's bytes."""
+    dt = compute_dtype(cfg)
+
+    def cast(path_leaf):
+        name, t = path_leaf
+        t = t.to(device)
+        if t.is_floating_point() and name != "s":
+            t = t.to(dt)
+        return t
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else cast((k, v))
+                for k, v in tree.items()}
+
+    return walk(params)
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def param_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+
+
+__all__ = [
+    "init_model", "forward", "init_decode_state", "prefill", "decode_step",
+    "init_paged_state", "decode_step_paged", "prefill_chunk_paged",
+    "serving_params", "param_count", "param_bytes",
+]

@@ -1,0 +1,183 @@
+"""GQA attention with a training path, a prefill path (fills the cache)
+and a single-token decode path, over a static cache or a paged pool.
+
+Cache layouts (per layer; the model stacks a leading L axis):
+  static: {"k": (b, S, kvh, hd), "v": (b, S, kvh, hd)}
+  paged:  {"k": (P+1, page, kvh, hd), "v": ...}  (serving/paged_cache.py)
+
+Caches are updated in place (the reference returns new arrays); each
+function still returns the cache so call sites read the same.
+
+Not ported here: tensor parallelism, cold-KV shadow pools, MLA, the
+reference's ``_flash`` (its jnp flash twin for unmasked sequences
+longer than 2048 — every length runs the direct softmax here).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.paged_decode import paged_gqa_decode
+from repro_torch.nn.linear import apply_linear, init_linear
+from repro_torch.nn.rotary import apply_rope, rope_tables
+from repro_torch.serving.paged_cache import (
+    paged_append,
+    paged_gather,
+    paged_slots,
+    paged_write_slice,
+)
+
+NEG_INF = -1e30
+
+
+def _sdpa_direct(q, k, v, *, causal: bool, q_offset=0, kv_len_mask=None):
+    """O(s^2)-memory attention. q: (b, sq, g, r, d) grouped; k/v:
+    (b, skv, g, d). Scores come out of the einsum in q.dtype and are
+    softmaxed in fp32; probabilities are rounded to q.dtype — the
+    reference's ``_sdpa_direct`` step for step."""
+    b, sq, g, r, d = q.shape
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", q, k).to(torch.float32)
+    scores = scores / math.sqrt(d)
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + int(q_offset)
+        kpos = torch.arange(k.shape[1], device=q.device)
+        mask = qpos[:, None] >= kpos[None, :]
+        scores = scores.masked_fill(~mask[None, None, None], NEG_INF)
+    if kv_len_mask is not None:
+        scores = scores.masked_fill(~kv_len_mask[:, None, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bgrqk,bkgd->bqgrd", probs, v)
+
+
+def _sdpa(q, k, v, *, causal: bool, q_offset=0, kv_len_mask=None):
+    """q: (b, sq, h, d); k/v: (b, skv, kvh, d). GQA through grouped-head
+    einsums — kv heads are never materialized repeated."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, d)
+    out = _sdpa_direct(qg, k, v, causal=causal, q_offset=q_offset,
+                       kv_len_mask=kv_len_mask)
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+def init_gqa(cfg, *, generator, device, dtype=torch.float32):
+    """cfg needs: d_model, n_heads, n_kv_heads, head_dim, qkv_bias,
+    attn_rank (None => dense, the paper-faithful default)."""
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(generator=generator, device=device, rank=cfg.attn_rank, dtype=dtype)
+    return {
+        "wq": init_linear(d, h * hd, bias=cfg.qkv_bias, **kw),
+        "wk": init_linear(d, kvh * hd, bias=cfg.qkv_bias, **kw),
+        "wv": init_linear(d, kvh * hd, bias=cfg.qkv_bias, **kw),
+        "wo": init_linear(h * hd, d, bias=False, **kw),
+    }
+
+
+def step_rope(cfg, positions):
+    """The (cos, sin) tables every layer of one step shares (None
+    without RoPE)."""
+    if cfg.rope == "rope":
+        return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.rope != "none":
+        raise NotImplementedError(f"rope={cfg.rope!r} is not ported")
+    return None
+
+
+def _gqa_qkv(p, x, cfg, positions, rope=None):
+    """Projections + RoPE. ``rope``: this step's tables (``step_rope``),
+    computed here when the caller has none."""
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = apply_linear(p["wq"], x).reshape(b, s, h, hd)
+    k = apply_linear(p["wk"], x).reshape(b, s, kvh, hd)
+    v = apply_linear(p["wv"], x).reshape(b, s, kvh, hd)
+    if rope is None:
+        rope = step_rope(cfg, positions)
+    if rope is not None:
+        q = apply_rope(q, None, tables=rope)
+        k = apply_rope(k, None, tables=rope)
+    return q, k, v
+
+
+def _positions(start, s: int, b: int, device) -> torch.Tensor:
+    return (int(start) + torch.arange(s, device=device)).expand(b, s)
+
+
+def apply_gqa(p, x, cfg, *, positions, causal=True, rope=None):
+    """Training / no-cache forward."""
+    b, s, _ = x.shape
+    q, k, v = _gqa_qkv(p, x, cfg, positions, rope)
+    o = _sdpa(q, k, v, causal=causal)
+    return apply_linear(p["wo"], o.reshape(b, s, -1))
+
+
+def apply_gqa_prefill(p, x, cfg, *, positions, cache, rope=None):
+    """Fill cache[:, :s] (in place) and return outputs (causal)."""
+    b, s, _ = x.shape
+    q, k, v = _gqa_qkv(p, x, cfg, positions, rope)
+    cache["k"][:, :s] = k.to(cache["k"].dtype)
+    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    o = _sdpa(q, k, v, causal=True)
+    return apply_linear(p["wo"], o.reshape(b, s, -1)), cache
+
+
+def apply_gqa_decode(p, x, cfg, *, cache, cache_len: int, rope=None):
+    """One-token step against the static cache. x: (b, 1, d); cache_len:
+    tokens already cached. Attends over the whole cache with a validity
+    mask. Decode attention runs in fp32 with one output rounding — the
+    contract all decode paths share (static, paged gather, kernels), so
+    bf16 greedy decode stays token-identical across them."""
+    b, s, _ = x.shape
+    positions = _positions(cache_len, s, b, x.device)
+    q, k, v = _gqa_qkv(p, x, cfg, positions, rope)
+    cache["k"][:, cache_len:cache_len + s] = k.to(cache["k"].dtype)
+    cache["v"][:, cache_len:cache_len + s] = v.to(cache["v"].dtype)
+    ck, cv = cache["k"], cache["v"]
+    S = ck.shape[1]
+    valid = (torch.arange(S, device=x.device) <= cache_len).expand(b, S)
+    o = _sdpa(q.float(), ck.float(), cv.float(), causal=False,
+              kv_len_mask=valid).to(q.dtype)
+    return apply_linear(p["wo"], o.reshape(b, s, -1)), cache
+
+
+def apply_gqa_prefill_paged(p, x, cfg, *, cache, block_table, start: int, rope=None):
+    """Chunked prefill from a logical offset against a paged pool.
+
+    x: (1, c, d) — one sequence's prompt tokens at absolute positions
+    [start, start+c); block_table: (1, n_pages). The chunk's K/V is
+    written into the sequence's pages, then attention runs over the
+    gathered logical view: positions < start are the cached prefix,
+    positions >= start+c stay behind the causal mask."""
+    b, c, _ = x.shape
+    positions = _positions(start, c, b, x.device)
+    q, k, v = _gqa_qkv(p, x, cfg, positions, rope)
+    paged_write_slice(cache["k"], block_table[0], start, k[0])
+    paged_write_slice(cache["v"], block_table[0], start, v[0])
+    ck = paged_gather(cache["k"], block_table).to(q.dtype)
+    cv = paged_gather(cache["v"], block_table).to(q.dtype)
+    o = _sdpa(q, ck, cv, causal=True, q_offset=start)
+    return apply_linear(p["wo"], o.reshape(b, c, -1)), cache
+
+
+def apply_gqa_decode_paged(p, x, cfg, *, cache, block_table, seq_lens, rope=None,
+                           slots=None):
+    """One-token step against a paged pool: block_table (b, n_pages)
+    int32, seq_lens (b,) int32 per-slot fill levels. The new token is
+    appended into each slot's current page, then attention runs through
+    the paged decode kernel, which walks the block table itself
+    (``kernels/paged_decode.py``; its plain version on the CPU).
+    ``rope`` / ``slots``: the step's RoPE tables and append targets
+    (``paged_slots``), shared by every layer; computed here if absent."""
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    positions = seq_lens[:, None].long()
+    q, k, v = _gqa_qkv(p, x, cfg, positions, rope)
+    if slots is None:
+        slots = paged_slots(block_table, seq_lens, cache["k"].shape[1])
+    paged_append(cache["k"], block_table, seq_lens, k[:, 0], slots=slots)
+    paged_append(cache["v"], block_table, seq_lens, v[:, 0], slots=slots)
+    qg = q[:, 0].reshape(b, kvh, h // kvh, hd)
+    og = paged_gqa_decode(qg, cache["k"], cache["v"], block_table, seq_lens)
+    o = og.reshape(b, s, h * hd)
+    return apply_linear(p["wo"], o), cache
