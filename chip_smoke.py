@@ -8,7 +8,9 @@ Phases (any failure exits non-zero and prints no result line):
 1. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
 2. hold every kernel against its plain PyTorch version on the card,
    under the tolerance ladder (fp32 5e-5, bf16 5e-2, on outputs scaled
-   by the reference's RMS), at the main path's shapes in bf16 and fp32;
+   by the reference's RMS), at the main paths' shapes in bf16 and fp32:
+   the decode shapes, and the training shapes (flash forward and
+   backward, the spectral autograd Function at M = 8192);
 3. serve llama3.2-1b at full width (16 layers, d_model 2048, 32/8
    heads, d_ff 8192, vocab 128256, rank 128, bf16; random weights from
    seed 0) through ``ServingEngine``: one warm-up trace, then the
@@ -19,7 +21,21 @@ Phases (any failure exits non-zero and prints no result line):
    same function at the decode shapes, in device time only;
 5. trace a decode-heavy stretch of serving with ``torch.profiler`` and
    print device time by kernel and the device's busy share of the wall
-   clock.
+   clock;
+6. train smollm2-1.7b at full width (24 layers, d_model 2048, 32/32
+   heads, d_ff 8192, vocab 49152, rank 128, QR retraction, remat, bf16
+   compute over fp32 masters; batch 2 x 4096 tokens; random weights from
+   seed 0) through ``Trainer`` for 8 steps, with the launch counts
+   zeroed just before each step and read just after: every step must
+   launch the flash forward 48 times (forward and remat recompute), the
+   flash backward 24 times and the spectral kernel 144 times; losses
+   finite, orthogonality error <= 1e-4, every gradient leaf finite and
+   non-zero; then trace one more warm step with ``torch.profiler``;
+7. resume a reduced run from its step-3 checkpoint on the card and
+   require the losses of steps 4-6 and the final parameters bit-identical
+   to an uninterrupted run;
+8. time the flash kernels and the spectral kernel at the training
+   shapes against their plain versions, SDPA and the three-GEMM chain.
 
 The last line is ``{"ok": true, "device": {...}}``. The script needs
 the repository around it: alone, or without a CUDA device, it fails.
@@ -41,6 +57,13 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 0
 SPIN_CYCLES = 1 << 21   # ~1 ms at the H100's 1.98 GHz: longer than queueing one call
+
+# training: smollm2-1.7b at batch 2 x seq 4096 (train_4k's sequence length)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm2-1.7b", 2, 4096, 8
+ORTHO_LIMIT = 1e-4
+# flash kernel checks: (b, s, g, r, d) at the training shape, a grouped
+# layout at the same length, and a ragged length
+FLASH_CHECKS = [(2, 4096, 32, 1, 64), (1, 4096, 8, 4, 64), (1, 1000, 4, 4, 64)]
 
 # the full-width trace: (prompt_len, max_new_tokens), four per arrival wave
 TRACE = [(32, 16), (160, 32), (75, 24), (118, 20), (47, 28), (140, 18), (96, 32), (60, 24)]
@@ -347,28 +370,15 @@ def phase_timing(torch, cfg, engine, trace, launches, errs):
     pd["err"] = float((paged_gqa_decode(q, kp, vp, bt, sl).float()
                        - paged_gqa_decode_ref(q, kp, vp, bt, sl).float()).abs().max())
 
-    def entry(name, source, replaces, t, peak_key, shape):
-        t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = t["flops"] / PEAK_FLOPS[peak_key] * 1e3
-        return {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches.get(name, 0), "max_abs_err": t["err"],
-            "max_err": max(t["err"], errs[name]),
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": t["library_ms"], "shape": shape,
-        }
-
     return [
-        entry("spectral_matmul", "src/repro_torch/csrc/spectral_matmul.cu",
-              "src/repro/kernels/spectral_matmul.py:57", sm, "bfloat16",
-              f"one decode layer's MLP: 2x({SLOTS},{d})->{f} + ({SLOTS},{f})->{d}, "
-              f"rank {k}, bf16"),
-        entry("paged_gqa_decode", "src/repro_torch/csrc/paged_decode.cu",
-              "src/repro/kernels/paged_decode.py:110", pd, "float32",
-              f"one decode layer: b={b} kvh={kvh} rep={rep} hd={hd} page={PAGE} "
-              f"lens={lens}, bf16 pools, fp32 math"),
+        kernel_entry("spectral_matmul", "src/repro_torch/csrc/spectral_matmul.cu",
+                     "src/repro/kernels/spectral_matmul.py:57", sm, "bfloat16",
+                     f"one decode layer's MLP: 2x({SLOTS},{d})->{f} + ({SLOTS},{f})->{d}, "
+                     f"rank {k}, bf16", launches, errs),
+        kernel_entry("paged_gqa_decode", "src/repro_torch/csrc/paged_decode.cu",
+                     "src/repro/kernels/paged_decode.py:110", pd, "float32",
+                     f"one decode layer: b={b} kvh={kvh} rep={rep} hd={hd} page={PAGE} "
+                     f"lens={lens}, bf16 pools, fp32 math", launches, errs),
     ]
 
 
@@ -393,16 +403,7 @@ def phase_profile(torch, cfg, engine):
         torch.cuda.synchronize()
         wall = time.time() - t0
     steps = engine.decode_steps - steps0
-    rows = []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue                             # host ops: their kernels are rows too
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev > 0:
-            rows.append((dev / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = device_rows(torch, prof)
     busy_ms = sum(r[0] for r in rows)
     print(f"[profile] {SLOTS} requests x (96 prompt + 32 new): wall {wall * 1e3:.1f} ms, "
           f"{steps} decode steps, device busy {busy_ms:.1f} ms "
@@ -410,6 +411,329 @@ def phase_profile(torch, cfg, engine):
     for ms, count, key in rows[:15]:
         print(f"[profile] {ms:10.3f} ms {count:7d}x  {key[:160]}")
     return {"wall_ms": wall * 1e3, "decode_steps": steps, "device_busy_ms": busy_ms}
+
+
+def flash_inputs(torch, b, s, g, r, d, dtype, gen):
+    """q and dout (b, s, g, r, d), k and v (b, s, g, d): unit normals,
+    so scores have unit scale and outputs are O(1) averages of v."""
+    q, do = (torch.randn((b, s, g, r, d), generator=gen, device="cuda") for _ in range(2))
+    k, v = (torch.randn((b, s, g, d), generator=gen, device="cuda") for _ in range(2))
+    return [t.to(dtype) for t in (q, k, v, do)]
+
+
+def phase_train_kernels(torch, cfg):
+    """The training path's kernels against their plain versions on the
+    card, bf16 and fp32: flash forward (out, m, l) and backward (dq, dk,
+    dv) at FLASH_CHECKS, and the spectral autograd Function's (y, dx, dU,
+    ds, dV) against autograd through the plain version at M = b * s on
+    both MLP shapes (fp32 factors, the legacy masters)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flash_ref import flash_bwd_ref, flash_fwd_ref
+    from repro_torch.kernels.ops import spectral_matmul
+    from repro_torch.kernels.ref import spectral_matmul_ref
+    from repro_torch.kernels.testing import assert_kernel_matches
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    errs = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0, "spectral_matmul": 0.0,
+            "spectral_autograd": 0.0}
+
+    def check(name, label, got, ref, dtype):
+        err = assert_kernel_matches(lambda: got, lambda: ref, (), dtype=dtype, label=label)
+        errs[name] = max(errs[name], err)
+
+    M, k = TRAIN_BATCH * TRAIN_SEQ, cfg.sct.rank
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in FLASH_CHECKS:
+            q, kk, v, do = flash_inputs(torch, *case, dtype, gen)
+            got, ref = flash_attention_fwd(q, kk, v), flash_fwd_ref(q, kk, v)
+            # m and l are fp32 but come from the inputs' dtype: its rung
+            for i, what in enumerate(("out", "m", "l")):
+                check("flash_attention_fwd", f"flash_attention_fwd {what} {case} {dtype}",
+                      got[i], ref[i], dtype)
+            args = (q, kk, v, *ref, do)
+            got, ref = flash_attention_bwd(*args), flash_bwd_ref(*args)
+            for i, what in enumerate(("dq", "dk", "dv")):
+                check("flash_attention_bwd", f"flash_attention_bwd {what} {case} {dtype}",
+                      got[i], ref[i], dtype)
+            del q, kk, v, do, got, ref, args
+        for m, n in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+            x, U, s, V = spectral_inputs(torch, M, m, n, k, torch.float32, gen)
+            x = x.to(dtype)
+            dy = torch.randn((M, n), generator=gen, device="cuda").to(dtype)
+
+            def run(fn):
+                leaves = [t.detach().clone().requires_grad_() for t in (x, U, s, V)]
+                y = fn(*leaves)
+                y.backward(dy)
+                return [y.detach()] + [t.grad for t in leaves]
+
+            # only y comes out of the kernel; the gradients are plain GEMMs,
+            # checked but kept out of the kernel's error figure
+            for what, g, r in zip(("y", "dx", "dU", "ds", "dV"), run(spectral_matmul),
+                                  run(spectral_matmul_ref)):
+                if g.dtype != r.dtype:
+                    raise AssertionError(f"spectral autograd {what}: {g.dtype} vs {r.dtype}")
+                check("spectral_matmul" if what == "y" else "spectral_autograd",
+                      f"spectral autograd {what} {M}x{m}->{n} {dtype}", g, r, dtype)
+        print(f"[kernels] {dtype}: flash_attention_fwd (out, m, l) and flash_attention_bwd "
+              f"(dq, dk, dv) match at (b, s, g, r, d) in {FLASH_CHECKS}; spectral_matmul "
+              f"autograd (y, dx, dU, ds, dV; fp32 factors) matches at M={M}, both MLP shapes")
+    q, kk, v, _ = flash_inputs(torch, 1, 64, 1, 1, 80, torch.bfloat16, gen)
+    try:
+        flash_attention_fwd(q, kk, v)
+    except ValueError as e:
+        print(f"[kernels] flash_attention_fwd refuses head dim 80: {e}")
+    else:
+        raise AssertionError("flash_attention_fwd accepted head dim 80")
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_training(torch, device):
+    """Full-width smollm2-1.7b through Trainer.step(); returns the train
+    record. Launch counts are zeroed just before each step and read just
+    after it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import ModelSpec, RunSpec, Trainer, TrainSpec
+    from repro_torch.checkpoint.store import flatten, unflatten
+    from repro_torch.core.tree import max_orthogonality_error
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models.model import param_count, train_loss
+
+    spec = RunSpec(model=ModelSpec(TRAIN_ARCH),
+                   train=TrainSpec(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                   lr=1e-3, seed=SEED))
+    t0 = time.time()
+    trainer = Trainer(spec, device=device)
+    cfg = trainer.cfg
+    n_params = param_count(trainer.params)
+    torch.cuda.synchronize()
+    print(f"[train] {cfg.name}: {n_params} parameters, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, rank {cfg.sct.rank}, retraction "
+          f"{cfg.sct.retraction}, precision {spec.precision.mode} ({cfg.dtype} compute over "
+          f"fp32 masters), remat {cfg.remat}; batch {TRAIN_BATCH} x {TRAIN_SEQ}; init "
+          f"{time.time() - t0:.1f} s")
+    # data set-up outside the timed steps: the trainer's own stream
+    batches = [trainer.make_batch(i) for i in range(TRAIN_STEPS + 1)]
+    # per step: the flash forward runs twice per layer (forward and remat
+    # recompute), its backward once; the three spectral MLP projections
+    # run forward and recompute; the spectral backward is plain GEMMs
+    expect = {"flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+              "spectral_matmul": 6 * cfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, orthos = [], [], []
+    totals = {name: 0 for name in expect}
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t1 = time.perf_counter()
+        metrics = trainer.step(batches[i])
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        launches = {name: LAUNCHES.get(name, 0) for name in expect}
+        ortho = float(max_orthogonality_error(trainer.params))
+        print(f"[train] step {i + 1}: loss {loss:.6f}, step {ms:.1f} ms, max orthogonality "
+              f"error {ortho:.3e}, launches {launches}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"step {i + 1}: loss {loss}")
+        if not ortho <= ORTHO_LIMIT:
+            raise AssertionError(f"step {i + 1}: orthogonality error {ortho} > {ORTHO_LIMIT}")
+        if launches != expect:
+            raise AssertionError(f"step {i + 1}: launches {launches}, expected {expect}")
+        losses.append(loss)
+        step_ms.append(ms)
+        orthos.append(ortho)
+        for name in expect:
+            totals[name] += launches[name]
+    peak_mem = torch.cuda.max_memory_allocated()
+    warm = sorted(step_ms[2:])
+    warm_ms = (warm[len(warm) // 2 - 1] + warm[len(warm) // 2]) / 2
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (warm_ms / 1e3)
+    print(f"[train] median warm step (steps 3-{TRAIN_STEPS}) {warm_ms:.1f} ms, "
+          f"{tokens_per_s:.1f} tokens/s; max_memory_allocated {peak_mem}; launches over "
+          f"{TRAIN_STEPS} steps {totals}")
+
+    # every gradient leaf is finite and non-zero (one more forward and
+    # backward on the trained weights, after the counted steps)
+    leaves = {path: t.detach().requires_grad_() for path, t in flatten(trainer.params).items()}
+    loss, _ = train_loss(unflatten(leaves), batches[0], cfg)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    for path, g in zip(leaves, grads):
+        if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0.0:
+            raise AssertionError(f"gradient of {path}: finite {bool(torch.isfinite(g).all())}, "
+                                 f"max |g| {float(g.abs().max())}")
+    print(f"[train] all {len(grads)} parameter leaves get finite, non-zero gradients")
+    del leaves, grads, loss
+
+    # one warm step under the profiler: device time by kernel, busy share
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        trainer.step(batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        wall = time.time() - t1
+    rows = device_rows(torch, prof)
+    busy_ms = sum(r[0] for r in rows)
+    print(f"[profile] one warm training step ({cfg.name}, {TRAIN_BATCH}x{TRAIN_SEQ}): wall "
+          f"{wall * 1e3:.1f} ms under the profiler, device busy {busy_ms:.1f} ms "
+          f"({100.0 * busy_ms / (wall * 1e3):.1f}% of wall)")
+    for ms, count, key in rows[:20]:
+        print(f"[profile] {ms:10.3f} ms {count:7d}x  {key[:160]}")
+    return {
+        "arch": cfg.name, "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms, "ortho": orthos,
+        "warm_step_ms": warm_ms, "tokens_per_s": tokens_per_s,
+        "max_memory_allocated": peak_mem, "launches": totals, "launches_per_step": expect,
+        "profile": {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+                    "top": [{"ms": ms, "launches": c, "kernel": key[:120]}
+                            for ms, c, key in rows[:20]]},
+    }
+
+
+def phase_resume(torch, device):
+    """Reduced smollm2 on the card: an uninterrupted 6-step run against a
+    run saved at step 3 and resumed, through Trainer.resume and fit."""
+    import tempfile
+    from repro_torch.api import CheckpointSpec, ModelSpec, RunSpec, Trainer, TrainSpec
+    from repro_torch.checkpoint.store import flatten
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def spec(name):
+            return RunSpec(model=ModelSpec(TRAIN_ARCH, reduced=True),
+                           train=TrainSpec(steps=6, batch=2, seq=64, lr=1e-3, seed=SEED),
+                           checkpoint=CheckpointSpec(directory=f"{tmp}/{name}", every=3))
+
+        straight = Trainer(spec("a"), device=device)
+        losses = [float(straight.step()["loss"]) for _ in range(6)]
+        first = Trainer(spec("b"), device=device)
+        for _ in range(3):
+            first.step()
+        first.save()
+        resumed = Trainer.resume(f"{tmp}/b", device=device)
+        tail = [float(resumed.step()["loss"]) for _ in range(3)]
+        final = Trainer.resume(f"{tmp}/b", device=device).fit()
+        same_params = all(torch.equal(t, flatten(straight.params)[key])
+                          for key, t in flatten(final["params"]).items())
+    print(f"[resume] reduced {TRAIN_ARCH}: losses {losses}; resumed from step 3: {tail}; "
+          f"fit() from step 3 ends on the uninterrupted run's parameters: {same_params}")
+    if tail != losses[3:] or not same_params:
+        raise AssertionError("resume on the card is not bit-identical")
+    return {"losses": losses, "resumed": tail, "bit_identical": True}
+
+
+def phase_train_timing(torch, cfg, launches, errs):
+    """Kernel, plain and library times at the training shapes, in device
+    time only."""
+    import torch.nn.functional as F
+    from repro_torch.core.spectral import spectral_apply
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flash_ref import flash_bwd_ref, flash_fwd_ref
+    from repro_torch.kernels.ops import spectral_matmul
+    from repro_torch.kernels.ref import spectral_matmul_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    dt = torch.bfloat16
+    b, s, h, g, d = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    r = h // g
+    q, k, v, do = flash_inputs(torch, b, s, g, r, d, dt, gen)
+    out, m, l = flash_attention_fwd(q, k, v)
+    ref = flash_fwd_ref(q, k, v)
+    fwd = {"ms": time_cold(torch, lambda: flash_attention_fwd(q, k, v)),
+           "plain_ms": time_cold(torch, lambda: flash_fwd_ref(q, k, v)),
+           "err": float((out.float() - ref[0].float()).abs().max())}
+    bwd = {"ms": time_cold(torch, lambda: flash_attention_bwd(q, k, v, out, m, l, do)),
+           "plain_ms": time_cold(torch, lambda: flash_bwd_ref(q, k, v, out, m, l, do)),
+           "err": max(float((a.float() - c.float()).abs().max()) for a, c in
+                      zip(flash_attention_bwd(q, k, v, out, m, l, do),
+                          flash_bwd_ref(q, k, v, out, m, l, do)))}
+    del ref
+
+    # library yardstick: SDPA in its (b, h, s, d) layout, causal; the
+    # backward alone is autograd.grad through a recorded SDPA forward
+    def heads(t):
+        return t.reshape(b, s, h, d).transpose(1, 2).contiguous()
+
+    qh = heads(q)
+    kh, vh = (heads(t[:, :, :, None].expand(b, s, g, r, d)) for t in (k, v))
+    fwd["library_ms"] = time_cold(
+        torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qh, kh, vh))
+    oh = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    doh = heads(do)
+    bwd["library_ms"] = time_cold(
+        torch, lambda: torch.autograd.grad(oh, (qg, kg, vg), doh, retain_graph=True))
+    bwd["library_fwd_bwd_ms"] = time_cold(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True), (qg, kg, vg), doh))
+    act = b * s * h * d * 2                                # one (b, s, h, d) bf16 tensor
+    kv = b * s * g * d * 2
+    stats = b * s * h * 4                                  # one (b, s, g, r) fp32 tensor
+    fwd["flops"] = 2 * 2 * b * h * s * s * d / 2           # QK^T and PV, causal half
+    fwd["bytes"] = 2 * act + 2 * kv + 2 * stats            # q, k, v in; out, m, l out
+    bwd["flops"] = 2.5 * fwd["flops"]                      # S, dP, dV, dQ, dK
+    bwd["bytes"] = 3 * act + 2 * kv + 2 * stats + act + 2 * kv   # q k v out do m l in; dq dk dv
+    del qh, kh, vh, qg, kg, vg, oh, doh, q, k, v, do, out, m, l
+
+    # one MLP up projection in training: (b * s, d_model) -> d_ff
+    M, mm, n, kk = b * s, cfg.d_model, cfg.d_ff, cfg.sct.rank
+    x, U, sv, V = spectral_inputs(torch, M, mm, n, kk, dt, gen)
+    fac = {"U": U, "s": sv, "V": V}
+    sm = {"ms": time_cold(torch, lambda: spectral_matmul(x, U, sv, V)),
+          "plain_ms": time_cold(torch, lambda: spectral_matmul_ref(x, U, sv, V)),
+          "library_ms": time_cold(torch, lambda: spectral_apply(fac, x)),
+          "err": float((spectral_matmul(x, U, sv, V).float()
+                        - spectral_matmul_ref(x, U, sv, V).float()).abs().max()),
+          "bytes": 2 * (M * mm + mm * kk + n * kk + M * n) + 4 * kk,
+          "flops": 2 * M * kk * (mm + n)}
+    shape = (f"one smollm2 layer in training: b={b} s={s} heads={h} kv_heads={g} d={d}, "
+             f"causal, bf16")
+    return [
+        kernel_entry("flash_attention_fwd", "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:64", fwd, "bfloat16", shape,
+                     launches, errs),
+        kernel_entry("flash_attention_bwd", "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/nn/attention.py:136", bwd, "bfloat16",
+                     shape + "; library: SDPA backward alone", launches, errs),
+    ], kernel_entry("spectral_matmul", "src/repro_torch/csrc/spectral_matmul.cu",
+                    "src/repro/kernels/spectral_matmul.py:57", sm, "bfloat16",
+                    f"one up projection in training: ({M},{mm})->{n}, rank {kk}, bf16",
+                    {}, {"spectral_matmul": 0.0})
+
+
+def device_rows(torch, prof):
+    """(device ms, launches, kernel name) of every device kernel row of a
+    profile, largest first (host ops are skipped: their kernels are rows
+    of their own)."""
+    rows = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            rows.append((dev / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def kernel_entry(name, source, replaces, t, peak_key, shape, launches, errs):
+    """One entry of the ``kernels`` line: bound_ms is the larger of the
+    bytes over HBM bandwidth and the operations over the peak rate."""
+    t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = t["flops"] / PEAK_FLOPS[peak_key] * 1e3
+    entry = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches.get(name, 0), "max_abs_err": t["err"],
+        "max_err": max(t["err"], errs.get(name, 0.0)),
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": t["library_ms"], "shape": shape,
+    }
+    if "library_fwd_bwd_ms" in t:
+        entry["library_fwd_bwd_ms"] = t["library_fwd_bwd_ms"]
+    return entry
 
 
 def main() -> int:
@@ -429,18 +753,32 @@ def main() -> int:
     smi = nvidia_smi()
     device = torch.device("cuda", 0)
     cfg = get_config("llama3.2-1b")
+    train_cfg = get_config(TRAIN_ARCH)
     t_start = time.time()
     try:
         phase_build()
         print(f"[card] {smi}")
         errs = phase_kernels(torch, cfg)
+        errs.update({k: max(v, errs.get(k, 0.0))
+                     for k, v in phase_train_kernels(torch, train_cfg).items()})
         engine, trace, serving = phase_serving(torch, cfg, device)
         kernels = phase_timing(torch, cfg, engine, trace, serving["launches"], errs)
         serving["profile"] = phase_profile(torch, cfg, engine)
+        del engine
+        torch.cuda.empty_cache()
+        train = phase_training(torch, device)
+        torch.cuda.empty_cache()
+        train["resume"] = phase_resume(torch, device)
+        flash, at_train = phase_train_timing(torch, train_cfg, train["launches"], errs)
     except Exception:                            # every phase failure fails the run
         traceback.print_exc()
         return fail("a phase failed")
-    for kern in kernels:
+    kernels[0]["launches_train"] = train["launches"]["spectral_matmul"]
+    kernels[0]["at_train_shape"] = {key: at_train[key] for key in (
+        "shape", "ms", "plain_ms", "library_ms", "max_abs_err", "bound_ms", "bound_by")}
+    kernels += flash
+    for kern in kernels + [dict(at_train, name="spectral_matmul (training shape)",
+                                launches=train["launches"]["spectral_matmul"])]:
         print(f"[timing] {kern['name']}: {kern['ms']:.4f} ms kernel, "
               f"{kern['plain_ms']:.4f} ms plain, {kern['library_ms']:.4f} ms library, "
               f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}), "
@@ -448,6 +786,7 @@ def main() -> int:
     print(f"[total] {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

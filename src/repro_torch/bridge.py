@@ -16,23 +16,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.checkpoint.store import flatten, load_pytree
+from repro_torch.checkpoint.store import flatten, load_pytree, unflatten
 from repro_torch.config.model_config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.lm import init_lm
-
-
-def _unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
-    tree: Dict[str, Any] = {}
-    for key, leaf in flat.items():
-        if key == "__struct__":
-            continue
-        node = tree
-        *parents, last = key.split("/")
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[last] = leaf
-    return tree
 
 
 def expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -55,7 +42,7 @@ def params_from_numpy(tree_or_flat_npz, cfg: ModelConfig,
     if isinstance(src, (str, os.PathLike)):
         src = load_pytree(os.fspath(src))
     if isinstance(src, Mapping) and any("/" in k for k in src.keys()):
-        src = _unflatten(src)
+        src = unflatten(src)
     flat = flatten(src)
     want = expected_shapes(cfg)
     if set(flat) != set(want):
@@ -70,7 +57,7 @@ def params_from_numpy(tree_or_flat_npz, cfg: ModelConfig,
         if arr.shape != want[key]:
             raise ValueError(f"{key}: shape {arr.shape}, expected {want[key]}")
         out[key] = torch.tensor(arr, device=dev)
-    return _unflatten(out)
+    return unflatten(out)
 
 
 class ParamTree(nn.Module):

@@ -82,3 +82,19 @@ def load_pytree(path: str) -> Any:
 def flatten(tree: Any) -> dict:
     """``{"a/b/c": leaf}`` view of a tree — the npz key space."""
     return dict(_flatten_with_paths(tree))
+
+
+def unflatten(flat: dict) -> dict:
+    """The nested dict of a ``{"a/b/c": leaf}`` mapping (inverse of
+    :func:`flatten` for trees of dicts); an npz's ``__struct__`` entry
+    is skipped."""
+    tree: dict = {}
+    for key, leaf in flat.items():
+        if key == "__struct__":
+            continue
+        node = tree
+        *parents, last = key.split(_SEP)
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return tree

@@ -2,6 +2,7 @@
 
   init_model(cfg, seed=, device=)                 -> params
   forward(params, tokens, cfg)                    -> (logits, aux)
+  train_loss(params, batch, cfg)                  -> (loss, metrics)
   init_decode_state / prefill / decode_step       (static cache)
   init_paged_state / decode_step_paged / prefill_chunk_paged
   serving_params(params, cfg, device)             -> params cast once
@@ -36,6 +37,10 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 
 def forward(params, tokens, cfg: ModelConfig):
     return lm_mod.forward_lm(params, tokens, cfg)
+
+
+def train_loss(params, batch, cfg: ModelConfig):
+    return lm_mod.train_loss_lm(params, batch, cfg)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *, device):
@@ -95,7 +100,7 @@ def param_bytes(params) -> int:
 
 
 __all__ = [
-    "init_model", "forward", "init_decode_state", "prefill", "decode_step",
+    "init_model", "forward", "train_loss", "init_decode_state", "prefill", "decode_step",
     "init_paged_state", "decode_step_paged", "prefill_chunk_paged",
     "serving_params", "param_count", "param_bytes",
 ]

@@ -8,9 +8,12 @@ Cache layouts (per layer; the model stacks a leading L axis):
 Caches are updated in place (the reference returns new arrays); each
 function still returns the cache so call sites read the same.
 
-Not ported here: tensor parallelism, cold-KV shadow pools, MLA, the
-reference's ``_flash`` (its jnp flash twin for unmasked sequences
-longer than 2048 — every length runs the direct softmax here).
+Unmasked self-attention longer than ``FLASH_THRESHOLD`` takes the
+flash branch (``_flash``: the CUDA flash kernels on the card, their plain
+version on the CPU) under the reference's exact condition; every other
+call runs the direct softmax.
+
+Not ported here: tensor parallelism, cold-KV shadow pools, MLA.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+from repro_torch.kernels.flash_ref import FLASH_KV_CHUNK, FLASH_Q_CHUNK
 from repro_torch.kernels.paged_decode import paged_gqa_decode
 from repro_torch.nn.linear import apply_linear, init_linear
 from repro_torch.nn.rotary import apply_rope, rope_tables
@@ -29,6 +34,7 @@ from repro_torch.serving.paged_cache import (
 )
 
 NEG_INF = -1e30
+FLASH_THRESHOLD = 2048  # direct softmax at or below this sequence length
 
 
 def _sdpa_direct(q, k, v, *, causal: bool, q_offset=0, kv_len_mask=None):
@@ -50,14 +56,52 @@ def _sdpa_direct(q, k, v, *, causal: bool, q_offset=0, kv_len_mask=None):
     return torch.einsum("bgrqk,bkgd->bqgrd", probs, v)
 
 
+class _Flash(torch.autograd.Function):
+    """Flash attention with its recompute-p backward (the reference's
+    ``_flash`` custom VJP): the forward saves (q, k, v, out, m, l), the
+    backward runs the backward kernel (plain version on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, m, l = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, m, l, dout.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
+def _flash(q, k, v, causal: bool):
+    """q (b, s, g, r, d), k/v (b, s, g, d) -> (b, s, g, r, d)."""
+    return _Flash.apply(q, k, v, causal)
+
+
 def _sdpa(q, k, v, *, causal: bool, q_offset=0, kv_len_mask=None):
     """q: (b, sq, h, d); k/v: (b, skv, kvh, d). GQA through grouped-head
-    einsums — kv heads are never materialized repeated."""
+    einsums — kv heads are never materialized repeated. The flash branch
+    is taken under the reference's condition, so both packages pick the
+    same branch at every shape."""
     b, sq, h, d = q.shape
-    kvh = k.shape[2]
+    skv, kvh = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, d)
-    out = _sdpa_direct(qg, k, v, causal=causal, q_offset=q_offset,
-                       kv_len_mask=kv_len_mask)
+    use_flash = (
+        kv_len_mask is None
+        and sq == skv
+        and sq > FLASH_THRESHOLD
+        and sq % min(FLASH_Q_CHUNK, sq) == 0
+        and skv % min(FLASH_KV_CHUNK, skv) == 0
+        and isinstance(q_offset, int)
+        and q_offset == 0
+    )
+    if use_flash:
+        out = _flash(qg, k, v, causal)
+    else:
+        out = _sdpa_direct(qg, k, v, causal=causal, q_offset=q_offset,
+                           kv_len_mask=kv_len_mask)
     return out.reshape(b, sq, h, v.shape[-1])
 
 

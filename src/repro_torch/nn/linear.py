@@ -3,8 +3,9 @@ paper's technique is a config switch on every projection.
 
 The spectral branch always runs the fused kernel wrapper
 (``kernels/ops.py:spectral_matmul``): the CUDA kernel for CUDA tensors,
-its plain version for CPU tensors. The reference's int8 branches come
-with int8 serving.
+its plain version for CPU tensors, with the reference's backward for
+autograd. The dense branch is a plain matmul. The reference's int8
+branches come with int8 serving.
 """
 from __future__ import annotations
 

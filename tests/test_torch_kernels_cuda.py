@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test here needs a GPU and skips without one (the kernels
+card: the spectral matmul (and its autograd), the paged GQA decode, and
+the flash-attention forward and backward. Every test here needs a GPU and skips without one (the kernels
 have no CPU mode). The file imports neither JAX nor the reference
 package, so it runs on a machine with CUDA and no JAX:
 
@@ -21,6 +22,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.config import get_config  # noqa: E402
 from repro_torch.kernels.build import LAUNCHES  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_bwd,
+    flash_attention_fwd,
+)
+from repro_torch.kernels.flash_ref import flash_bwd_ref, flash_fwd_ref  # noqa: E402
 from repro_torch.kernels.ops import spectral_matmul  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_gqa_decode  # noqa: E402
 from repro_torch.kernels.paged_ref import paged_gqa_decode_ref  # noqa: E402
@@ -40,6 +46,10 @@ SPECTRAL = [(1, 64, 96, 16), (7, 130, 50, 8), (37, 300, 700, 64), (64, 128, 128,
             (3, 512, 384, 256)]
 # b, kvh, rep, hd, page, n_pages_per_seq
 PAGED = [(5, 2, 3, 64, 4, 6), (4, 1, 4, 20, 3, 5), (4, 4, 1, 48, 8, 4), (8, 8, 4, 64, 16, 12)]
+# (b, s, g, r, d): rep 1 and 4 at s 256, 1000 (ragged tiles) and 4096, plus
+# head dim 128 and a group size that does not divide the 64-row tile
+FLASH = ([(1, s, g, r, 64) for s in (256, 1000, 4096) for g, r in ((4, 1), (2, 4))]
+         + [(2, 256, 2, 2, 128), (1, 300, 1, 3, 64)])
 
 
 @pytest.fixture
@@ -126,3 +136,60 @@ def test_engine_on_cuda_matches_static_reference(cuda):
         ref = static_greedy_reference(cfg, engine.params, r.prompt, r.max_new_tokens,
                                       pcfg.max_seq)
         np.testing.assert_array_equal(out[r.rid], ref, err_msg=f"request {r.rid}")
+
+
+def _flash_inputs(b, s, g, r, d, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn((b, s, g, r, d), generator=gen, device=device) for _ in range(2))
+    k, v = (torch.randn((b, s, g, d), generator=gen, device=device) for _ in range(2))
+    return [t.to(dtype) for t in (q, k, v, do)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", FLASH, ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernels_vs_plain(cuda, case, dtype):
+    """Forward (out, m, l) and backward (dq, dk, dv), each against the
+    plain version on the same inputs; the backward gets the plain
+    forward's out/m/l so it is checked on its own."""
+    q, k, v, do = _flash_inputs(*case, DTYPES[dtype], cuda)
+    before = (LAUNCHES["flash_attention_fwd"], LAUNCHES["flash_attention_bwd"])
+    # m and l are fp32, but in bf16 they come from bf16 inputs (and the
+    # plain version rounds its scores to bf16): the inputs' rung
+    for i, name in enumerate(("out", "m", "l")):
+        assert_kernel_matches(lambda *a, i=i: flash_attention_fwd(*a)[i],
+                              lambda *a, i=i: flash_fwd_ref(*a)[i], (q, k, v),
+                              dtype=DTYPES[dtype], label=f"flash_attention_fwd {name}")
+    out, m, l = flash_fwd_ref(q, k, v)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        assert_kernel_matches(lambda *a, i=i: flash_attention_bwd(*a)[i],
+                              lambda *a, i=i: flash_bwd_ref(*a)[i], (q, k, v, out, m, l, do),
+                              label=f"flash_attention_bwd {name}")
+    assert (LAUNCHES["flash_attention_fwd"], LAUNCHES["flash_attention_bwd"]) == (
+        before[0] + 3, before[1] + 3)
+
+
+def test_flash_kernel_refuses_other_head_dims(cuda):
+    q, k, v, _ = _flash_inputs(1, 64, 1, 1, 80, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head dim 80"):
+        flash_attention_fwd(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_spectral_autograd_vs_plain(cuda, dtype):
+    """y and the gradients (dx, dU, ds, dV) through the kernel's autograd
+    Function against autograd through the plain version, fp32 factors."""
+    x, U, s, V = _spectral(256, 2048, 8192, 128, torch.float32, cuda)
+    x = x.to(DTYPES[dtype])
+    dy = torch.randn((256, 8192), device=cuda).to(DTYPES[dtype])
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, U, s, V)]
+        y = fn(*leaves)
+        y.backward(dy)
+        return [y] + [t.grad for t in leaves]
+
+    got = run(spectral_matmul)
+    ref = run(lambda a, u, sv, vv: spectral_matmul_ref(a, u, sv, vv))
+    for name, g, r in zip(("y", "dx", "dU", "ds", "dV"), got, ref):
+        assert g.dtype == r.dtype, name
+        assert_kernel_matches(lambda: g, lambda: r, (), dtype=DTYPES[dtype], label=name)
