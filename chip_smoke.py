@@ -35,7 +35,37 @@ Phases (any failure exits non-zero and prints no result line):
    require the losses of steps 4-6 and the final parameters bit-identical
    to an uninterrupted run;
 8. time the flash kernels and the spectral kernel at the training
-   shapes against their plain versions, SDPA and the three-GEMM chain.
+   shapes against their plain versions, SDPA and the three-GEMM chain;
+9. hold the int8 kernels against their plain versions: the int8
+   spectral matmul at M in {1, 4, 37, 64, 256} on both MLP shapes under
+   every scale profile of the JAX package's tests, with every row of
+   M = 37 bit-identical to the row alone; the cold-aware paged decode at
+   p_cold in {0, 0.5, 1} (shadows uncorrelated with the pools, ragged
+   lengths, shuffled tables, a null-page slot), bit-identical to the hot
+   kernel with no page flagged;
+10. serve llama3.2-1b at full width with int8 weights on phase 3's trace
+    and geometry: the int8 spectral kernel launched 48 times per decode
+    step and prefill chunk, the bf16 one never; every request's tokens
+    equal the request served alone by a fresh engine (bit for bit) and
+    stay within the tolerance ladder of the static greedy path over the
+    same int8 tree, teacher-forced (in bf16 the static path's attention
+    sums in another order, so a near-tie can go the other way: exact
+    identity with it is printed, not required); the agreement with the
+    dequantized and the unquantized weights is printed;
+11. stream llama3.2-1b at full width with int8 weights and the int8 cold
+    tier (page 16, 32 pages, 4 slots, sink 1, window 4): four long
+    requests far past the resident cap and four within the identity
+    horizon, twice; both runs give the same tokens and the same
+    eviction/demotion ledger, the short requests and the first long one
+    equal their replays alone, the short ones stay within the ladder of
+    the static path, the cold
+    kernel is launched 16 times a decode step and the hot one never, and
+    one layer's real pools snapshotted mid-session with cold pages
+    flagged give the cold kernel's plain version's output;
+12. time both int8 kernels at the decode shapes (and the int8 matmul at
+    a 64-token prefill chunk) against their plain versions and a library
+    yardstick; profile a decode-heavy stretch of each new serving cell
+    as in phase 5.
 
 The last line is ``{"ok": true, "device": {...}}``. The script needs
 the repository around it: alone, or without a CUDA device, it fails.
@@ -69,6 +99,19 @@ FLASH_CHECKS = [(2, 4096, 32, 1, 64), (1, 4096, 8, 4, 64), (1, 1000, 4, 4, 64)]
 TRACE = [(32, 16), (160, 32), (75, 24), (118, 20), (47, 28), (140, 18), (96, 32), (60, 24)]
 SLOTS, PAGE, NUM_PAGES, PAGES_PER_SEQ, ARRIVE_EVERY = 4, 16, 96, 16, 4
 REPLAYS = (0, 1)
+
+# int8 kernel checks: batch sizes and the JAX package's scale profiles
+Q8_ROWS = (1, 4, 37, 64, 256)
+Q8_PREFILL_M = 64
+# the streaming cell: int8 weights + int8 cold KV, four long requests far
+# past the resident cap (sink + window + 1 = 6 pages: 18-23 pages each,
+# 160-192 new tokens, cut from 448-512 to keep the run's time) and four
+# within the identity horizon ((sink + window) x page = 80 tokens), two
+# per wave; the short ones and the first long one are replayed alone
+STREAM_SLOTS, STREAM_PAGES, STREAM_PAGES_PER_SEQ, SINK, WINDOW = 4, 32, 8, 1, 4
+STREAM_TRACE = [(96, 192, 0), (32, 40, 0), (128, 176, 0), (24, 48, 0),
+                (160, 160, 4), (40, 36, 4), (192, 176, 4), (16, 56, 4)]
+SNAPSHOT_STEP = 150
 
 
 def fail(msg: str) -> int:
@@ -216,7 +259,6 @@ def make_trace(vocab, seed, rid0=0):
 def phase_serving(torch, cfg, device):
     """Full-width serving through the engine; returns (engine, results)."""
     import numpy as np
-    from repro_torch.kernels.build import LAUNCHES
     from repro_torch.launch.serve import static_greedy_reference
     from repro_torch.models.model import (
         init_decode_state,
@@ -245,13 +287,9 @@ def phase_serving(torch, cfg, device):
     before = engine.stats()
     print(f"[serve] warm-up run (cold): ITL p50 {before['itl_p50_s'] * 1e3:.3f} ms "
           f"p99 {before['itl_p99_s'] * 1e3:.3f} ms, {before['tokens_per_s']:.1f} tok/s")
-    gaps_before = len(engine.step_times)
 
     torch.cuda.reset_peak_memory_stats()
-    LAUNCHES.clear()
-    out = engine.run(trace)
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    out, launches, st = run_measured(torch, engine, trace)
     peak_mem = torch.cuda.max_memory_allocated()
 
     engine.sched.check_invariants()
@@ -266,19 +304,11 @@ def phase_serving(torch, cfg, device):
                 or got.min() < 0 or got.max() >= cfg.vocab):
             raise AssertionError(f"request {r.rid}: status "
                                  f"{engine.last_statuses.get(r.rid)}, tokens {got}")
-    # the measured run's own numbers: engine counters less the warm-up's
-    after = engine.stats()
-    st = {key: after[key] - before[key] for key in
-          ("requests", "prefill_tokens", "generated_tokens", "decode_steps", "wall_s")}
-    st["tokens_per_s"] = (st["prefill_tokens"] + st["generated_tokens"]) / st["wall_s"]
-    gaps = np.asarray(list(engine.step_times)[gaps_before:])
-    st["itl_p50_s"] = float(np.percentile(gaps, 50))
-    st["itl_p99_s"] = float(np.percentile(gaps, 99))
     print(f"[serve] {int(st['requests'])} requests, {int(st['prefill_tokens'])} prefill + "
           f"{int(st['generated_tokens'])} generated tokens in {st['wall_s']:.3f} s "
           f"({st['tokens_per_s']:.1f} tok/s), {int(st['decode_steps'])} decode steps, "
-          f"{len(gaps)} inter-token gaps, ITL p50 {st['itl_p50_s'] * 1e3:.3f} ms "
-          f"p99 {st['itl_p99_s'] * 1e3:.3f} ms, peak pages {int(after['peak_pages'])}, "
+          f"{st['itl_gaps']} inter-token gaps, ITL p50 {st['itl_p50_s'] * 1e3:.3f} ms "
+          f"p99 {st['itl_p99_s'] * 1e3:.3f} ms, peak pages {engine.peak_pages}, "
           f"launches {launches}")
 
     for rid in REPLAYS:
@@ -307,7 +337,7 @@ def phase_serving(torch, cfg, device):
         "generated_tokens": int(st["generated_tokens"]),
         "decode_steps": int(st["decode_steps"]), "wall_s": st["wall_s"],
         "tokens_per_s": st["tokens_per_s"],
-        "itl_gaps": len(gaps), "cold_itl_p50_ms": before["itl_p50_s"] * 1e3,
+        "itl_gaps": st["itl_gaps"], "cold_itl_p50_ms": before["itl_p50_s"] * 1e3,
         "cold_itl_p99_ms": before["itl_p99_s"] * 1e3,
         "itl_p50_ms": st["itl_p50_s"] * 1e3, "itl_p99_ms": st["itl_p99_s"] * 1e3,
         "max_memory_allocated": peak_mem, "launches": launches,
@@ -700,6 +730,449 @@ def phase_train_timing(torch, cfg, launches, errs):
                     {}, {"spectral_matmul": 0.0})
 
 
+def q8_inputs(torch, M, m, n, k, profile, dtype, gen):
+    """x and {"q8", "scale"} factors: random codes, per-column scales of
+    a ``scale_profile`` kind (v's reversed, so the fused gain spans
+    both), s uniform. Factor entries come out O(1/sqrt(m))."""
+    from repro_torch.kernels.testing import scale_profile
+
+    x = torch.randn((M, m), generator=gen, device="cuda").to(dtype)
+    codes = [torch.randint(-127, 128, (r, k), generator=gen, device="cuda").to(torch.int8)
+             for r in (m, n)]
+    us = scale_profile(profile, k, device="cuda") / math.sqrt(m) / 127.0
+    vs = scale_profile(profile, k, device="cuda").flip(0) / math.sqrt(k) / 127.0
+    s = torch.rand((k,), generator=gen, device="cuda")
+    return x, {"q8": codes[0], "scale": us}, s, {"q8": codes[1], "scale": vs}
+
+
+def q8_plain(x, U, s, V):
+    """The int8 kernel's plain version through the wrapper's own gain."""
+    from repro_torch.kernels.ref import spectral_matmul_q8_ref
+
+    return spectral_matmul_q8_ref(x, U["q8"], U["scale"] * s * V["scale"], V["q8"])
+
+
+def cold_inputs(torch, seq_lens, n_pages, kvh, rep, hd, dtype, gen, *, null_slot, p_cold):
+    """paged_inputs plus int8 shadow pools quantized from noise that is
+    independent of the pools (a read of the wrong tier misses by O(1))
+    and cold flags drawn with probability p_cold."""
+    from repro_torch.serving.quantize import quantize_kv_pages
+
+    q, k_pool, v_pool, bt, sl = paged_inputs(torch, seq_lens, n_pages, kvh, rep, hd, dtype,
+                                             gen, null_slot=null_slot)
+    shadows = [quantize_kv_pages(torch.randn(tuple(k_pool.shape), generator=gen,
+                                             device="cuda"), token_axis=1) for _ in range(2)]
+    cold = (torch.rand((k_pool.shape[0],), generator=gen, device="cuda") < p_cold).int()
+    return (q, k_pool, v_pool, shadows[0]["q8"], shadows[0]["scale"], shadows[1]["q8"],
+            shadows[1]["scale"], bt, sl, cold)
+
+
+def phase_int8_kernels(torch, cfg):
+    """The int8 kernels against their plain versions on the card."""
+    from repro_torch.kernels.ops import spectral_matmul_q8
+    from repro_torch.kernels.paged_decode import paged_gqa_decode, paged_gqa_decode_cold
+    from repro_torch.kernels.paged_ref import paged_gqa_decode_cold_ref
+    from repro_torch.kernels.testing import (
+        SCALE_PROFILES,
+        assert_kernel_matches,
+        ragged_seq_lens,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    k = cfg.sct.rank
+    errs = {"spectral_matmul_q8": 0.0, "paged_gqa_decode_cold": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, n in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+            for profile in SCALE_PROFILES:
+                for M in Q8_ROWS:
+                    args = q8_inputs(torch, M, m, n, k, profile, dtype, gen)
+                    err = assert_kernel_matches(
+                        spectral_matmul_q8, q8_plain, args,
+                        label=f"spectral_matmul_q8 {M}x{m}->{n} {profile} {dtype}")
+                    errs["spectral_matmul_q8"] = max(errs["spectral_matmul_q8"], err)
+            x, U, sv, V = q8_inputs(torch, 37, m, n, k, "extreme", dtype, gen)
+            full = spectral_matmul_q8(x, U, sv, V)
+            for i in range(37):
+                if not torch.equal(spectral_matmul_q8(x[i:i + 1], U, sv, V)[0], full[i]):
+                    raise AssertionError(f"spectral_matmul_q8 {m}->{n} {dtype}: row {i} of "
+                                         "M=37 differs from the row alone")
+        n_pages = 12
+        lens = ragged_seq_lens(8, PAGE * n_pages - 1, PAGE, seed=SEED).tolist()
+        for p_cold in (0.0, 0.5, 1.0):
+            args = cold_inputs(torch, lens, n_pages, cfg.n_kv_heads,
+                               cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, dtype, gen,
+                               null_slot=True, p_cold=p_cold)
+            for part, what in ((slice(1, None), "live slots"), (slice(0, 1), "null slot")):
+                err = assert_kernel_matches(
+                    lambda *a: paged_gqa_decode_cold(*a)[part],
+                    lambda *a: paged_gqa_decode_cold_ref(*a)[part], args,
+                    label=f"paged_gqa_decode_cold p_cold={p_cold} {dtype} {what}")
+                errs["paged_gqa_decode_cold"] = max(errs["paged_gqa_decode_cold"], err)
+            if p_cold == 0.0:
+                q, kp, vp, _, _, _, _, bt, sl, _ = args
+                if not torch.equal(paged_gqa_decode_cold(*args),
+                                   paged_gqa_decode(q, kp, vp, bt, sl)):
+                    raise AssertionError(f"paged_gqa_decode_cold {dtype}: with no page "
+                                         "flagged it differs from paged_gqa_decode")
+        print(f"[kernels] {dtype}: spectral_matmul_q8 (M in {list(Q8_ROWS)}, both MLP "
+              f"shapes, scale profiles {list(SCALE_PROFILES)}) matches and is batch "
+              f"invariant (M=37 rows == M=1); paged_gqa_decode_cold (p_cold 0/0.5/1, "
+              f"ragged lens {lens}, null slot) matches, bit-identical to paged_gqa_decode "
+              f"with no page flagged")
+    torch.cuda.synchronize()
+    return errs
+
+
+def run_measured(torch, engine, trace):
+    """Serve ``trace`` with the launch counts zeroed just before and read
+    just after; return (tokens, launches, this run's own numbers: the
+    engine's counters less their values before it, and the run's ITL)."""
+    import numpy as np
+    from repro_torch.kernels.build import LAUNCHES
+
+    before = engine.stats()
+    gaps_before = len(engine.step_times)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    out = engine.run(trace)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    after = engine.stats()
+    st = {key: after[key] - before[key] for key in after
+          if key in ("requests", "prefill_tokens", "prefill_chunks", "generated_tokens",
+                     "decode_steps", "wall_s", "stream_evictions", "stream_demotions",
+                     "cold_page_bytes")}
+    st["tokens_per_s"] = (st["prefill_tokens"] + st["generated_tokens"]) / st["wall_s"]
+    gaps = np.asarray(list(engine.step_times)[gaps_before:])
+    st["itl_p50_s"] = float(np.percentile(gaps, 50))
+    st["itl_p99_s"] = float(np.percentile(gaps, 99))
+    st["itl_gaps"] = len(gaps)
+    return out, launches, st
+
+
+def require_launches(launches, expect):
+    got = {name: launches.get(name, 0) for name in expect}
+    if got != expect:
+        raise AssertionError(f"launches {got}, expected {expect}")
+
+
+def phase_int8_serving(torch, cfg, device, masters, bf16_weight_bytes):
+    """Full-width int8 serving on phase 3's trace and geometry."""
+    import numpy as np
+    from repro_torch.launch.serve import static_greedy_reference
+    from repro_torch.models.model import serving_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paged_cache import PagedCacheConfig
+    from repro_torch.serving.quantize import dequantize_tree
+
+    pcfg = PagedCacheConfig(page_size=PAGE, num_pages=NUM_PAGES, max_slots=SLOTS,
+                            max_pages_per_seq=PAGES_PER_SEQ)
+    engine = ServingEngine(cfg, masters, pcfg, device=device, prefill_token_budget=64,
+                           quantize="int8")
+    wb = engine.weight_bytes
+    print(f"[int8] weight_bytes {wb} int8 against {bf16_weight_bytes} bf16 serving bytes "
+          f"({bf16_weight_bytes / wb:.3f}x smaller; fp32 masters {engine.weight_bytes_fp})")
+    engine.run(make_trace(cfg.vocab, SEED + 3, rid0=len(TRACE)))       # warm-up
+    trace = make_trace(cfg.vocab, SEED)
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, st = run_measured(torch, engine, trace)
+    peak_mem = torch.cuda.max_memory_allocated()
+    engine.sched.check_invariants()
+    steps = int(st["decode_steps"]) + int(st["prefill_chunks"])
+    require_launches(launches, {"spectral_matmul_q8": 3 * cfg.n_layers * steps,
+                                "spectral_matmul": 0})
+    print(f"[int8] {int(st['requests'])} requests, {int(st['prefill_tokens'])} prefill + "
+          f"{int(st['generated_tokens'])} generated tokens in {st['wall_s']:.3f} s "
+          f"({st['tokens_per_s']:.1f} tok/s), {int(st['decode_steps'])} decode steps + "
+          f"{int(st['prefill_chunks'])} prefill chunks, ITL p50 "
+          f"{st['itl_p50_s'] * 1e3:.3f} ms p99 {st['itl_p99_s'] * 1e3:.3f} ms, launches "
+          f"{launches}")
+    for r in trace:
+        got = out[r.rid]
+        if engine.last_statuses.get(r.rid) != "finished" or len(got) != r.max_new_tokens:
+            raise AssertionError(f"request {r.rid}: status {engine.last_statuses.get(r.rid)}")
+    gap = check_oracles(torch, engine, trace, out, trace, "int8", device)
+    dequant = dequantize_tree(engine.params)
+    bf16 = serving_params(masters, cfg, device)
+    agree = {"dequantized": 0, "unquantized": 0}
+    total = 0
+    for r in trace:
+        got = out[r.rid]
+        for name, tree in (("dequantized", dequant), ("unquantized", bf16)):
+            other = static_greedy_reference(cfg, tree, r.prompt, r.max_new_tokens,
+                                            pcfg.max_seq, device=device)
+            agree[name] += int(np.sum(other == got))
+        total += len(got)
+    del dequant, bf16
+    print(f"[int8] diagnostic, free-running static greedy path: {agree['dequantized']}/"
+          f"{total} tokens identical over the dequantized tree (bf16 kernel), "
+          f"{agree['unquantized']}/{total} over the unquantized weights")
+    record = {"weight_bytes": wb, "bf16_weight_bytes": bf16_weight_bytes,
+              "weight_bytes_fp32": engine.weight_bytes_fp,
+              "requests": int(st["requests"]), "decode_steps": int(st["decode_steps"]),
+              "prefill_chunks": int(st["prefill_chunks"]),
+              "prefill_tokens": int(st["prefill_tokens"]),
+              "generated_tokens": int(st["generated_tokens"]), "wall_s": st["wall_s"],
+              "tokens_per_s": st["tokens_per_s"], "itl_gaps": st["itl_gaps"],
+              "itl_p50_ms": st["itl_p50_s"] * 1e3, "itl_p99_ms": st["itl_p99_s"] * 1e3,
+              "max_memory_allocated": peak_mem, "launches": launches,
+              "identical_to_replay_alone": len(trace), "max_static_gap": gap,
+              "agree_dequantized": agree["dequantized"],
+              "agree_unquantized": agree["unquantized"], "tokens": total}
+    return engine, record
+
+
+def check_oracles(torch, engine, alone, out, to_static, tag, device):
+    """Every request of ``alone`` equals its replay alone through a fresh
+    engine of the same configuration (exact); the requests of
+    ``to_static`` stay within the tolerance ladder of the static path,
+    teacher-forced over the engine's tokens. Returns the largest static
+    gap (<= 1 passes) and prints how many tokens were exactly the static
+    path's choice."""
+    import numpy as np
+    from repro_torch.launch.serve import replay_alone, static_logit_gaps
+
+    for r in alone:
+        solo = replay_alone(engine, r)
+        if not np.array_equal(solo, out[r.rid]):
+            first = int(np.argmax(solo != out[r.rid]))
+            raise AssertionError(f"{tag} request {r.rid}: engine tokens differ from the "
+                                 f"request served alone at position {first}")
+    worst, exact, total = 0.0, 0, 0
+    for r in to_static:
+        gaps = static_logit_gaps(engine.cfg, engine.params, r.prompt, out[r.rid],
+                                 engine.pcfg.max_seq, device=device)
+        worst = max(worst, float(gaps.max()))
+        exact += int(np.sum(gaps == 0.0))
+        total += len(gaps)
+        if gaps.max() > 1.0:
+            first = int(np.argmax(gaps > 1.0))
+            raise AssertionError(f"{tag} request {r.rid}: token {first} is "
+                                 f"{gaps[first]:.3f}x the ladder's allowance below the "
+                                 f"static path's best logit")
+    print(f"[{tag}] {len(alone)} requests == the request served alone (bit for bit); "
+          f"{len(to_static)} requests teacher-forced through the static path: every token "
+          f"within the ladder of its best logit (largest gap {worst:.3f} of the "
+          f"allowance), {exact}/{total} exactly its choice")
+    return worst
+
+
+def stream_trace(vocab, seed):
+    import numpy as np
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, size=(plen,)).astype(np.int32),
+                    max_new_tokens=gen, arrival=arrival)
+            for i, (plen, gen, arrival) in enumerate(STREAM_TRACE)]
+
+
+def phase_streaming(torch, cfg, device, masters):
+    """Full-width streaming with int8 weights and the int8 cold tier; the
+    same trace twice on one engine."""
+    import numpy as np
+    from repro_torch.kernels.paged_decode import paged_gqa_decode_cold
+    from repro_torch.kernels.paged_ref import paged_gqa_decode_cold_ref
+    from repro_torch.kernels.testing import assert_kernel_matches
+    from repro_torch.launch.serve import static_greedy_reference
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paged_cache import PagedCacheConfig
+    from repro_torch.serving.streaming import StreamingConfig, identity_horizon, resident_cap
+
+    pcfg = PagedCacheConfig(page_size=PAGE, num_pages=STREAM_PAGES, max_slots=STREAM_SLOTS,
+                            max_pages_per_seq=STREAM_PAGES_PER_SEQ)
+    scfg = StreamingConfig(sink_pages=SINK, window_pages=WINDOW, cold_kv="int8")
+    engine = ServingEngine(cfg, masters, pcfg, device=device, prefill_token_budget=64,
+                           quantize="int8", streaming=scfg)
+    horizon, cap = identity_horizon(scfg, pcfg), resident_cap(scfg)
+    trace = stream_trace(cfg.vocab, SEED + 7)
+
+    # per-sequence resident pages after every decode step, and one layer's
+    # pools with their flags at step SNAPSHOT_STEP of the first run
+    peak = [0]
+    snapshot = {}
+    decode_once = engine._decode_once
+
+    def observed_decode():
+        decode_once()
+        peak[0] = max([peak[0]] + [len(sq.pages) for sq in engine.sched.active.values()])
+        if not snapshot and engine.decode_steps == SNAPSHOT_STEP:
+            bt, sl = engine.sched.decode_view()
+            snapshot.update({name: leaf[0].clone()
+                             for name, leaf in engine.state["cache"].items()})
+            snapshot.update(bt=torch.as_tensor(bt).to(device), sl=torch.as_tensor(sl).to(device),
+                            cold=engine._cold_flags().clone())
+
+    engine._decode_once = observed_decode
+    runs = []
+    for _ in range(2):
+        out, launches, st = run_measured(torch, engine, trace)
+        engine.sched.check_invariants()
+        if engine.sched.pool.allocated_count != 0:
+            raise AssertionError("pages still allocated after the streaming trace")
+        runs.append((out, launches, st))
+        print(f"[stream] {int(st['requests'])} requests, {int(st['prefill_tokens'])} "
+              f"prefill + {int(st['generated_tokens'])} generated tokens in "
+              f"{st['wall_s']:.3f} s ({st['tokens_per_s']:.1f} tok/s), "
+              f"{int(st['decode_steps'])} decode steps, ITL p50 "
+              f"{st['itl_p50_s'] * 1e3:.3f} ms p99 {st['itl_p99_s'] * 1e3:.3f} ms, "
+              f"{int(st['stream_evictions'])} evictions, {int(st['stream_demotions'])} "
+              f"demotions ({int(st['cold_page_bytes'])} shadow bytes), launches {launches}")
+    (out, launches, st), (out2, _, st2) = runs
+    ledger = ("stream_evictions", "stream_demotions", "cold_page_bytes", "decode_steps",
+              "prefill_chunks", "generated_tokens")
+    if any(st[key] != st2[key] for key in ledger):
+        raise AssertionError(f"the second run's ledger differs: "
+                             f"{ {k: (st[k], st2[k]) for k in ledger} }")
+    for r in trace:
+        if not np.array_equal(out[r.rid], out2[r.rid]):
+            raise AssertionError(f"stream request {r.rid}: the second run's tokens differ")
+        if len(out[r.rid]) != r.max_new_tokens:
+            raise AssertionError(f"stream request {r.rid}: {len(out[r.rid])} tokens")
+    if not (st["stream_evictions"] > 0 and st["stream_demotions"] > 0):
+        raise AssertionError(f"the streaming run neither evicted nor demoted: {st}")
+    if peak[0] > cap:
+        raise AssertionError(f"a sequence held {peak[0]} pages > the resident cap {cap}")
+    for run_launches, run_st in ((launches, st), (runs[1][1], st2)):
+        steps = int(run_st["decode_steps"])
+        require_launches(run_launches, {
+            "paged_gqa_decode_cold": cfg.n_layers * steps, "paged_gqa_decode": 0,
+            "spectral_matmul_q8": 3 * cfg.n_layers * (steps + int(run_st["prefill_chunks"])),
+            "spectral_matmul": 0})
+    print(f"[stream] deterministic across two runs (tokens and ledger); peak resident "
+          f"pages per sequence {peak[0]} <= cap {cap}")
+    engine._decode_once = decode_once
+    short = [r for r in trace if r.prompt_len + r.max_new_tokens <= horizon]
+    gap = check_oracles(torch, engine, trace[:1] + short, out, short, "stream", device)
+    agree = total = 0
+    for r in short:
+        ref = static_greedy_reference(cfg, engine.params, r.prompt, r.max_new_tokens,
+                                      pcfg.max_seq, device=device)
+        agree += int(np.sum(ref == out[r.rid]))
+        total += len(ref)
+    print(f"[stream] diagnostic: {agree}/{total} tokens of the {len(short)} requests within "
+          f"the {horizon}-token horizon identical to the free-running static greedy path")
+
+    # the snapshot: this layer's real pools, its cold flags, a fresh query
+    n_cold = int(snapshot["cold"][snapshot["bt"].long()].ne(0).sum())
+    if n_cold == 0:
+        raise AssertionError("the mid-session snapshot has no cold page in any block table")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    q = torch.randn((STREAM_SLOTS, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                     cfg.head_dim), generator=gen, device="cuda").to(torch.bfloat16)
+    args = (q, snapshot["k"], snapshot["v"], snapshot["k_q8"], snapshot["k_scale"],
+            snapshot["v_q8"], snapshot["v_scale"], snapshot["bt"], snapshot["sl"],
+            snapshot["cold"])
+    snap_err = assert_kernel_matches(paged_gqa_decode_cold, paged_gqa_decode_cold_ref, args,
+                                     label="paged_gqa_decode_cold on the session snapshot")
+    print(f"[stream] step-{SNAPSHOT_STEP} snapshot of layer 0 (lens "
+          f"{snapshot['sl'].tolist()}, {n_cold} cold pages mapped): cold kernel == plain "
+          f"version (max abs err {snap_err:.3e})")
+    st2 = runs[1][2]
+    record = {"requests": int(st2["requests"]), "decode_steps": int(st2["decode_steps"]),
+              "prefill_chunks": int(st2["prefill_chunks"]),
+              "prefill_tokens": int(st2["prefill_tokens"]),
+              "generated_tokens": int(st2["generated_tokens"]), "wall_s": st2["wall_s"],
+              "tokens_per_s": st2["tokens_per_s"], "itl_gaps": st2["itl_gaps"],
+              "itl_p50_ms": st2["itl_p50_s"] * 1e3, "itl_p99_ms": st2["itl_p99_s"] * 1e3,
+              "first_run_itl_p50_ms": st["itl_p50_s"] * 1e3,
+              "first_run_itl_p99_ms": st["itl_p99_s"] * 1e3,
+              "stream_evictions": int(st["stream_evictions"]),
+              "stream_demotions": int(st["stream_demotions"]),
+              "cold_page_bytes": int(st["cold_page_bytes"]), "peak_pages_per_seq": peak[0],
+              "resident_cap": cap, "horizon": horizon, "short_requests": len(short),
+              "identical_to_replay_alone": 1 + len(short), "max_static_gap": gap,
+              "short_agree_static": agree, "short_tokens": total,
+              "launches": launches, "snapshot_cold_pages": n_cold,
+              "snapshot_max_abs_err": snap_err}
+    return engine, record
+
+
+def phase_int8_timing(torch, cfg, q8_launches, cold_launches, errs):
+    """Int8 kernel, plain and library times at the decode shapes (and the
+    int8 matmul at a 64-token prefill chunk), in device time only."""
+    import torch.nn.functional as F
+    from repro_torch.core.spectral import spectral_apply
+    from repro_torch.kernels.ops import spectral_matmul_q8
+    from repro_torch.kernels.paged_decode import paged_gqa_decode_cold
+    from repro_torch.kernels.paged_ref import paged_gqa_decode_cold_ref
+    from repro_torch.serving.paged_cache import paged_gather
+    from repro_torch.serving.quantize import dequantize_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    dt = torch.bfloat16
+    k, d, f = cfg.sct.rank, cfg.d_model, cfg.d_ff
+    entries = []
+    for M, what in ((SLOTS, "one decode layer's MLP"),
+                    (Q8_PREFILL_M, "one 64-token prefill chunk's MLP")):
+        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0,
+             "err": 0.0}
+        for m, n in ((d, f), (d, f), (f, d)):
+            x, U, s, V = q8_inputs(torch, M, m, n, k, "unit", dt, gen)
+            t["ms"] += time_cold(torch, lambda: spectral_matmul_q8(x, U, s, V))
+            t["plain_ms"] += time_cold(torch, lambda: q8_plain(x, U, s, V))
+            # library yardstick: the three-GEMM chain over pre-dequantized
+            # bf16 factors (dequantization not timed)
+            fac = {"U": dequantize_int8(U, dt), "s": s, "V": dequantize_int8(V, dt)}
+            t["library_ms"] += time_cold(torch, lambda: spectral_apply(fac, x))
+            t["bytes"] += 2 * (M * m + M * n) + (m + n) * k + 3 * 4 * k
+            t["flops"] += 2 * M * k * (m + n)
+            t["err"] = max(t["err"], float((spectral_matmul_q8(x, U, s, V).float()
+                                            - q8_plain(x, U, s, V).float()).abs().max()))
+        entries.append((M, what, t))
+
+    # one layer's cold decode in the streaming cell's geometry: every slot
+    # holds its six resident pages (95 tokens), the page after the sink cold
+    kvh, rep, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    lens = [SINK * PAGE + WINDOW * PAGE + PAGE - 1] * STREAM_SLOTS
+    args = cold_inputs(torch, lens, STREAM_PAGES_PER_SEQ, kvh, rep, hd, dt, gen,
+                       null_slot=False, p_cold=0.0)
+    q, kp, vp, kq, ks, vq, vs, bt, sl, cold = args
+    cold[bt[:, SINK].long()] = 1
+    b, h = len(lens), cfg.n_heads
+    cd = {"ms": time_cold(torch, lambda: paged_gqa_decode_cold(*args)),
+          "plain_ms": time_cold(torch, lambda: paged_gqa_decode_cold_ref(*args))}
+    # library yardstick: SDPA over pre-gathered, pre-dequantized pages
+    sel = (cold != 0)[:, None, None, None]
+    kd = torch.where(sel, kq.float() * ks[:, None], kp.float()).to(dt)
+    vd = torch.where(sel, vq.float() * vs[:, None], vp.float()).to(dt)
+    S = STREAM_PAGES_PER_SEQ * PAGE
+    ck = paged_gather(kd, bt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    cv = paged_gather(vd, bt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    qh = q.reshape(b, h, 1, hd)
+    mask = (torch.arange(S, device="cuda")[None, :] <= sl[:, None].long())[:, None, None, :]
+    cd["library_ms"] = time_cold(
+        torch, lambda: F.scaled_dot_product_attention(qh, ck, cv, attn_mask=mask))
+    live = sum(n + 1 for n in lens)
+    cold_rows = b * PAGE                       # one cold page a slot
+    cold_pages = b
+    cd["bytes"] = (2 * (live - cold_rows) * kvh * hd * 2 + 2 * cold_rows * kvh * hd
+                   + 2 * cold_pages * kvh * hd * 4 + 2 * q.numel() * 2 + bt.numel() * 4
+                   + sl.numel() * 4 + 4 * sum(n // PAGE + 1 for n in lens))
+    cd["flops"] = 4 * h * hd * live
+    cd["err"] = float((paged_gqa_decode_cold(*args).float()
+                       - paged_gqa_decode_cold_ref(*args).float()).abs().max())
+
+    (m1, what1, t1), (m2, what2, t2) = entries
+    q8 = kernel_entry("spectral_matmul_q8", "src/repro_torch/csrc/spectral_matmul_q8.cu",
+                      "src/repro/kernels/spectral_matmul_q8.py:65", t1, "bfloat16",
+                      f"{what1}: 2x({m1},{d})->{f} + ({m1},{f})->{d}, rank {k}, int8 "
+                      f"factors, bf16 activations; library: three-GEMM chain over "
+                      f"pre-dequantized bf16 factors", q8_launches, errs)
+    q8["at_prefill_chunk"] = {
+        "shape": f"{what2}: 2x({m2},{d})->{f} + ({m2},{f})->{d}",
+        "ms": t2["ms"], "plain_ms": t2["plain_ms"], "library_ms": t2["library_ms"],
+        "max_abs_err": t2["err"],
+        **bound_of(t2, "bfloat16")}
+    entries = [q8, kernel_entry(
+        "paged_gqa_decode_cold", "src/repro_torch/csrc/paged_decode.cu",
+        "src/repro/kernels/paged_decode.py:205", cd, "float32",
+        f"one streaming decode layer: b={b} kvh={kvh} rep={rep} hd={hd} page={PAGE} "
+        f"lens={lens}, one cold page a slot, bf16 pools + int8 shadows, fp32 math; "
+        f"library: SDPA over pre-gathered, pre-dequantized pages", cold_launches, errs)]
+    return entries
+
+
 def device_rows(torch, prof):
     """(device ms, launches, kernel name) of every device kernel row of a
     profile, largest first (host ops are skipped: their kernels are rows
@@ -717,18 +1190,23 @@ def device_rows(torch, prof):
     return rows
 
 
-def kernel_entry(name, source, replaces, t, peak_key, shape, launches, errs):
-    """One entry of the ``kernels`` line: bound_ms is the larger of the
-    bytes over HBM bandwidth and the operations over the peak rate."""
+def bound_of(t, peak_key):
+    """The least time for the work: the larger of the bytes over HBM
+    bandwidth and the operations over the peak rate."""
     t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
     t_ops = t["flops"] / PEAK_FLOPS[peak_key] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def kernel_entry(name, source, replaces, t, peak_key, shape, launches, errs):
+    """One entry of the ``kernels`` line."""
     entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches.get(name, 0), "max_abs_err": t["err"],
         "max_err": max(t["err"], errs.get(name, 0.0)),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **bound_of(t, peak_key),
         "library_ms": t["library_ms"], "shape": shape,
     }
     if "library_fwd_bwd_ms" in t:
@@ -755,21 +1233,49 @@ def main() -> int:
     cfg = get_config("llama3.2-1b")
     train_cfg = get_config(TRAIN_ARCH)
     t_start = time.time()
+    clock = {}
+
+    def lap(name):
+        clock[name] = time.time() - t_start - sum(clock.values())
+
     try:
         phase_build()
+        lap("build")
         print(f"[card] {smi}")
         errs = phase_kernels(torch, cfg)
         errs.update({k: max(v, errs.get(k, 0.0))
                      for k, v in phase_train_kernels(torch, train_cfg).items()})
+        lap("kernel checks")
+        errs.update(phase_int8_kernels(torch, cfg))
+        lap("int8 kernel checks")
         engine, trace, serving = phase_serving(torch, cfg, device)
         kernels = phase_timing(torch, cfg, engine, trace, serving["launches"], errs)
         serving["profile"] = phase_profile(torch, cfg, engine)
+        bf16_weight_bytes = engine.weight_bytes
         del engine
         torch.cuda.empty_cache()
+        lap("serving")
+        from repro_torch.models.model import init_model
+
+        masters = init_model(cfg, seed=SEED, device=device)
+        engine, int8 = phase_int8_serving(torch, cfg, device, masters, bf16_weight_bytes)
+        int8["profile"] = phase_profile(torch, cfg, engine)
+        del engine
+        lap("int8 serving")
+        engine, stream = phase_streaming(torch, cfg, device, masters)
+        stream["profile"] = phase_profile(torch, cfg, engine)
+        del engine, masters
+        torch.cuda.empty_cache()
+        lap("streaming")
+        kernels_int8 = phase_int8_timing(torch, cfg, int8["launches"], stream["launches"],
+                                         errs)
+        lap("int8 timing")
         train = phase_training(torch, device)
         torch.cuda.empty_cache()
         train["resume"] = phase_resume(torch, device)
+        lap("training")
         flash, at_train = phase_train_timing(torch, train_cfg, train["launches"], errs)
+        lap("training timing")
     except Exception:                            # every phase failure fails the run
         traceback.print_exc()
         return fail("a phase failed")
@@ -777,15 +1283,23 @@ def main() -> int:
     kernels[0]["at_train_shape"] = {key: at_train[key] for key in (
         "shape", "ms", "plain_ms", "library_ms", "max_abs_err", "bound_ms", "bound_by")}
     kernels += flash
-    for kern in kernels + [dict(at_train, name="spectral_matmul (training shape)",
-                                launches=train["launches"]["spectral_matmul"])]:
+    kernels_int8[0]["launches_streaming"] = stream["launches"].get("spectral_matmul_q8", 0)
+    kernels += kernels_int8
+    extra = [dict(at_train, name="spectral_matmul (training shape)",
+                  launches=train["launches"]["spectral_matmul"]),
+             dict(kernels_int8[0]["at_prefill_chunk"], name="spectral_matmul_q8 (prefill chunk)",
+                  launches=kernels_int8[0]["launches"])]
+    for kern in kernels + extra:
         print(f"[timing] {kern['name']}: {kern['ms']:.4f} ms kernel, "
               f"{kern['plain_ms']:.4f} ms plain, {kern['library_ms']:.4f} ms library, "
               f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}), "
               f"{kern['launches']} launches on the main path ({kern['shape']})")
-    print(f"[total] {time.time() - t_start:.1f} s")
+    print(f"[total] {time.time() - t_start:.1f} s: "
+          + ", ".join(f"{name} {sec:.1f} s" for name, sec in clock.items()))
     print(smi)
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"int8_serving": int8}))
+    print(json.dumps({"streaming": stream}))
     print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace sct {
 
 // dtype codes shared with kernels/build.py
@@ -16,6 +18,7 @@ enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(int8_t v) { return static_cast<float>(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);

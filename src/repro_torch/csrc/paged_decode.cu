@@ -1,8 +1,8 @@
 // Paged GQA flash-decode for Hopper: one-token attention straight from the
 // paged KV pools, walking each slot's block table inside the kernel.
 //
-// Replaces the TPU kernel kernels/paged_decode.py:paged_gqa_decode_pallas
-// of the JAX package.
+// Replaces the TPU kernels kernels/paged_decode.py:paged_gqa_decode_pallas
+// and paged_gqa_decode_cold_pallas of the JAX package.
 //
 // q (b, kvh, rep, hd) in TQ (fp32 or bf16); k/v pools (P+1, page, kvh, hd)
 // in bf16 (the port keeps KV pools in bf16 whatever the compute dtype);
@@ -31,6 +31,18 @@
 // decode there are only slots x kv heads (32) sequences of work. Inactive
 // slots point at the null page with seq_len 0 and attend over one harmless
 // position.
+//
+// The cold variant (the streaming cold tier) adds int8 shadow pools k_q8 /
+// v_q8 (P+1, page, kvh, hd), their per-page fp32 scales (P+1, kvh, hd) and
+// cold_flags (P+1,) int32. Each block reads the flag of the physical page it
+// is about to stage, once per page; a flagged page stages q8 * scale,
+// dequantized in registers in fp32 (the reference's arithmetic), and the
+// rest of the walk is unchanged. It stays bound by bytes: a cold row costs
+// one byte an element in place of two, plus the page's scales, and the
+// flags one int a page. The kernel is the same template with kCold set, so
+// with no page flagged its staging stores the same values and every later
+// instruction is shared: its output is bit-identical to the hot kernel's by
+// construction.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -42,12 +54,21 @@ namespace {
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 
-template <typename TQ>
+// The cold tier's inputs; null pointers in the hot kernel.
+struct ColdPools {
+  const int8_t* k_q8;
+  const float* k_scale;
+  const int8_t* v_q8;
+  const float* v_scale;
+  const int* flags;
+};
+
+template <typename TQ, bool kCold>
 __global__ void __launch_bounds__(kThreads)
 paged_gqa_decode_kernel(const TQ* __restrict__ q, const __nv_bfloat16* __restrict__ k_pool,
                         const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ block_table,
                         const int* __restrict__ seq_lens, TQ* __restrict__ out, int kvh,
-                        int rep, int hd, int page, int n_pages, float scale) {
+                        int rep, int hd, int page, int n_pages, float scale, ColdPools cold) {
   extern __shared__ float smem[];
   const int hdp = hd + 1;            // padded K row stride (bank conflicts)
   float* qs = smem;                  // (rep, hd)
@@ -80,11 +101,22 @@ paged_gqa_decode_kernel(const TQ* __restrict__ q, const __nv_bfloat16* __restric
   for (int j = z; j <= last; j += splits) {
     const size_t phys = (size_t)block_table[(size_t)i * n_pages + j];
     __syncthreads();  // previous page fully consumed (and init visible)
-    for (int t = tid; t < page * hd; t += kThreads) {
-      const int p = t / hd, d = t % hd;
-      const size_t off = ((phys * page + p) * kvh + g) * hd + d;
-      ks[p * hdp + d] = sct::to_float(k_pool[off]);
-      vs[p * hd + d] = sct::to_float(v_pool[off]);
+    if (kCold && cold.flags[phys] != 0) {
+      const float* ksc = cold.k_scale + (phys * kvh + g) * hd;
+      const float* vsc = cold.v_scale + (phys * kvh + g) * hd;
+      for (int t = tid; t < page * hd; t += kThreads) {
+        const int p = t / hd, d = t % hd;
+        const size_t off = ((phys * page + p) * kvh + g) * hd + d;
+        ks[p * hdp + d] = sct::to_float(cold.k_q8[off]) * ksc[d];
+        vs[p * hd + d] = sct::to_float(cold.v_q8[off]) * vsc[d];
+      }
+    } else {
+      for (int t = tid; t < page * hd; t += kThreads) {
+        const int p = t / hd, d = t % hd;
+        const size_t off = ((phys * page + p) * kvh + g) * hd + d;
+        ks[p * hdp + d] = sct::to_float(k_pool[off]);
+        vs[p * hd + d] = sct::to_float(v_pool[off]);
+      }
     }
     __syncthreads();
     for (int t = tid; t < rep * page; t += kThreads) {
@@ -138,16 +170,16 @@ paged_gqa_decode_kernel(const TQ* __restrict__ q, const __nv_bfloat16* __restric
   cluster.sync();  // partials stay alive until every rank has read them
 }
 
-template <typename TQ>
+template <typename TQ, bool kCold>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const int* bt,
                    const int* seq_lens, void* out, int b, int kvh, int rep, int hd, int page,
-                   int n_pages, float scale, cudaStream_t stream) {
+                   int n_pages, float scale, ColdPools cold, cudaStream_t stream) {
   int splits = 1;  // cluster size: up to 8 blocks walk one sequence's pages
   while (splits < 8 && 2 * splits <= n_pages) splits <<= 1;
   const size_t floats = (size_t)2 * rep * hd + (size_t)page * (2 * hd + 1) +
                         (size_t)rep * page + 3 * (size_t)rep;
   const size_t smem = floats * sizeof(float);
-  auto kernel = paged_gqa_decode_kernel<TQ>;
+  auto kernel = paged_gqa_decode_kernel<TQ, kCold>;
   cudaError_t err = sct::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config = {};
@@ -165,9 +197,28 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const 
   err = cudaLaunchKernelEx(&config, kernel, static_cast<const TQ*>(q),
                            static_cast<const __nv_bfloat16*>(k_pool),
                            static_cast<const __nv_bfloat16*>(v_pool), bt,
-                           seq_lens, static_cast<TQ*>(out), kvh, rep, hd, page, n_pages, scale);
+                           seq_lens, static_cast<TQ*>(out), kvh, rep, hd, page, n_pages, scale,
+                           cold);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <bool kCold>
+int launch_dtype(const void* q, const void* k_pool, const void* v_pool, const void* block_table,
+                 const void* seq_lens, void* out, int b, int kvh, int rep, int hd, int page,
+                 int n_pages, int q_dtype, float scale, ColdPools cold, void* stream) {
+  if (b <= 0 || kvh <= 0) return cudaSuccess;
+  if (rep <= 0 || hd <= 0 || page <= 0 || n_pages <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* bt = static_cast<const int*>(block_table);
+  const int* sl = static_cast<const int*>(seq_lens);
+  if (q_dtype == sct::kBFloat16)
+    return launch<__nv_bfloat16, kCold>(q, k_pool, v_pool, bt, sl, out, b, kvh, rep, hd,
+                                        page, n_pages, scale, cold, st);
+  if (q_dtype == sct::kFloat32)
+    return launch<float, kCold>(q, k_pool, v_pool, bt, sl, out, b, kvh, rep, hd, page,
+                                n_pages, scale, cold, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -177,16 +228,22 @@ extern "C" int sct_paged_gqa_decode(const void* q, const void* k_pool, const voi
                                     const void* block_table, const void* seq_lens, void* out,
                                     int b, int kvh, int rep, int hd, int page, int n_pages,
                                     int q_dtype, float scale, void* stream) {
-  if (b <= 0 || kvh <= 0) return cudaSuccess;
-  if (rep <= 0 || hd <= 0 || page <= 0 || n_pages <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* bt = static_cast<const int*>(block_table);
-  const int* sl = static_cast<const int*>(seq_lens);
-  if (q_dtype == sct::kBFloat16)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, bt, sl, out, b, kvh, rep, hd, page,
-                                 n_pages, scale, st);
-  if (q_dtype == sct::kFloat32)
-    return launch<float>(q, k_pool, v_pool, bt, sl, out, b, kvh, rep, hd, page, n_pages,
-                         scale, st);
-  return cudaErrorInvalidValue;
+  return launch_dtype<false>(q, k_pool, v_pool, block_table, seq_lens, out, b, kvh, rep, hd,
+                             page, n_pages, q_dtype, scale, ColdPools{}, stream);
+}
+
+// As sct_paged_gqa_decode, plus the int8 shadow pools k_q8/v_q8 (the pools'
+// shape), their fp32 scales (P+1, kvh, hd) and cold_flags (P+1,) int32.
+extern "C" int sct_paged_gqa_decode_cold(const void* q, const void* k_pool, const void* v_pool,
+                                         const void* k_q8, const void* k_scale,
+                                         const void* v_q8, const void* v_scale,
+                                         const void* block_table, const void* seq_lens,
+                                         const void* cold_flags, void* out, int b, int kvh,
+                                         int rep, int hd, int page, int n_pages, int q_dtype,
+                                         float scale, void* stream) {
+  const ColdPools cold{static_cast<const int8_t*>(k_q8), static_cast<const float*>(k_scale),
+                       static_cast<const int8_t*>(v_q8), static_cast<const float*>(v_scale),
+                       static_cast<const int*>(cold_flags)};
+  return launch_dtype<true>(q, k_pool, v_pool, block_table, seq_lens, out, b, kvh, rep, hd,
+                            page, n_pages, q_dtype, scale, cold, stream);
 }

@@ -32,7 +32,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("common.cu", "spectral_matmul.cu", "paged_decode.cu", "flash_attention.cu")
+SOURCES = ("common.cu", "spectral_matmul.cu", "spectral_matmul_q8.cu", "paged_decode.cu",
+           "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -121,9 +122,13 @@ def library() -> ctypes.CDLL:
             lib.sct_error_string.restype = ctypes.c_char_p
             lib.sct_spectral_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
             lib.sct_spectral_matmul.restype = i
+            lib.sct_spectral_matmul_q8.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+            lib.sct_spectral_matmul_q8.restype = i
             lib.sct_paged_gqa_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                                  i, f, p]
             lib.sct_paged_gqa_decode.restype = i
+            lib.sct_paged_gqa_decode_cold.argtypes = [p] * 11 + [i] * 7 + [f, p]
+            lib.sct_paged_gqa_decode_cold.restype = i
             lib.sct_flash_attention_fwd.argtypes = [p] * 6 + [i] * 8 + [f, p]
             lib.sct_flash_attention_fwd.restype = i
             lib.sct_flash_attention_bwd.argtypes = [p] * 11 + [i] * 8 + [f, p]

@@ -1,5 +1,7 @@
-"""Plain PyTorch version of the paged GQA decode kernel: gather the
-block table into the logical view, then masked direct softmax.
+"""Plain PyTorch versions of the paged GQA decode kernels: gather the
+block table into the logical view, then masked direct softmax; the cold
+variant first substitutes the dequantized int8 shadow rows for the
+pages flagged cold.
 
 The reference's ``kernels/paged_ref.py:paged_gqa_decode_ref`` computes
 in q's dtype; this version holds the fp32 decode contract the kernels
@@ -31,3 +33,19 @@ def paged_gqa_decode_ref(q, k_pool, v_pool, block_table, seq_lens):
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bgrk,bkgd->bgrd", probs, cv).to(q.dtype)
+
+
+def paged_gqa_decode_cold_ref(q, k_pool, v_pool, k_q8, k_scale, v_q8, v_scale,
+                              block_table, seq_lens, cold_flags):
+    """Cold-aware decode, plain: every page whose physical id is flagged
+    in ``cold_flags`` (P+1,) int32 reads ``q8 * scale`` in fp32 from the
+    int8 shadow pools ``k_q8``/``v_q8`` (P+1, page, kvh, hd) and their
+    per-page scales ``k_scale``/``v_scale`` (P+1, kvh, hd); the other
+    pages read the bf16 pools. The substituted fp32 pools then go
+    through :func:`paged_gqa_decode_ref` — the oracle
+    ``tests/test_kernels_paged.py:161-181`` builds for the reference's
+    ``paged_gqa_decode_cold_pallas``."""
+    sel = (cold_flags != 0)[:, None, None, None]
+    k = torch.where(sel, k_q8.float() * k_scale.float()[:, None], k_pool.float())
+    v = torch.where(sel, v_q8.float() * v_scale.float()[:, None], v_pool.float())
+    return paged_gqa_decode_ref(q, k, v, block_table, seq_lens)

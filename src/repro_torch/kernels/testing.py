@@ -83,6 +83,27 @@ def assert_scaled_close(y, yr, tol: Tol, err_msg: str = "") -> None:
                                err_msg=f"{err_msg} (outputs scaled by 1/{scale:g})")
 
 
+SCALE_PROFILES = ("unit", "extreme", "tiny", "huge", "alternating")
+
+
+def scale_profile(kind: str, k: int, device="cpu") -> torch.Tensor:
+    """A (k,) fp32 per-channel scale vector of the named shape (the
+    reference's ``kernels/testing.py:scale_profile``): the int8 kernels
+    must hold under scales spanning eight decades."""
+    if kind == "unit":
+        return torch.ones((k,), dtype=torch.float32, device=device)
+    if kind == "extreme":
+        return (10.0 ** torch.linspace(-4.0, 4.0, k, dtype=torch.float64,
+                                       device=device)).float()
+    if kind == "tiny":
+        return torch.full((k,), 1e-4, dtype=torch.float32, device=device)
+    if kind == "huge":
+        return torch.full((k,), 1e4, dtype=torch.float32, device=device)
+    if kind == "alternating":
+        return torch.where(torch.arange(k, device=device) % 2 == 0, 1e-3, 1e3).float()
+    raise ValueError(f"unknown scale profile {kind!r}; one of {SCALE_PROFILES}")
+
+
 def ragged_seq_lens(batch: int, max_len: int, page: int, seed: int = 0,
                     device="cpu") -> torch.Tensor:
     """(batch,) int32 lengths covering the masking edge cases: slot 0

@@ -5,13 +5,43 @@ cache, replaying a staggered trace of variable-length requests.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --reduced --paged --stream --verify --device cpu
 
+  python -m repro_torch.launch.serve --arch llama3.2-1b --paged --stream \\
+      --quantize int8 --streaming-window 4 --cold-kv int8 --verify
+
 Runs on the CUDA device unless ``--device`` names another. The weights
 are random, from ``--seed``. ``--verify`` replays every request through
 the batch-1 static-cache greedy path (:func:`static_greedy_reference`)
-and fails on any token mismatch.
+and fails on any token mismatch; under ``--streaming-window`` only the
+requests within the identity horizon (sink + window pages of tokens)
+are replayed, since eviction changes what a longer one attends to (the
+reference CLI's ``src/repro/launch/serve.py:216-232``).
 
-The reference's static mode, int8, speculative, tensor-parallel,
-disaggregated and streaming-window options are not ported yet.
+``--quantize int8`` serves int8 weights (spectral factors and dense
+projections). Its ``--verify`` oracle is the static path over the
+engine's own int8 tree. The reference CLI's oracle is the fp32 static
+path over ``dequantize_tree(engine.params)``; here that agreement, and
+the agreement with the unquantized weights, are printed as diagnostics
+only: on the card the dequantized oracle runs the bf16 kernel, whose
+``x @ (q8 * scale)`` rounds the dequantized factor to bf16 where the
+int8 kernel multiplies exact codes and applies the fused gain
+``u_scale * s * v_scale`` to h in fp32, and that reassociation can flip
+a greedy token where fp32 on the CPU does not.
+
+The static path is exact on the CPU in fp32. In bf16 on the card it is
+not bit for bit the engine: its decode attention sums in another order
+than the paged kernel, so a bf16 logit can land one rounding step away
+and a near-tie between two tokens can go the other way (the batched
+GEMMs and the spectral kernels are row-invariant; the attention is
+not). :func:`replay_alone` is the exact oracle there, and
+:func:`static_logit_gaps` holds the tokens to the static path within
+the tolerance ladder; ``chip_smoke.py`` checks both.
+
+``--streaming-window W`` keeps the ``--sink-pages`` pinned pages plus a
+window of W pages resident per sequence; ``--cold-kv int8`` demotes the
+resident pages older than the window to int8 shadow pools.
+
+The reference's static mode, speculative, tensor-parallel and
+disaggregated options are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +52,8 @@ import numpy as np
 import torch
 
 from repro_torch.config import get_config
-from repro_torch.device import resolve_device
+from repro_torch.device import compute_dtype, resolve_device
+from repro_torch.kernels.testing import tolerance_for
 from repro_torch.models.model import (
     decode_step,
     init_decode_state,
@@ -32,7 +63,9 @@ from repro_torch.models.model import (
 )
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.paged_cache import PagedCacheConfig
+from repro_torch.serving.quantize import dequantize_tree
 from repro_torch.serving.scheduler import Request
+from repro_torch.serving.streaming import StreamingConfig, identity_horizon
 
 
 def build_trace(args, vocab, pcfg):
@@ -87,6 +120,51 @@ def static_greedy_reference(cfg, params, prompt, gen, max_seq, *, device=None):
     return np.asarray(toks, dtype=np.int32)
 
 
+def replay_alone(engine: ServingEngine, request: Request) -> np.ndarray:
+    """``request`` served alone by a fresh engine with ``engine``'s
+    configuration and weights: the exact oracle for what batching,
+    paging, eviction and demotion may not change. The step shapes are
+    the engine's (its slot count, page geometry and chunking), and every
+    kernel on the path computes a row, a slot, the same way whatever
+    shares the step with it, so the tokens are identical bit for bit —
+    where the static path, whose attention sums in another order, can
+    land a bf16 logit one rounding step away and flip a near-tie."""
+    solo = ServingEngine(engine.cfg, engine.params, engine.pcfg, device=engine.device,
+                         prefill_token_budget=engine.prefill_token_budget,
+                         prefix_cache=engine.prefix_cache,
+                         chunked_prefill=engine.chunked_prefill, streaming=engine.streaming)
+    alone = Request(rid=request.rid, prompt=request.prompt,
+                    max_new_tokens=request.max_new_tokens, eos_id=request.eos_id)
+    return solo.run([alone])[request.rid]
+
+
+@torch.no_grad()
+def static_logit_gaps(cfg, params, prompt, tokens, max_seq, *, device=None) -> np.ndarray:
+    """Teacher-forced static path over ``tokens``: at every generated
+    position, the static path's best logit less its logit for the token
+    given, over the ladder's allowance for that step (``atol * rms +
+    rtol * |best|`` of the compute dtype's rung, logits in fp32). A
+    value <= 1 means the token given is the static path's choice within
+    the kernels' tolerance; greedy tokens of a correct engine stay there
+    even where a near-tie flips them."""
+    dev = resolve_device(device)
+    params = serving_params(params, cfg, dev)
+    tol = tolerance_for(compute_dtype(cfg))
+    state = init_decode_state(cfg, 1, max_seq, device=dev)
+    toks = torch.as_tensor(np.asarray(prompt), dtype=torch.int64).to(dev)[None]
+    logits, state = prefill(params, toks, cfg, state)
+    gaps = []
+    for i, tok in enumerate(np.asarray(tokens)):
+        lg = logits[0, -1].float()
+        best = lg.max()
+        rms = torch.sqrt(torch.mean(lg * lg))
+        gaps.append(float((best - lg[int(tok)]) / (tol.atol * rms + tol.rtol * best.abs())))
+        if i + 1 < len(tokens):
+            nxt = torch.tensor([[int(tok)]], dtype=torch.int64, device=dev)
+            logits, state = decode_step(params, nxt, state, len(prompt) + i, cfg)
+    return np.asarray(gaps)
+
+
 def paged_config(args) -> PagedCacheConfig:
     return PagedCacheConfig(page_size=args.page_size, num_pages=args.num_pages,
                             max_slots=args.slots, max_pages_per_seq=args.pages_per_seq)
@@ -94,10 +172,15 @@ def paged_config(args) -> PagedCacheConfig:
 
 def run_stream(args, cfg, params) -> ServingEngine:
     pcfg = paged_config(args)
+    scfg = (StreamingConfig(sink_pages=args.sink_pages, window_pages=args.streaming_window,
+                            cold_kv=args.cold_kv)
+            if args.streaming_window is not None else None)
     engine = ServingEngine(cfg, params, pcfg, device=args.device,
                            prefill_token_budget=args.prefill_budget,
+                           quantize=args.quantize,
                            prefix_cache=args.prefix_cache,
-                           chunked_prefill=args.chunked_prefill)
+                           chunked_prefill=args.chunked_prefill,
+                           streaming=scfg)
     trace = build_trace(args, cfg.vocab, pcfg)
     print(f"streaming {len(trace)} requests, prompt lens "
           f"{sorted({r.prompt_len for r in trace})}, slots={pcfg.max_slots}, "
@@ -115,23 +198,60 @@ def run_stream(args, cfg, params) -> ServingEngine:
         print(f"prefix cache: {saved}/{total} prompt tokens served from cache")
     print(f"inter-token latency: p50 {st['itl_p50_s'] * 1e3:.1f} ms, "
           f"p99 {st['itl_p99_s'] * 1e3:.1f} ms")
+    if scfg is not None:
+        line = (f"streaming: sink={scfg.sink_pages}p + window={scfg.window_pages}p "
+                f"resident cap, {int(st['stream_evictions'])} pages evicted")
+        if scfg.cold_kv == "int8":
+            line += (f", {int(st['stream_demotions'])} demoted to int8 "
+                     f"({int(st['cold_page_bytes'])} shadow bytes)")
+        print(line)
+    if args.quantize:
+        print(f"weights: {int(st['weight_bytes'])} bytes {args.quantize} "
+              f"(fp32 {int(st['weight_bytes_fp'])} bytes, "
+              f"{st['weight_bytes_fp'] / st['weight_bytes']:.2f}x smaller)")
     print("generated token ids (request 0):", out[trace[0].rid][:16], "...")
     if args.verify:
-        bad = 0
-        for r in trace:
-            ref = static_greedy_reference(cfg, engine.params, r.prompt, r.max_new_tokens,
-                                          pcfg.max_seq, device=engine.device)
-            got = out[r.rid]
-            ok = (np.array_equal(ref[:len(got)], got)
-                  if engine.last_statuses.get(r.rid) != "finished"
-                  else np.array_equal(ref, got))
-            if not ok:
-                bad += 1
-                print(f"request {r.rid}: MISMATCH\n  static {ref}\n  paged  {got}")
-        if bad:
-            raise SystemExit(f"{bad}/{len(trace)} requests diverged from the static path")
-        print(f"verify: all {len(trace)} requests match the static path token-for-token")
+        verify(engine, trace, out, params)
     return engine
+
+
+def verify(engine: ServingEngine, trace, out, params) -> None:
+    """Replay every request within the identity horizon through the
+    static path over the engine's own weights and require identical
+    tokens; under --quantize, print the agreement with the dequantized
+    and the unquantized weights as diagnostics."""
+    cfg, pcfg = engine.cfg, engine.pcfg
+    horizon = (identity_horizon(engine.streaming, pcfg)
+               if engine.streaming is not None else None)
+    checked = [r for r in trace
+               if horizon is None or r.prompt_len + r.max_new_tokens <= horizon]
+    bad = 0
+    for r in checked:
+        ref = static_greedy_reference(cfg, engine.params, r.prompt, r.max_new_tokens,
+                                      pcfg.max_seq, device=engine.device)
+        got = out[r.rid]
+        ok = (np.array_equal(ref[:len(got)], got)
+              if engine.last_statuses.get(r.rid) != "finished"
+              else np.array_equal(ref, got))
+        if not ok:
+            bad += 1
+            print(f"request {r.rid}: MISMATCH\n  static {ref}\n  paged  {got}")
+    if bad:
+        raise SystemExit(f"{bad}/{len(checked)} requests diverged from the static path")
+    skipped = len(trace) - len(checked)
+    print(f"verify: all {len(checked)} requests match the static path token-for-token"
+          + (f" ({skipped} beyond the {horizon}-token streaming identity horizon "
+             f"skipped)" if skipped else ""))
+    if engine.quantize:
+        for what, oracle in (("the dequantized int8 weights", dequantize_tree(engine.params)),
+                             ("the unquantized weights", params)):
+            agree = total = 0
+            for r in checked:
+                ref = static_greedy_reference(cfg, oracle, r.prompt, r.max_new_tokens,
+                                              pcfg.max_seq, device=engine.device)
+                agree += int(np.sum(ref[:len(out[r.rid])] == out[r.rid]))
+                total += ref.size
+            print(f"diagnostic: {agree}/{total} greedy tokens agree with {what}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -168,6 +288,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many shared system-prompt tokens to "
                          "every request")
+    ap.add_argument("--quantize", choices=["int8"], default=None,
+                    help="serve int8 per-channel quantized weights (spectral factors "
+                         "and dense projections)")
+    ap.add_argument("--streaming-window", type=int, default=None,
+                    help="long-context streaming: keep this many sliding-window pages "
+                         "(plus the pinned sinks) resident per sequence")
+    ap.add_argument("--sink-pages", type=int, default=1,
+                    help="attention-sink pages pinned at the head of every sequence "
+                         "(with --streaming-window)")
+    ap.add_argument("--cold-kv", choices=["none", "int8"], default="none",
+                    help="tier of resident pages older than the window: none keeps "
+                         "them bf16, int8 demotes them to int8 shadow pools (with "
+                         "--streaming-window)")
     ap.add_argument("--verify", action="store_true",
                     help="check outputs against the static path token for token")
     return ap
@@ -178,6 +311,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if not (args.paged and args.stream):
         raise SystemExit("the port serves with --paged --stream (static mode is "
                          "not ported)")
+    if args.streaming_window is None and args.cold_kv != "none":
+        raise SystemExit("--cold-kv needs --streaming-window")
+    if args.streaming_window is not None:
+        cap = args.sink_pages + args.streaming_window + 1
+        if args.sink_pages < 1 or args.streaming_window < 1:
+            raise SystemExit("--sink-pages and --streaming-window must be >= 1")
+        if cap > args.pages_per_seq:
+            raise SystemExit(f"streaming resident cap {cap} pages (sink + window + "
+                             f"growth) exceeds --pages-per-seq {args.pages_per_seq}")
     cfg = get_config(args.arch, reduced=args.reduced)
     params = init_model(cfg, seed=args.seed, device=args.device)
     run_stream(args, cfg, params)

@@ -55,14 +55,27 @@ def lm_init_state(cfg: ModelConfig, batch: int, max_seq: int, *, device):
         (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim), device)}
 
 
-def lm_init_paged_state(cfg: ModelConfig, pcfg, *, device):
+def lm_init_paged_state(cfg: ModelConfig, pcfg, *, device, cold_kv: str = "none"):
     """Zero paged decode state: {"cache": {"k"/"v": (L, num_pages + 1,
     page_size, kvh, hd) bf16}} — one shared pool per layer, the last
-    page the null page."""
+    page the null page. ``cold_kv="int8"`` adds the streaming cold
+    tier's shadow leaves (the reference's ``_attn_pool_spec``,
+    ``src/repro/models/decode.py:93-127``): ``k_q8``/``v_q8`` int8 of
+    the pools' shape and ``k_scale``/``v_scale`` (L, num_pages + 1, kvh,
+    hd) fp32, one scale per page and channel."""
     require_dense(cfg)
-    return {"cache": _kv_pair(
-        (cfg.n_layers, pcfg.num_pages + 1, pcfg.page_size, cfg.n_kv_heads,
-         cfg.head_dim), device)}
+    if cold_kv not in ("none", "int8"):
+        raise ValueError(f"cold_kv must be 'none' or 'int8', got {cold_kv!r}")
+    L, P = cfg.n_layers, pcfg.num_pages + 1
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    cache = _kv_pair((L, P, pcfg.page_size, kvh, hd), device)
+    if cold_kv == "int8":
+        for name in ("k", "v"):
+            cache[name + "_q8"] = torch.zeros((L, P, pcfg.page_size, kvh, hd),
+                                              dtype=torch.int8, device=device)
+            cache[name + "_scale"] = torch.zeros((L, P, kvh, hd), dtype=torch.float32,
+                                                 device=device)
+    return {"cache": cache}
 
 
 # ======================================================================
@@ -111,10 +124,13 @@ def decode_step_lm(params: Params, tokens: torch.Tensor, state, cache_len: int,
 
 def decode_step_lm_paged(params: Params, tokens: torch.Tensor, state,
                          block_table: torch.Tensor, seq_lens: torch.Tensor,
-                         cfg: ModelConfig):
+                         cfg: ModelConfig, *, cold_flags=None):
     """One-token step for every slot against the paged pools, mixed fill
     levels in one step (the continuous-batching contract).
-    block_table: (slots, n_pages) int32; seq_lens: (slots,) int32."""
+    block_table: (slots, n_pages) int32; seq_lens: (slots,) int32;
+    ``cold_flags`` (num_pages + 1,) int32: the streaming cold tier's
+    per-page flags, with the shadow leaves in the state (threaded as in
+    ``src/repro/models/decode.py:379-432``)."""
     # every layer shares the step's RoPE tables and append targets
     rope = attn.step_rope(cfg, seq_lens[:, None].long())
     slots = paged_slots(block_table, seq_lens, state["cache"]["k"].shape[2])
@@ -122,16 +138,18 @@ def decode_step_lm_paged(params: Params, tokens: torch.Tensor, state,
     def attn_decode(p, h, cache):
         return attn.apply_gqa_decode_paged(p, h, cfg, cache=cache,
                                            block_table=block_table, seq_lens=seq_lens,
-                                           rope=rope, slots=slots)
+                                           rope=rope, slots=slots, cold_flags=cold_flags)
 
     return _decode_step_body(params, tokens, state, cfg, attn_decode)
 
 
 def prefill_chunk_lm_paged(params: Params, tokens: torch.Tensor, state,
-                           block_table: torch.Tensor, start: int, cfg: ModelConfig):
+                           block_table: torch.Tensor, start: int, cfg: ModelConfig, *,
+                           cold_flags=None):
     """Chunked/offset prefill of one sequence: tokens (1, c) at absolute
-    positions [start, start+c), pages mapped in block_table (1, n_pages).
-    Returns (logits (1, c, vocab), state)."""
+    positions [start, start+c), pages mapped in block_table (1, n_pages);
+    ``cold_flags`` as in :func:`decode_step_lm_paged`. Returns (logits
+    (1, c, vocab), state)."""
     if not supports_prefix_sharing(cfg):
         raise NotImplementedError(
             f"chunked/offset prefill needs pure paged-attention state; "
@@ -143,7 +161,7 @@ def prefill_chunk_lm_paged(params: Params, tokens: torch.Tensor, state,
     def attn_chunk(p, h, cache):
         return attn.apply_gqa_prefill_paged(p, h, cfg, cache=cache,
                                             block_table=block_table, start=int(start),
-                                            rope=rope)
+                                            rope=rope, cold_flags=cold_flags)
 
     return _decode_step_body(params, tokens, state, cfg, attn_chunk)
 

@@ -5,7 +5,7 @@
   train_loss(params, batch, cfg)                  -> (loss, metrics)
   init_decode_state / prefill / decode_step       (static cache)
   init_paged_state / decode_step_paged / prefill_chunk_paged
-  serving_params(params, cfg, device)             -> params cast once
+  serving_params(params, cfg, device, quantize=)  -> params quantized / cast once
 
 Params are nested dicts of tensors in the reference's layout;
 ``bridge.as_module`` wraps them in an ``nn.Module`` whose parameter
@@ -22,6 +22,7 @@ from repro_torch.core.tree import tree_leaves
 from repro_torch.device import DeviceLike, compute_dtype, generator_for, resolve_device
 from repro_torch.models import decode as decode_mod
 from repro_torch.models import lm as lm_mod
+from repro_torch.serving.quantize import is_quantized, param_bytes, quantize_tree
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0,
@@ -55,48 +56,57 @@ def decode_step(params, tokens, state, cache_len: int, cfg: ModelConfig):
     return decode_mod.decode_step_lm(params, tokens, state, cache_len, cfg)
 
 
-def init_paged_state(cfg: ModelConfig, pcfg, *, device):
-    return decode_mod.lm_init_paged_state(cfg, pcfg, device=device)
+def init_paged_state(cfg: ModelConfig, pcfg, *, device, cold_kv: str = "none"):
+    return decode_mod.lm_init_paged_state(cfg, pcfg, device=device, cold_kv=cold_kv)
 
 
-def decode_step_paged(params, tokens, state, block_table, seq_lens, cfg: ModelConfig):
+def decode_step_paged(params, tokens, state, block_table, seq_lens, cfg: ModelConfig, *,
+                      cold_flags=None):
     return decode_mod.decode_step_lm_paged(params, tokens, state, block_table,
-                                           seq_lens, cfg)
+                                           seq_lens, cfg, cold_flags=cold_flags)
 
 
-def prefill_chunk_paged(params, tokens, state, block_table, start: int, cfg: ModelConfig):
+def prefill_chunk_paged(params, tokens, state, block_table, start: int, cfg: ModelConfig,
+                        *, cold_flags=None):
     return decode_mod.prefill_chunk_lm_paged(params, tokens, state, block_table,
-                                             start, cfg)
+                                             start, cfg, cold_flags=cold_flags)
 
 
-def serving_params(params, cfg: ModelConfig, device: torch.device):
-    """Params on ``device`` with every floating leaf cast once to the
-    compute dtype, except the spectral ``s`` vectors, which stay fp32
-    (the kernel scales h by s in fp32). The reference casts at every
-    apply, which gives the same numbers; casting once keeps the
-    128k-row embedding/LM-head table out of every decode step's bytes."""
+def serving_params(params, cfg: ModelConfig, device: torch.device,
+                   quantize: Optional[str] = None):
+    """Params on ``device`` as the engine serves them: with
+    ``quantize="int8"`` the fp32 masters are quantized first
+    (``serving/quantize.py:quantize_tree``, as the reference engine does
+    at ``src/repro/serving/engine.py:112-117``); then every remaining
+    floating leaf is cast once to the compute dtype, except the spectral
+    ``s`` vectors (the kernels scale h by s in fp32) and the leaves of a
+    quantized tensor (``q8`` stays int8, ``scale`` fp32). A tree that is
+    already quantized passes through with its codes and scales as they
+    are. The reference casts at every apply, which gives the same
+    numbers; casting once keeps the 128k-row embedding/LM-head table out
+    of every decode step's bytes."""
+    if quantize == "int8":
+        params = quantize_tree(params)
+    elif quantize is not None:
+        raise ValueError(f"unknown quantization {quantize!r}; options: int8")
     dt = compute_dtype(cfg)
 
-    def cast(path_leaf):
-        name, t = path_leaf
+    def walk(tree):
+        if is_quantized(tree):
+            return {"q8": tree["q8"].to(device), "scale": tree["scale"].to(device).float()}
+        return {k: walk(v) if isinstance(v, dict) else cast(k, v) for k, v in tree.items()}
+
+    def cast(name, t):
         t = t.to(device)
         if t.is_floating_point() and name != "s":
             t = t.to(dt)
         return t
-
-    def walk(tree):
-        return {k: walk(v) if isinstance(v, dict) else cast((k, v))
-                for k, v in tree.items()}
 
     return walk(params)
 
 
 def param_count(params) -> int:
     return sum(t.numel() for t in tree_leaves(params))
-
-
-def param_bytes(params) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
 
 
 __all__ = [

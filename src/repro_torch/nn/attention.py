@@ -13,7 +13,12 @@ flash branch (``_flash``: the CUDA flash kernels on the card, their plain
 version on the CPU) under the reference's exact condition; every other
 call runs the direct softmax.
 
-Not ported here: tensor parallelism, cold-KV shadow pools, MLA.
+A paged cache may carry the streaming cold tier's int8 shadow leaves
+(``k_q8``/``k_scale``/``v_q8``/``v_scale``); with ``cold_flags`` the
+flagged pages read their dequantized shadow rows (``_gather_cold`` at
+prefill, the cold decode kernel at decode).
+
+Not ported here: tensor parallelism, MLA.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 from repro_torch.kernels.flash_ref import FLASH_KV_CHUNK, FLASH_Q_CHUNK
-from repro_torch.kernels.paged_decode import paged_gqa_decode
+from repro_torch.kernels.paged_decode import paged_gqa_decode, paged_gqa_decode_cold
 from repro_torch.nn.linear import apply_linear, init_linear
 from repro_torch.nn.rotary import apply_rope, rope_tables
 from repro_torch.serving.paged_cache import (
@@ -185,32 +190,61 @@ def apply_gqa_decode(p, x, cfg, *, cache, cache_len: int, rope=None):
     return apply_linear(p["wo"], o.reshape(b, s, -1)), cache
 
 
-def apply_gqa_prefill_paged(p, x, cfg, *, cache, block_table, start: int, rope=None):
+def _gather_cold(cache, name, block_table, cold_flags):
+    """Gather one paged pool leaf into the logical (b, S, *f) view with
+    the pages flagged cold replaced by their dequantized int8 shadow rows
+    (``q8 * scale`` in fp32), returned in fp32; without cold flags or
+    shadow leaves this is ``paged_gather``. The reference's
+    ``src/repro/nn/attention.py:330``."""
+    pool = cache[name]
+    g = paged_gather(pool, block_table)
+    if cold_flags is None or name + "_q8" not in cache:
+        return g
+    b, n = block_table.shape
+    page = pool.shape[1]
+    q8 = paged_gather(cache[name + "_q8"], block_table)            # (b, S, *f)
+    scale = cache[name + "_scale"][block_table.long()]             # (b, n, *f)
+    deq = (q8.float().reshape(b, n, page, *pool.shape[2:])
+           * scale[:, :, None].float()).reshape(g.shape)
+    flag = cold_flags[block_table.long()] != 0                      # (b, n)
+    flag = flag.repeat_interleave(page, dim=1)                      # (b, S)
+    flag = flag.reshape(flag.shape + (1,) * (g.ndim - 2))
+    return torch.where(flag, deq, g.float())
+
+
+def apply_gqa_prefill_paged(p, x, cfg, *, cache, block_table, start: int, rope=None,
+                            cold_flags=None):
     """Chunked prefill from a logical offset against a paged pool.
 
     x: (1, c, d) — one sequence's prompt tokens at absolute positions
     [start, start+c); block_table: (1, n_pages). The chunk's K/V is
     written into the sequence's pages, then attention runs over the
     gathered logical view: positions < start are the cached prefix,
-    positions >= start+c stay behind the causal mask."""
+    positions >= start+c stay behind the causal mask. With
+    ``cold_flags`` the view is gathered in fp32 through
+    :func:`_gather_cold` (no kernel, as in the reference,
+    ``src/repro/nn/attention.py:388-389``)."""
     b, c, _ = x.shape
     positions = _positions(start, c, b, x.device)
     q, k, v = _gqa_qkv(p, x, cfg, positions, rope)
     paged_write_slice(cache["k"], block_table[0], start, k[0])
     paged_write_slice(cache["v"], block_table[0], start, v[0])
-    ck = paged_gather(cache["k"], block_table).to(q.dtype)
-    cv = paged_gather(cache["v"], block_table).to(q.dtype)
+    ck = _gather_cold(cache, "k", block_table, cold_flags).to(q.dtype)
+    cv = _gather_cold(cache, "v", block_table, cold_flags).to(q.dtype)
     o = _sdpa(q, ck, cv, causal=True, q_offset=start)
     return apply_linear(p["wo"], o.reshape(b, c, -1)), cache
 
 
 def apply_gqa_decode_paged(p, x, cfg, *, cache, block_table, seq_lens, rope=None,
-                           slots=None):
+                           slots=None, cold_flags=None):
     """One-token step against a paged pool: block_table (b, n_pages)
     int32, seq_lens (b,) int32 per-slot fill levels. The new token is
     appended into each slot's current page, then attention runs through
     the paged decode kernel, which walks the block table itself
-    (``kernels/paged_decode.py``; its plain version on the CPU).
+    (``kernels/paged_decode.py``; its plain version on the CPU). With
+    ``cold_flags`` and shadow leaves in the cache every step runs the
+    cold kernel, flagged pages or not (the reference's dispatch,
+    ``src/repro/nn/attention.py:439-443``).
     ``rope`` / ``slots``: the step's RoPE tables and append targets
     (``paged_slots``), shared by every layer; computed here if absent."""
     b, s, _ = x.shape
@@ -222,6 +256,11 @@ def apply_gqa_decode_paged(p, x, cfg, *, cache, block_table, seq_lens, rope=None
     paged_append(cache["k"], block_table, seq_lens, k[:, 0], slots=slots)
     paged_append(cache["v"], block_table, seq_lens, v[:, 0], slots=slots)
     qg = q[:, 0].reshape(b, kvh, h // kvh, hd)
-    og = paged_gqa_decode(qg, cache["k"], cache["v"], block_table, seq_lens)
+    if cold_flags is not None and "k_q8" in cache:
+        og = paged_gqa_decode_cold(qg, cache["k"], cache["v"], cache["k_q8"],
+                                   cache["k_scale"], cache["v_q8"], cache["v_scale"],
+                                   block_table, seq_lens, cold_flags)
+    else:
+        og = paged_gqa_decode(qg, cache["k"], cache["v"], block_table, seq_lens)
     o = og.reshape(b, s, h * hd)
     return apply_linear(p["wo"], o), cache

@@ -4,8 +4,10 @@ paper's technique is a config switch on every projection.
 The spectral branch always runs the fused kernel wrapper
 (``kernels/ops.py:spectral_matmul``): the CUDA kernel for CUDA tensors,
 its plain version for CPU tensors, with the reference's backward for
-autograd. The dense branch is a plain matmul. The reference's int8
-branches come with int8 serving.
+autograd. An int8 spectral group (``serving/quantize.py``) runs the
+int8 kernel wrapper (``kernels/ops.py:spectral_matmul_q8``) on its codes.
+The dense branch is a plain matmul; an int8 dense ``w`` is dequantized
+for the call, as the reference computes it outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.spectral import is_spectral, spectral_init
-from repro_torch.kernels.ops import spectral_matmul
+from repro_torch.kernels.ops import spectral_matmul, spectral_matmul_q8
+from repro_torch.serving.quantize import dequantize_int8, is_quantized, is_quantized_spectral
 
 
 def init_linear(
@@ -45,16 +48,17 @@ def init_linear(
 
 
 def apply_linear(p, x: torch.Tensor) -> torch.Tensor:
-    """Dispatch on parameterization; the dense (m, n) matrix is never
-    built in the spectral branch."""
+    """Dispatch on parameterization (the reference's
+    ``src/repro/nn/linear.py:57``); the dense (m, n) matrix is never
+    built in the spectral branches."""
     if is_spectral(p):
         y = spectral_matmul(x, p["U"], p["s"], p["V"])
-    elif "w" in p:
-        y = x @ p["w"].to(x.dtype)
+    elif is_quantized_spectral(p):              # int8 spectral group
+        y = spectral_matmul_q8(x, p["U"], p["s"], p["V"])
+    elif is_quantized(p.get("w")):              # int8 dense weight
+        y = x @ dequantize_int8(p["w"], x.dtype)
     else:
-        raise NotImplementedError(
-            f"linear parameters with keys {sorted(p)}: only dense and "
-            f"spectral groups are ported (int8 serving is not)")
+        y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y

@@ -16,9 +16,18 @@ into free slots (FIFO, shared prefixes mapped from the index) -> run
 prefill chunks under the step budget -> one batched decode step ->
 record tokens, drain finished/cancelled sequences to the caller.
 
-Not ported yet (they raise ``NotImplementedError``): int8 weights
-(``quantize``), tensor-parallel serving (``mesh``), long-context
-streaming (``streaming``) and the SLO scheduler (``scheduler="slo"``).
+``quantize="int8"`` serves int8 weights (``serving/quantize.py``: the
+spectral factors through the int8 kernel, dense projections dequantized
+per call). ``streaming=StreamingConfig(...)`` bounds every sequence to
+attention sinks plus a sliding window of pages (``serving/streaming.py``;
+the scheduler evicts), and with ``cold_kv="int8"`` the engine demotes
+the resident pages older than the window into int8 shadow pools that
+attention reads through the cold decode kernel. Reference:
+``src/repro/serving/engine.py:112-121`` (int8), ``:133-200`` and
+``:515-700`` (streaming, the cold tier), ``:750-753`` (the stats).
+
+Not ported yet (they raise ``NotImplementedError``): tensor-parallel
+serving (``mesh``) and the SLO scheduler (``scheduler="slo"``).
 """
 from __future__ import annotations
 
@@ -36,12 +45,13 @@ from repro_torch.models.lm import require_dense
 from repro_torch.models.model import (
     decode_step_paged,
     init_paged_state,
-    param_bytes,
     prefill_chunk_paged,
     serving_params,
 )
 from repro_torch.serving.paged_cache import PagedCacheConfig
+from repro_torch.serving.quantize import param_bytes, quantize_kv_pages
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler, Request, SeqState
+from repro_torch.serving.streaming import StreamingConfig
 
 # inter-token latency samples kept for percentile stats; bounded so a
 # long-lived engine under continuous traffic cannot leak host memory
@@ -51,10 +61,11 @@ LATENCY_WINDOW = 4096
 class ServingEngine:
     """Continuous-batching serving runtime over one model + one paged
     cache pool on one device. Construct with live ``params`` (the fp32
-    masters; they are moved and cast to the compute dtype once),
-    optionally ``prefix_cache=True`` / ``chunked_prefill=True``; submit
-    ``Request`` traces through :meth:`run`, cancel in-flight requests
-    with :meth:`cancel`, read throughput/memory/latency from
+    masters; they are quantized when ``quantize="int8"``, then moved and
+    cast to the compute dtype once), optionally ``prefix_cache=True`` /
+    ``chunked_prefill=True`` / ``streaming=StreamingConfig(...)``;
+    submit ``Request`` traces through :meth:`run`, cancel in-flight
+    requests with :meth:`cancel`, read throughput/memory/latency from
     :meth:`stats`."""
 
     def __init__(self, cfg: ModelConfig, params, pcfg: PagedCacheConfig, *,
@@ -64,12 +75,10 @@ class ServingEngine:
                  prefix_cache: bool = False,
                  chunked_prefill: bool = False,
                  scheduler: str = "fifo",
-                 streaming=None,
+                 streaming: Optional[StreamingConfig] = None,
                  mesh=None):
-        for name, value in (("quantize", quantize), ("streaming", streaming),
-                            ("mesh", mesh)):
-            if value is not None:
-                raise NotImplementedError(f"ServingEngine({name}=...) is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("ServingEngine(mesh=...) is not ported yet")
         if scheduler == "slo":
             raise NotImplementedError("the SLO scheduler is not ported yet")
         if scheduler != "fifo":
@@ -78,7 +87,8 @@ class ServingEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.weight_bytes_fp = param_bytes(params)
-        self.params = serving_params(params, cfg, self.device)
+        self.quantize = quantize
+        self.params = serving_params(params, cfg, self.device, quantize=quantize)
         self.weight_bytes = param_bytes(self.params)
         self.pcfg = pcfg
         self.prefill_token_budget = prefill_token_budget
@@ -88,14 +98,39 @@ class ServingEngine:
         self._offset_prefill = supports_prefix_sharing(cfg)
         self.prefix_cache = bool(prefix_cache) and self._offset_prefill
         self.chunked_prefill = bool(chunked_prefill) and self._offset_prefill
-        self.state = init_paged_state(cfg, pcfg, device=self.device)
+        # streaming KV policy: attention sinks + sliding-window eviction
+        # + an optional int8 cold tier (serving/streaming.py)
+        self.streaming = streaming
+        self._cold = streaming is not None and streaming.cold_kv == "int8"
+        self.state = init_paged_state(cfg, pcfg, device=self.device,
+                                      cold_kv="int8" if self._cold else "none")
         self.sched = ContinuousBatchingScheduler(
-            pcfg, prefill_token_budget, prefix_sharing=self.prefix_cache)
+            pcfg, prefill_token_budget, prefix_sharing=self.prefix_cache,
+            streaming=streaming)
         self.scheduler = scheduler
         self._next_input = np.zeros((pcfg.max_slots,), dtype=np.int64)
 
+        # cold-tier bookkeeping: a host flag per physical page (1 = the
+        # int8 shadow copy is what attention reads), mirrored to the
+        # device when it changed, cleared whenever the pool frees a page
+        # (evict, finish, cancel, prefix-cache eviction: one hook)
+        self.stream_demotions = 0
+        self.cold_page_bytes = 0
+        self._cold_np = np.zeros((pcfg.num_pages + 1,), dtype=np.int32)
+        self._cold_dev: Optional[torch.Tensor] = None
+        self._cold_bytes_per_page = 0
+        if self._cold:
+            self.sched.pool.on_free = self._on_pages_freed
+            # int8 shadow bytes one demoted page occupies across every
+            # layer of every q8 leaf (the reference's cost metric)
+            self._cold_bytes_per_page = sum(
+                leaf.shape[0] * int(np.prod(leaf.shape[2:]))
+                for key in ATTN_STATE_KEYS
+                for name, leaf in self.state[key].items() if name.endswith("_q8"))
+
         # stats (bounded: counters + a fixed-width latency window)
         self.prefill_tokens = 0          # prompt tokens actually computed
+        self.prefill_chunks = 0          # chunk-prefill steps run
         self.prompt_tokens = 0           # prompt tokens admitted
         self.prefix_shared_tokens = 0    # prompt tokens served from the index
         self.decoded_tokens = 0
@@ -200,6 +235,10 @@ class ServingEngine:
         chunk budget (when chunking; otherwise each tail runs whole).
         The first chunk of a step always runs — progress guarantee."""
         budget = self.prefill_chunk if self.chunked_prefill else None
+        # streaming caps every chunk at a window of tokens: eviction can
+        # then always make room, and each chunk advances by at least a page
+        cap = (self.streaming.window_pages * self.pcfg.page_size
+               if self.streaming is not None else None)
         spent = 0
         for seq in self.sched.prefilling():
             plen = seq.request.prompt_len
@@ -207,8 +246,13 @@ class ServingEngine:
             while seq.prefill_pos < plen:
                 remaining = plen - seq.prefill_pos
                 c = remaining if budget is None else min(remaining, max(1, budget - spent))
+                if cap is not None:
+                    c = min(c, cap)
                 if budget is not None and spent > 0 and spent + c > budget:
                     return                       # budget exhausted; resume next step
+                if self.streaming is not None:
+                    self.sched.stream_prepare_chunk(seq.slot, c)
+                    self._stream_demote(seq.slot)
                 logits = self._run_chunk(seq, c)
                 spent += c
             self._complete_prefill(seq, logits)
@@ -220,12 +264,60 @@ class ServingEngine:
         toks = torch.as_tensor(req.prompt[seq.prefill_pos:seq.prefill_pos + c],
                                dtype=torch.int64).to(self.device)[None]
         bt = torch.as_tensor(self.sched.block_table[seq.slot:seq.slot + 1]).to(self.device)
+        # cache-slot-relative start: evicted history no longer occupies
+        # cache positions (the StreamingLLM position contract)
         start = seq.prefill_pos - seq.evicted_tokens
         logits, self.state = prefill_chunk_paged(self.params, toks, self.state, bt,
-                                                 start, self.cfg)
+                                                 start, self.cfg,
+                                                 cold_flags=self._cold_flags())
         seq.prefill_pos += c
         self.prefill_tokens += c
+        self.prefill_chunks += 1
         return logits
+
+    # --------------------------------------------------------- streaming --
+    def _cold_flags(self) -> Optional[torch.Tensor]:
+        """Device copy of the per-page cold flags (None without the cold
+        tier), rebuilt only when the host mirror changed."""
+        if not self._cold:
+            return None
+        if self._cold_dev is None:
+            self._cold_dev = torch.tensor(self._cold_np, device=self.device)
+        return self._cold_dev
+
+    def _on_pages_freed(self, pages) -> None:
+        """PagePool.on_free hook: a freed page's shadow copy is stale;
+        whatever sequence reuses the page starts hot."""
+        idx = np.asarray(pages)
+        if len(idx) and self._cold_np[idx].any():
+            self._cold_np[idx] = 0
+            self._cold_dev = None
+
+    def _demote(self, page: int) -> None:
+        """Quantize physical page ``page`` of every layer's K and V pools
+        (``quantize_kv_pages``: one fp32 scale per layer, head and
+        feature) into the shadow leaves. Unlike the reference's
+        functional update, it writes the shadow pools in place."""
+        for key in ATTN_STATE_KEYS:
+            cache = self.state[key]
+            for name in [n for n in cache if n + "_q8" in cache]:
+                qt = quantize_kv_pages(cache[name][:, page], token_axis=1)
+                cache[name + "_q8"][:, page] = qt["q8"]
+                cache[name + "_scale"][:, page] = qt["scale"]
+
+    def _stream_demote(self, slot: int) -> None:
+        """Demote this slot's newly cold pages (resident, outside the
+        window, unshared) into the int8 shadow pools."""
+        if not self._cold:
+            return
+        for p in self.sched.stream_cold_pages(slot):
+            if self._cold_np[p]:
+                continue
+            self._demote(p)
+            self._cold_np[p] = 1
+            self._cold_dev = None
+            self.stream_demotions += 1
+            self.cold_page_bytes += self._cold_bytes_per_page
 
     def _complete_prefill(self, seq: SeqState, logits) -> None:
         tok = int(torch.argmax(logits[0, -1]))
@@ -235,6 +327,13 @@ class ServingEngine:
 
     @torch.no_grad()
     def _decode_once(self) -> None:
+        if self.streaming is not None:
+            # window maintenance first: eviction may shrink seq_len, so
+            # it precedes the append-capacity check for the next token
+            for slot, seq in list(self.sched.active.items()):
+                if seq.status == "decoding":
+                    self.sched.stream_maintain(slot, 1)
+                    self._stream_demote(slot)
         for _, src, dst in self.sched.ensure_append_capacity():
             # copy-on-write fork: duplicate the shared page in every
             # layer's pools before the batched append may write it
@@ -246,7 +345,7 @@ class ServingEngine:
         sl = torch.as_tensor(sl_np).to(self.device)
         toks = torch.as_tensor(self._next_input).to(self.device)[:, None]
         logits, self.state = decode_step_paged(self.params, toks, self.state, bt, sl,
-                                               self.cfg)
+                                               self.cfg, cold_flags=self._cold_flags())
         nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
         decoding = [s for s, seq in self.sched.active.items() if seq.status == "decoding"]
         for slot in decoding:
@@ -279,6 +378,7 @@ class ServingEngine:
             "timed_out": float(self.timed_out),
             "peak_pages": float(self.peak_pages),
             "prefill_tokens": float(self.prefill_tokens),
+            "prefill_chunks": float(self.prefill_chunks),
             "prompt_tokens": float(self.prompt_tokens),
             "prefix_shared_tokens": float(self.prefix_shared_tokens),
             "generated_tokens": float(gen),
@@ -291,6 +391,10 @@ class ServingEngine:
             "weight_bytes_fp": float(self.weight_bytes_fp),
         }
         out.update(self.latency_percentiles())
+        if self.streaming is not None:
+            out["stream_evictions"] = float(self.sched.stream_evictions)
+            out["stream_demotions"] = float(self.stream_demotions)
+            out["cold_page_bytes"] = float(self.cold_page_bytes)
         if self.sched.prefix_cache is not None:
             out.update({k: float(v) for k, v in self.sched.prefix_cache.stats().items()})
         return out

@@ -498,15 +498,27 @@ class ContinuousBatchingScheduler:
 
     def stream_cold_pages(self, slot: int) -> List[int]:
         """Physical ids of this sequence's cold pages — resident, older
-        than the window, not shared (demoting a page another sequence
-        or the prefix index also maps would corrupt *their* hot view).
-        The engine demotes these to the int8 shadow pool."""
+        than the window, full of written tokens, not shared (demoting a
+        page another sequence or the prefix index also maps would
+        corrupt *their* hot view). The engine demotes these to the int8
+        shadow pool.
+
+        "Full of written tokens" departs from the reference, whose copy
+        demotes every page older than the window. Admission allocates a
+        prompt's pages up to the resident cap before any is written, so
+        before a long prompt's first chunk the reference demotes a page
+        that holds stale contents; its flag then stays set while the
+        chunk writes the page's hot rows, and attention reads the stale
+        shadow until the page is freed."""
         if self.streaming is None:
             return []
         seq = self.active[slot]
+        written = (seq.seq_len if seq.status == "decoding"
+                   else seq.prefill_pos - seq.evicted_tokens)
+        full = written // self.pcfg.page_size
         return [seq.pages[i]
                 for i in cold_page_indices(self.streaming, len(seq.pages))
-                if self.pool.refcount(seq.pages[i]) == 1]
+                if i < full and self.pool.refcount(seq.pages[i]) == 1]
 
     def decode_view(self) -> Tuple[np.ndarray, np.ndarray]:
         """(block_table, seq_lens) as the decode step may see them:

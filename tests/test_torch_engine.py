@@ -94,9 +94,8 @@ def test_build_trace_matches_reference():
         np.testing.assert_array_equal(x.prompt, y.prompt)
 
 
-@pytest.mark.parametrize("kw", [{"quantize": "int8"}, {"mesh": object()},
-                                {"streaming": object()}, {"scheduler": "slo"}],
-                         ids=["quantize", "mesh", "streaming", "slo"])
+@pytest.mark.parametrize("kw", [{"mesh": object()}, {"scheduler": "slo"}],
+                         ids=["mesh", "slo"])
 def test_unported_engine_options_raise(models, kw):
     _, _, tcfg, tp = models
     with pytest.raises(NotImplementedError):

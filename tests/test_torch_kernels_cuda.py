@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the spectral matmul (and its autograd), the paged GQA decode, and
-the flash-attention forward and backward. Every test here needs a GPU and skips without one (the kernels
-have no CPU mode). The file imports neither JAX nor the reference
+card: the spectral matmul (and its autograd), its int8 variant, the
+paged GQA decode and its cold-tier variant, and the flash-attention
+forward and backward. Every test here needs a GPU and skips without one
+(the kernels have no CPU mode). The file imports neither JAX nor the reference
 package, so it runs on a machine with CUDA and no JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -27,14 +28,20 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_fwd,
 )
 from repro_torch.kernels.flash_ref import flash_bwd_ref, flash_fwd_ref  # noqa: E402
-from repro_torch.kernels.ops import spectral_matmul  # noqa: E402
-from repro_torch.kernels.paged_decode import paged_gqa_decode  # noqa: E402
-from repro_torch.kernels.paged_ref import paged_gqa_decode_ref  # noqa: E402
-from repro_torch.kernels.ref import spectral_matmul_ref  # noqa: E402
+from repro_torch.kernels.ops import spectral_matmul, spectral_matmul_q8  # noqa: E402
+from repro_torch.kernels.paged_decode import paged_gqa_decode, paged_gqa_decode_cold  # noqa: E402
+from repro_torch.kernels.paged_ref import (  # noqa: E402
+    paged_gqa_decode_cold_ref,
+    paged_gqa_decode_ref,
+)
+from repro_torch.kernels.ref import spectral_matmul_q8_ref, spectral_matmul_ref  # noqa: E402
+from repro_torch.serving.quantize import quantize_kv_pages  # noqa: E402
 from repro_torch.kernels.testing import (  # noqa: E402
+    SCALE_PROFILES,
     assert_kernel_matches,
     make_block_table,
     ragged_seq_lens,
+    scale_profile,
 )
 
 pytestmark = pytest.mark.cuda
@@ -44,6 +51,9 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SPECTRAL = [(1, 64, 96, 16), (7, 130, 50, 8), (37, 300, 700, 64), (64, 128, 128, 128),
             (8, 2048, 8192, 128), (37, 8192, 2048, 128), (160, 2048, 8192, 128),
             (3, 512, 384, 256)]
+# (M, m, n, k) of the int8 kernel: its rank is a multiple of 16
+SPECTRAL_Q8 = [(1, 64, 96, 16), (7, 130, 50, 16), (37, 300, 700, 64), (4, 2048, 8192, 128),
+               (37, 8192, 2048, 128), (256, 2048, 8192, 128), (3, 512, 384, 256)]
 # b, kvh, rep, hd, page, n_pages_per_seq
 PAGED = [(5, 2, 3, 64, 4, 6), (4, 1, 4, 20, 3, 5), (4, 4, 1, 48, 8, 4), (8, 8, 4, 64, 16, 12)]
 # (b, s, g, r, d): rep 1 and 4 at s 256, 1000 (ragged tiles) and 4096, plus
@@ -93,6 +103,98 @@ def test_spectral_matmul_raises_on_unsupported_dtype(cuda):
         spectral_matmul(x.half(), U.half(), s, V.half())
 
 
+def _q8(M, m, n, k, profile, dtype, device, seed=0):
+    """x, {"q8", "scale"} factors with scales of the given profile (v's
+    reversed, so the fused gain spans the product of both), fp32 s."""
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((M, m)), dtype=torch.float32, device=device)
+    uq, vq = (torch.tensor(rng.integers(-127, 128, size=(r, k)), dtype=torch.int8,
+                           device=device) for r in (m, n))
+    us = scale_profile(profile, k, device) / math.sqrt(m) / 127.0
+    vs = scale_profile(profile, k, device).flip(0) / math.sqrt(k) / 127.0
+    s = torch.tensor(rng.uniform(0.0, 1.0, size=(k,)), dtype=torch.float32, device=device)
+    return x.to(dtype), {"q8": uq, "scale": us}, s, {"q8": vq, "scale": vs}
+
+
+def _q8_plain(x, U, s, V):
+    """The plain version through the wrapper's own gain."""
+    gain = U["scale"] * s * V["scale"]
+    return spectral_matmul_q8_ref(x.reshape(-1, x.shape[-1]), U["q8"], gain, V["q8"])
+
+
+@pytest.mark.parametrize("profile", SCALE_PROFILES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SPECTRAL_Q8, ids=lambda s: "x".join(map(str, s)))
+def test_spectral_matmul_q8_kernel_vs_plain(cuda, shape, dtype, profile):
+    args = _q8(*shape, profile, DTYPES[dtype], cuda)
+    before = LAUNCHES["spectral_matmul_q8"]
+    assert_kernel_matches(spectral_matmul_q8, _q8_plain, args,
+                          label=f"spectral_matmul_q8 {shape} {dtype} {profile}")
+    assert LAUNCHES["spectral_matmul_q8"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_spectral_matmul_q8_rows_are_batch_invariant(cuda, dtype):
+    """Every row of an M=37 call equals the same row alone, bit for bit,
+    on both MLP shapes: the int8 engine's batched steps and its batch-1
+    static reference agree exactly."""
+    for m, n in ((2048, 8192), (8192, 2048)):
+        x, U, s, V = _q8(37, m, n, 128, "unit", DTYPES[dtype], cuda)
+        full = spectral_matmul_q8(x, U, s, V)
+        for i in range(37):
+            assert torch.equal(spectral_matmul_q8(x[i:i + 1], U, s, V)[0], full[i]), (m, i)
+
+
+def test_spectral_matmul_q8_refuses_other_ranks(cuda):
+    x, U, s, V = _q8(2, 64, 64, 16, "unit", torch.float32, cuda)
+    U8 = {"q8": U["q8"][:, :8].contiguous(), "scale": U["scale"][:8].contiguous()}
+    V8 = {"q8": V["q8"][:, :8].contiguous(), "scale": V["scale"][:8].contiguous()}
+    with pytest.raises(ValueError, match="multiple of 16"):
+        spectral_matmul_q8(x, U8, s[:8].contiguous(), V8)
+
+
+def _cold_inputs(case, dtype, device, p_cold, seed=0):
+    """Pools, int8 shadows quantized from independent noise (a read of
+    the wrong tier misses by O(1)), ragged lengths, a shuffled table, a
+    null-page slot and cold flags drawn with probability p_cold."""
+    b, kvh, rep, hd, page, n = case
+    num_pages = b * n + 3
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (num_pages + 1, page, kvh, hd)
+    k_pool, v_pool, k_src, v_src = (torch.randn(shape, generator=g, device=device)
+                                    for _ in range(4))
+    kq, vq = (quantize_kv_pages(t, token_axis=1) for t in (k_src, v_src))
+    q = torch.randn((b, kvh, rep, hd), generator=g, device=device).to(dtype)
+    sl = ragged_seq_lens(b, page * n - 1, page)
+    bt = make_block_table(b, n, num_pages, sl, page)
+    bt[0, :] = num_pages
+    cold = (torch.rand((num_pages + 1,), generator=g, device=device) < p_cold).int()
+    return (q, k_pool.bfloat16(), v_pool.bfloat16(), kq["q8"], kq["scale"], vq["q8"],
+            vq["scale"], bt.to(device), sl.to(device), cold)
+
+
+@pytest.mark.parametrize("p_cold", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", PAGED, ids=lambda c: "-".join(map(str, c)))
+def test_paged_decode_cold_kernel_vs_plain(cuda, case, dtype, p_cold):
+    args = _cold_inputs(case, DTYPES[dtype], cuda, p_cold)
+    before = LAUNCHES["paged_gqa_decode_cold"]
+    for part in (slice(1, None), slice(0, 1)):      # live slots, then the null slot
+        assert_kernel_matches(lambda *a: paged_gqa_decode_cold(*a)[part],
+                              lambda *a: paged_gqa_decode_cold_ref(*a)[part], args)
+    assert LAUNCHES["paged_gqa_decode_cold"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", PAGED, ids=lambda c: "-".join(map(str, c)))
+def test_paged_decode_cold_kernel_without_flags_is_the_hot_kernel(cuda, case, dtype):
+    """No page flagged: bit for bit the hot kernel's output."""
+    q, kp, vp, kq, ks, vq, vs, bt, sl, cold = _cold_inputs(case, DTYPES[dtype], cuda, 0.0)
+    assert not cold.any()
+    assert torch.equal(paged_gqa_decode_cold(q, kp, vp, kq, ks, vq, vs, bt, sl, cold),
+                       paged_gqa_decode(q, kp, vp, bt, sl))
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("case", PAGED, ids=lambda c: "-".join(map(str, c)))
 def test_paged_decode_kernel_vs_plain(cuda, case, dtype):
@@ -136,6 +238,43 @@ def test_engine_on_cuda_matches_static_reference(cuda):
         ref = static_greedy_reference(cfg, engine.params, r.prompt, r.max_new_tokens,
                                       pcfg.max_seq)
         np.testing.assert_array_equal(out[r.rid], ref, err_msg=f"request {r.rid}")
+
+
+def test_int8_streaming_engine_on_cuda(cuda):
+    """Reduced llama with int8 weights and the int8 cold tier on the
+    card: the q8 and cold kernels carry the whole path (the bf16
+    spectral and hot decode kernels launch zero times), the session
+    evicts and demotes, every request gives the tokens it gives served
+    alone, and every request within the identity horizon stays within
+    the tolerance ladder of the static path over the same int8 tree."""
+    from repro_torch.launch.serve import replay_alone, static_logit_gaps
+    from repro_torch.models.model import init_model
+    from repro_torch.serving import PagedCacheConfig, Request, ServingEngine
+    from repro_torch.serving.streaming import StreamingConfig, identity_horizon
+
+    cfg = get_config("llama3.2-1b", reduced=True)
+    pcfg = PagedCacheConfig(page_size=4, num_pages=16, max_slots=2, max_pages_per_seq=4)
+    scfg = StreamingConfig(sink_pages=1, window_pages=2, cold_kv="int8")
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32),
+                    max_new_tokens=g, arrival=a)
+            for i, (n, g, a) in enumerate([(24, 40, 0), (5, 7, 0), (6, 6, 1), (20, 30, 2)])]
+    engine = ServingEngine(cfg, init_model(cfg, seed=0, device=cuda), pcfg, quantize="int8",
+                           streaming=scfg, chunked_prefill=True)
+    LAUNCHES.clear()
+    out = engine.run(reqs)
+    assert LAUNCHES["spectral_matmul_q8"] > 0 and LAUNCHES["paged_gqa_decode_cold"] > 0
+    assert LAUNCHES["spectral_matmul"] == 0 and LAUNCHES["paged_gqa_decode"] == 0
+    st = engine.stats()
+    assert st["stream_evictions"] > 0 and st["stream_demotions"] > 0
+    engine.sched.check_invariants()
+    horizon = identity_horizon(scfg, pcfg)
+    for r in reqs:
+        np.testing.assert_array_equal(out[r.rid], replay_alone(engine, r),
+                                      err_msg=f"request {r.rid}")
+        if r.prompt_len + r.max_new_tokens <= horizon:
+            assert static_logit_gaps(cfg, engine.params, r.prompt, out[r.rid],
+                                     pcfg.max_seq).max() <= 1.0, r.rid
 
 
 def _flash_inputs(b, s, g, r, d, dtype, device, seed=0):
