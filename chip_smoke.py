@@ -65,7 +65,28 @@ Phases (any failure exits non-zero and prints no result line):
 12. time both int8 kernels at the decode shapes (and the int8 matmul at
     a 64-token prefill chunk) against their plain versions and a library
     yardstick; profile a decode-heavy stretch of each new serving cell
-    as in phase 5.
+    as in phase 5;
+13. hold the chunkwise mLSTM kernel against its plain version (cut into
+    the kernel's 64-token chunks) at head widths 32 and 1024, B = batch
+    x heads 1 and 4, S in {1, 37, 64, 160, 256, 300, 1000}, two gate
+    profiles (unit, and one that drives the stabiliser: i in [-20, 20],
+    f at either saturation), with and without an initial state: y, C, n
+    and m at the fp32 rung; and the spectral kernel at xlstm's four
+    projection shapes (2048->8192, 4096->2048, 2048->5460, 2730->2048);
+14. serve xlstm-1.3b at full width (48 blocks: 6 periods of 7 mLSTM + 1
+    sLSTM, d_model 2048, 4 heads of 1024 in the mLSTM, vocab 50304, rank
+    128, bf16; random weights from seed 0) on phase 3's trace and
+    geometry: the mLSTM kernel launched 42 times per prefilled request and
+    never in decode, the spectral kernel 96 times per model forward;
+    every request equals the request served alone (bit for bit) and
+    stays within the ladder of the static path, teacher-forced; profile
+    a decode-heavy stretch as in phase 5;
+15. time the mLSTM kernel and its plain version at the cell's prefill
+    shape (one 160-token prompt: 4 heads x 1024).
+
+Every entry of the ``kernels`` line carries ``max_scaled_err``: the
+largest error of its checks divided by the reference's RMS, the figure
+the ladder's rung bounds (``max_abs_err`` and ``max_err`` are unscaled).
 
 The last line is ``{"ok": true, "device": {...}}``. The script needs
 the repository around it: alone, or without a CUDA device, it fails.
@@ -112,6 +133,14 @@ STREAM_SLOTS, STREAM_PAGES, STREAM_PAGES_PER_SEQ, SINK, WINDOW = 4, 32, 8, 1, 4
 STREAM_TRACE = [(96, 192, 0), (32, 40, 0), (128, 176, 0), (24, 48, 0),
                 (160, 160, 4), (40, 36, 4), (192, 176, 4), (16, 56, 4)]
 SNAPSHOT_STEP = 150
+
+# the xlstm cell: xlstm-1.3b at full width on slice 1's trace and geometry
+XLSTM_ARCH = "xlstm-1.3b"
+# mLSTM kernel checks: head widths (the reduced config's 32, xlstm-1.3b's
+# 1024), folded batch * heads, prompt lengths (ragged 64-token chunks, one
+# token, the cell's longest prompt, two chunks of the reference's 256)
+MLSTM_DH, MLSTM_B, MLSTM_S = (32, 1024), (1, 4), (1, 37, 64, 160, 256, 300, 1000)
+MLSTM_PREFILL_S = 160           # the cell's longest prompt: the timed shape
 
 
 def fail(msg: str) -> int:
@@ -211,23 +240,24 @@ def phase_build():
 
 
 def phase_kernels(torch, cfg):
-    """Kernel vs plain version on the card; returns max abs errors."""
+    """Kernel vs plain version on the card; returns {kernel: (max abs
+    error, max RMS-scaled error)}."""
     from repro_torch.kernels.ops import spectral_matmul
     from repro_torch.kernels.paged_decode import paged_gqa_decode
     from repro_torch.kernels.paged_ref import paged_gqa_decode_ref
     from repro_torch.kernels.ref import spectral_matmul_ref
-    from repro_torch.kernels.testing import assert_kernel_matches, ragged_seq_lens
+    from repro_torch.kernels.testing import compare_kernel, ragged_seq_lens
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k = cfg.sct.rank
-    errs = {"spectral_matmul": 0.0, "paged_gqa_decode": 0.0}
+    errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for m, n in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
             for M in (1, 8, 37, 256):
                 args = spectral_inputs(torch, M, m, n, k, dtype, gen)
-                err = assert_kernel_matches(spectral_matmul, spectral_matmul_ref, args,
-                                            label=f"spectral_matmul {M}x{m}->{n} {dtype}")
-                errs["spectral_matmul"] = max(errs["spectral_matmul"], err)
+                note(errs, "spectral_matmul", compare_kernel(
+                    spectral_matmul, spectral_matmul_ref, args,
+                    label=f"spectral_matmul {M}x{m}->{n} {dtype}"))
         n_pages = 12
         lens = ragged_seq_lens(8, PAGE * n_pages - 1, PAGE, seed=SEED).tolist()
         args = paged_inputs(torch, lens, n_pages, cfg.n_kv_heads,
@@ -236,10 +266,9 @@ def phase_kernels(torch, cfg):
         # the null slot's output is one raw V row, larger than the live
         # slots' averages: compared on its own so it does not set their scale
         for part, what in ((slice(1, None), "live slots"), (slice(0, 1), "null slot")):
-            err = assert_kernel_matches(lambda *a: paged_gqa_decode(*a)[part],
-                                        lambda *a: paged_gqa_decode_ref(*a)[part], args,
-                                        label=f"paged_gqa_decode {dtype} {what}")
-            errs["paged_gqa_decode"] = max(errs["paged_gqa_decode"], err)
+            note(errs, "paged_gqa_decode", compare_kernel(
+                lambda *a: paged_gqa_decode(*a)[part], lambda *a: paged_gqa_decode_ref(*a)[part],
+                args, label=f"paged_gqa_decode {dtype} {what}"))
         print(f"[kernels] {dtype}: spectral_matmul (M in 1/8/37/256, both MLP shapes) "
               f"and paged_gqa_decode (ragged lens {lens}, null slot) match")
     torch.cuda.synchronize()
@@ -372,9 +401,7 @@ def phase_timing(torch, cfg, engine, trace, launches, errs):
         sm["library_ms"] += time_cold(torch, lambda: spectral_apply(fac, x))
         sm["bytes"] += 2 * (SLOTS * m + m * k + n * k + SLOTS * n) + 4 * k
         sm["flops"] += 2 * SLOTS * k * (m + n)
-        y = spectral_matmul(x, U, s, V)
-        sm["err"] = max(sm["err"], float((y.float() - spectral_matmul_ref(x, U, s, V)
-                                          .float()).abs().max()))
+        add_err(sm, spectral_matmul(x, U, s, V), spectral_matmul_ref(x, U, s, V))
 
     # one layer's decode attention: all slots mid-trace (prompt + half the
     # generation cached), pools at the engine's geometry
@@ -397,8 +424,7 @@ def phase_timing(torch, cfg, engine, trace, launches, errs):
     pd["bytes"] = (2 * live * kvh * hd * 2 + 2 * q.numel() * 2
                    + bt.numel() * 4 + sl.numel() * 4)
     pd["flops"] = 4 * h * hd * live
-    pd["err"] = float((paged_gqa_decode(q, kp, vp, bt, sl).float()
-                       - paged_gqa_decode_ref(q, kp, vp, bt, sl).float()).abs().max())
+    add_err(pd, paged_gqa_decode(q, kp, vp, bt, sl), paged_gqa_decode_ref(q, kp, vp, bt, sl))
 
     return [
         kernel_entry("spectral_matmul", "src/repro_torch/csrc/spectral_matmul.cu",
@@ -412,9 +438,10 @@ def phase_timing(torch, cfg, engine, trace, launches, errs):
     ]
 
 
-def phase_profile(torch, cfg, engine):
+def phase_profile(torch, cfg, engine, prompt_len=96):
     """Device time by kernel over a decode-heavy stretch of serving (four
-    96-token prompts, 32 new tokens each, all slots decoding)."""
+    ``prompt_len``-token prompts, 32 new tokens each, all slots
+    decoding)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.scheduler import Request
@@ -422,7 +449,7 @@ def phase_profile(torch, cfg, engine):
     rng = np.random.default_rng(SEED + 2)
 
     def trace(base):
-        return [Request(rid=base + i, prompt=rng.integers(0, cfg.vocab, size=(96,))
+        return [Request(rid=base + i, prompt=rng.integers(0, cfg.vocab, size=(prompt_len,))
                         .astype(np.int32), max_new_tokens=32) for i in range(SLOTS)]
 
     engine.run(trace(100))                       # warm
@@ -435,7 +462,8 @@ def phase_profile(torch, cfg, engine):
     steps = engine.decode_steps - steps0
     rows = device_rows(torch, prof)
     busy_ms = sum(r[0] for r in rows)
-    print(f"[profile] {SLOTS} requests x (96 prompt + 32 new): wall {wall * 1e3:.1f} ms, "
+    print(f"[profile] {cfg.name}, {SLOTS} requests x ({prompt_len} prompt + 32 new): wall "
+          f"{wall * 1e3:.1f} ms, "
           f"{steps} decode steps, device busy {busy_ms:.1f} ms "
           f"({100.0 * busy_ms / (wall * 1e3):.1f}% of wall)")
     for ms, count, key in rows[:15]:
@@ -461,15 +489,13 @@ def phase_train_kernels(torch, cfg):
     from repro_torch.kernels.flash_ref import flash_bwd_ref, flash_fwd_ref
     from repro_torch.kernels.ops import spectral_matmul
     from repro_torch.kernels.ref import spectral_matmul_ref
-    from repro_torch.kernels.testing import assert_kernel_matches
+    from repro_torch.kernels.testing import compare_kernel
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    errs = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0, "spectral_matmul": 0.0,
-            "spectral_autograd": 0.0}
+    errs = {}
 
     def check(name, label, got, ref, dtype):
-        err = assert_kernel_matches(lambda: got, lambda: ref, (), dtype=dtype, label=label)
-        errs[name] = max(errs[name], err)
+        note(errs, name, compare_kernel(lambda: got, lambda: ref, (), dtype=dtype, label=label))
 
     M, k = TRAIN_BATCH * TRAIN_SEQ, cfg.sct.rank
     for dtype in (torch.bfloat16, torch.float32):
@@ -670,13 +696,13 @@ def phase_train_timing(torch, cfg, launches, errs):
     out, m, l = flash_attention_fwd(q, k, v)
     ref = flash_fwd_ref(q, k, v)
     fwd = {"ms": time_cold(torch, lambda: flash_attention_fwd(q, k, v)),
-           "plain_ms": time_cold(torch, lambda: flash_fwd_ref(q, k, v)),
-           "err": float((out.float() - ref[0].float()).abs().max())}
+           "plain_ms": time_cold(torch, lambda: flash_fwd_ref(q, k, v))}
+    add_err(fwd, out, ref[0])
     bwd = {"ms": time_cold(torch, lambda: flash_attention_bwd(q, k, v, out, m, l, do)),
-           "plain_ms": time_cold(torch, lambda: flash_bwd_ref(q, k, v, out, m, l, do)),
-           "err": max(float((a.float() - c.float()).abs().max()) for a, c in
-                      zip(flash_attention_bwd(q, k, v, out, m, l, do),
-                          flash_bwd_ref(q, k, v, out, m, l, do)))}
+           "plain_ms": time_cold(torch, lambda: flash_bwd_ref(q, k, v, out, m, l, do))}
+    for a, c in zip(flash_attention_bwd(q, k, v, out, m, l, do),
+                    flash_bwd_ref(q, k, v, out, m, l, do)):
+        add_err(bwd, a, c)
     del ref
 
     # library yardstick: SDPA in its (b, h, s, d) layout, causal; the
@@ -711,10 +737,9 @@ def phase_train_timing(torch, cfg, launches, errs):
     sm = {"ms": time_cold(torch, lambda: spectral_matmul(x, U, sv, V)),
           "plain_ms": time_cold(torch, lambda: spectral_matmul_ref(x, U, sv, V)),
           "library_ms": time_cold(torch, lambda: spectral_apply(fac, x)),
-          "err": float((spectral_matmul(x, U, sv, V).float()
-                        - spectral_matmul_ref(x, U, sv, V).float()).abs().max()),
           "bytes": 2 * (M * mm + mm * kk + n * kk + M * n) + 4 * kk,
           "flops": 2 * M * kk * (mm + n)}
+    add_err(sm, spectral_matmul(x, U, sv, V), spectral_matmul_ref(x, U, sv, V))
     shape = (f"one smollm2 layer in training: b={b} s={s} heads={h} kv_heads={g} d={d}, "
              f"causal, bf16")
     return [
@@ -727,7 +752,7 @@ def phase_train_timing(torch, cfg, launches, errs):
     ], kernel_entry("spectral_matmul", "src/repro_torch/csrc/spectral_matmul.cu",
                     "src/repro/kernels/spectral_matmul.py:57", sm, "bfloat16",
                     f"one up projection in training: ({M},{mm})->{n}, rank {kk}, bf16",
-                    {}, {"spectral_matmul": 0.0})
+                    {}, {})
 
 
 def q8_inputs(torch, M, m, n, k, profile, dtype, gen):
@@ -772,24 +797,19 @@ def phase_int8_kernels(torch, cfg):
     from repro_torch.kernels.ops import spectral_matmul_q8
     from repro_torch.kernels.paged_decode import paged_gqa_decode, paged_gqa_decode_cold
     from repro_torch.kernels.paged_ref import paged_gqa_decode_cold_ref
-    from repro_torch.kernels.testing import (
-        SCALE_PROFILES,
-        assert_kernel_matches,
-        ragged_seq_lens,
-    )
+    from repro_torch.kernels.testing import SCALE_PROFILES, compare_kernel, ragged_seq_lens
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     k = cfg.sct.rank
-    errs = {"spectral_matmul_q8": 0.0, "paged_gqa_decode_cold": 0.0}
+    errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for m, n in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
             for profile in SCALE_PROFILES:
                 for M in Q8_ROWS:
                     args = q8_inputs(torch, M, m, n, k, profile, dtype, gen)
-                    err = assert_kernel_matches(
+                    note(errs, "spectral_matmul_q8", compare_kernel(
                         spectral_matmul_q8, q8_plain, args,
-                        label=f"spectral_matmul_q8 {M}x{m}->{n} {profile} {dtype}")
-                    errs["spectral_matmul_q8"] = max(errs["spectral_matmul_q8"], err)
+                        label=f"spectral_matmul_q8 {M}x{m}->{n} {profile} {dtype}"))
             x, U, sv, V = q8_inputs(torch, 37, m, n, k, "extreme", dtype, gen)
             full = spectral_matmul_q8(x, U, sv, V)
             for i in range(37):
@@ -803,11 +823,10 @@ def phase_int8_kernels(torch, cfg):
                                cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, dtype, gen,
                                null_slot=True, p_cold=p_cold)
             for part, what in ((slice(1, None), "live slots"), (slice(0, 1), "null slot")):
-                err = assert_kernel_matches(
+                note(errs, "paged_gqa_decode_cold", compare_kernel(
                     lambda *a: paged_gqa_decode_cold(*a)[part],
                     lambda *a: paged_gqa_decode_cold_ref(*a)[part], args,
-                    label=f"paged_gqa_decode_cold p_cold={p_cold} {dtype} {what}")
-                errs["paged_gqa_decode_cold"] = max(errs["paged_gqa_decode_cold"], err)
+                    label=f"paged_gqa_decode_cold p_cold={p_cold} {dtype} {what}"))
             if p_cold == 0.0:
                 q, kp, vp, _, _, _, _, bt, sl, _ = args
                 if not torch.equal(paged_gqa_decode_cold(*args),
@@ -891,7 +910,7 @@ def phase_int8_serving(torch, cfg, device, masters, bf16_weight_bytes):
         got = out[r.rid]
         if engine.last_statuses.get(r.rid) != "finished" or len(got) != r.max_new_tokens:
             raise AssertionError(f"request {r.rid}: status {engine.last_statuses.get(r.rid)}")
-    gap = check_oracles(torch, engine, trace, out, trace, "int8", device)
+    gap = check_oracles(engine, trace, out, trace, "int8")
     dequant = dequantize_tree(engine.params)
     bf16 = serving_params(masters, cfg, device)
     agree = {"dequantized": 0, "unquantized": 0}
@@ -922,39 +941,25 @@ def phase_int8_serving(torch, cfg, device, masters, bf16_weight_bytes):
     return engine, record
 
 
-def check_oracles(torch, engine, alone, out, to_static, tag, device):
-    """Every request of ``alone`` equals its replay alone through a fresh
-    engine of the same configuration (exact); the requests of
+def check_oracles(engine, alone, out, to_static, tag):
+    """``launch/serve.py:check_oracles`` (the CLI's ``--verify`` gate in
+    bf16): every request of ``alone`` equals its replay alone through a
+    fresh engine of the same configuration (exact); the requests of
     ``to_static`` stay within the tolerance ladder of the static path,
     teacher-forced over the engine's tokens. Returns the largest static
     gap (<= 1 passes) and prints how many tokens were exactly the static
     path's choice."""
-    import numpy as np
-    from repro_torch.launch.serve import replay_alone, static_logit_gaps
+    from repro_torch.launch.serve import check_oracles as gate
 
-    for r in alone:
-        solo = replay_alone(engine, r)
-        if not np.array_equal(solo, out[r.rid]):
-            first = int(np.argmax(solo != out[r.rid]))
-            raise AssertionError(f"{tag} request {r.rid}: engine tokens differ from the "
-                                 f"request served alone at position {first}")
-    worst, exact, total = 0.0, 0, 0
-    for r in to_static:
-        gaps = static_logit_gaps(engine.cfg, engine.params, r.prompt, out[r.rid],
-                                 engine.pcfg.max_seq, device=device)
-        worst = max(worst, float(gaps.max()))
-        exact += int(np.sum(gaps == 0.0))
-        total += len(gaps)
-        if gaps.max() > 1.0:
-            first = int(np.argmax(gaps > 1.0))
-            raise AssertionError(f"{tag} request {r.rid}: token {first} is "
-                                 f"{gaps[first]:.3f}x the ladder's allowance below the "
-                                 f"static path's best logit")
-    print(f"[{tag}] {len(alone)} requests == the request served alone (bit for bit); "
-          f"{len(to_static)} requests teacher-forced through the static path: every token "
-          f"within the ladder of its best logit (largest gap {worst:.3f} of the "
-          f"allowance), {exact}/{total} exactly its choice")
-    return worst
+    try:
+        rep = gate(engine, alone, out, to_static)
+    except AssertionError as e:
+        raise AssertionError(f"{tag} {e}") from None
+    print(f"[{tag}] {rep['alone']} requests == the request served alone (bit for bit); "
+          f"{rep['static']} requests teacher-forced through the static path: every token "
+          f"within the ladder of its best logit (largest gap {rep['max_gap']:.3f} of the "
+          f"allowance), {rep['exact']}/{rep['tokens']} exactly its choice")
+    return rep["max_gap"]
 
 
 def stream_trace(vocab, seed):
@@ -1043,7 +1048,7 @@ def phase_streaming(torch, cfg, device, masters):
           f"pages per sequence {peak[0]} <= cap {cap}")
     engine._decode_once = decode_once
     short = [r for r in trace if r.prompt_len + r.max_new_tokens <= horizon]
-    gap = check_oracles(torch, engine, trace[:1] + short, out, short, "stream", device)
+    gap = check_oracles(engine, trace[:1] + short, out, short, "stream")
     agree = total = 0
     for r in short:
         ref = static_greedy_reference(cfg, engine.params, r.prompt, r.max_new_tokens,
@@ -1117,8 +1122,7 @@ def phase_int8_timing(torch, cfg, q8_launches, cold_launches, errs):
             t["library_ms"] += time_cold(torch, lambda: spectral_apply(fac, x))
             t["bytes"] += 2 * (M * m + M * n) + (m + n) * k + 3 * 4 * k
             t["flops"] += 2 * M * k * (m + n)
-            t["err"] = max(t["err"], float((spectral_matmul_q8(x, U, s, V).float()
-                                            - q8_plain(x, U, s, V).float()).abs().max()))
+            add_err(t, spectral_matmul_q8(x, U, s, V), q8_plain(x, U, s, V))
         entries.append((M, what, t))
 
     # one layer's cold decode in the streaming cell's geometry: every slot
@@ -1150,8 +1154,7 @@ def phase_int8_timing(torch, cfg, q8_launches, cold_launches, errs):
                    + 2 * cold_pages * kvh * hd * 4 + 2 * q.numel() * 2 + bt.numel() * 4
                    + sl.numel() * 4 + 4 * sum(n // PAGE + 1 for n in lens))
     cd["flops"] = 4 * h * hd * live
-    cd["err"] = float((paged_gqa_decode_cold(*args).float()
-                       - paged_gqa_decode_cold_ref(*args).float()).abs().max())
+    add_err(cd, paged_gqa_decode_cold(*args), paged_gqa_decode_cold_ref(*args))
 
     (m1, what1, t1), (m2, what2, t2) = entries
     q8 = kernel_entry("spectral_matmul_q8", "src/repro_torch/csrc/spectral_matmul_q8.cu",
@@ -1162,7 +1165,7 @@ def phase_int8_timing(torch, cfg, q8_launches, cold_launches, errs):
     q8["at_prefill_chunk"] = {
         "shape": f"{what2}: 2x({m2},{d})->{f} + ({m2},{f})->{d}",
         "ms": t2["ms"], "plain_ms": t2["plain_ms"], "library_ms": t2["library_ms"],
-        "max_abs_err": t2["err"],
+        "max_abs_err": t2["err"], "max_scaled_err": t2["scaled"],
         **bound_of(t2, "bfloat16")}
     entries = [q8, kernel_entry(
         "paged_gqa_decode_cold", "src/repro_torch/csrc/paged_decode.cu",
@@ -1171,6 +1174,215 @@ def phase_int8_timing(torch, cfg, q8_launches, cold_launches, errs):
         f"lens={lens}, one cold page a slot, bf16 pools + int8 shadows, fp32 math; "
         f"library: SDPA over pre-gathered, pre-dequantized pages", cold_launches, errs)]
     return entries
+
+
+def xlstm_spectral_shapes(cfg):
+    """(m, n) of xlstm's spectral projections: up, down, ff_up, ff_down."""
+    d, di, dff = cfg.d_model, 2 * cfg.d_model, int(4 * cfg.d_model / 3)
+    return [(d, 2 * di), (di, d), (d, 2 * dff), (dff, d)]
+
+
+def phase_xlstm_kernels(torch, cfg):
+    """The mLSTM kernel against its plain version on the card over the
+    sweep (y, C, n, m at the fp32 rung), and the spectral kernel at
+    xlstm's four projection shapes."""
+    from repro_torch.kernels.mlstm_chunk import CHUNK, mlstm_chunk
+    from repro_torch.kernels.mlstm_ref import mlstm_chunk_ref
+    from repro_torch.kernels.ops import spectral_matmul
+    from repro_torch.kernels.ref import spectral_matmul_ref
+    from repro_torch.kernels.testing import MLSTM_PROFILES, compare_kernel, mlstm_inputs
+
+    errs = {}
+    cases = 0
+    for dh in MLSTM_DH:
+        for B in MLSTM_B:
+            for S in MLSTM_S:
+                for profile in MLSTM_PROFILES:
+                    for with_state in (False, True):
+                        q, k, v, i, f, state = mlstm_inputs(B, S, dh, profile, seed=SEED + S,
+                                                            device="cuda",
+                                                            with_state=with_state)
+                        y, got = mlstm_chunk(q, k, v, i, f, state)
+                        # the plain version cut into the kernel's chunks: the
+                        # same function, the same prefix sums
+                        yr, ref = mlstm_chunk_ref(q, k, v, i, f, state, chunk=CHUNK,
+                                                  ragged=True)
+                        for name, g, r in zip(("y", "C", "n", "m"), (y, *got), (yr, *ref)):
+                            note(errs, "mlstm_chunk", compare_kernel(
+                                lambda: g, lambda: r, (), dtype=torch.float32,
+                                label=f"mlstm_chunk {name} B={B} S={S} dh={dh} {profile} "
+                                      f"state={with_state}"))
+                        cases += 1
+    print(f"[kernels] mlstm_chunk: y, C, n, m match the plain version over {cases} cases "
+          f"(dh {list(MLSTM_DH)}, B {list(MLSTM_B)}, S {list(MLSTM_S)}, gate profiles "
+          f"{list(MLSTM_PROFILES)}, with and without an initial state); max scaled error "
+          f"{errs['mlstm_chunk'][1]:.3e}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    shapes = xlstm_spectral_shapes(cfg)
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, n in shapes:
+            for M in (1, SLOTS, MLSTM_PREFILL_S):
+                args = spectral_inputs(torch, M, m, n, cfg.sct.rank, dtype, gen)
+                note(errs, "spectral_matmul", compare_kernel(
+                    spectral_matmul, spectral_matmul_ref, args,
+                    label=f"spectral_matmul {M}x{m}->{n} {dtype}"))
+    print(f"[kernels] spectral_matmul at xlstm's shapes {shapes} (M 1/{SLOTS}/"
+          f"{MLSTM_PREFILL_S}, bf16 and fp32) matches")
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_xlstm_serving(torch, device):
+    """xlstm-1.3b at full width through the engine on slice 1's trace and
+    geometry; returns (engine, record)."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.core.tree import layer_slice
+    from repro_torch.launch.serve import static_logit_gaps
+    from repro_torch.models.decode import recurrent_slot_axes
+    from repro_torch.models.lm import n_periods
+    from repro_torch.models.model import init_decode_state, init_model, param_count, prefill
+    from repro_torch.nn import xlstm as xlstm_mod
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paged_cache import PagedCacheConfig
+
+    cfg = get_config(XLSTM_ARCH)
+    t0 = time.time()
+    masters = init_model(cfg, seed=SEED, device=device)
+    n_params = param_count(masters)
+    pcfg = PagedCacheConfig(page_size=PAGE, num_pages=NUM_PAGES, max_slots=SLOTS,
+                            max_pages_per_seq=PAGES_PER_SEQ)
+    engine = ServingEngine(cfg, masters, pcfg, device=device, prefill_token_budget=64)
+    del masters                                 # the engine holds its bf16 copy
+    torch.cuda.synchronize()
+    wr = engine.params["periods"][f"p{cfg.slstm_offset}"]["slstm"]["wr"]
+    if wr.dtype != torch.float32:
+        raise AssertionError(f"the sLSTM's wr is served in {wr.dtype}, not fp32")
+    state_bytes = engine.recurrent_state_bytes()
+    print(f"[xlstm] {cfg.name}: {n_params} parameters, {cfg.n_layers} blocks "
+          f"({n_periods(cfg)} periods of {cfg.slstm_every - 1} mLSTM + 1 sLSTM), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads (mLSTM head width "
+          f"{2 * cfg.d_model // cfg.n_heads}), vocab {cfg.vocab}, rank {cfg.sct.rank}, "
+          f"{cfg.dtype}; weight_bytes {engine.weight_bytes}, recurrent state {state_bytes} "
+          f"bytes ({SLOTS} slots); init + load {time.time() - t0:.1f} s")
+    engine.run(make_trace(cfg.vocab, SEED + 3, rid0=len(TRACE)))       # warm-up
+    before = engine.stats()
+    trace = make_trace(cfg.vocab, SEED)
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, st = run_measured(torch, engine, trace)
+    peak_mem = torch.cuda.max_memory_allocated()
+    engine.sched.check_invariants()
+    if engine.sched.pool.allocated_count != 0:
+        raise AssertionError("pages still allocated after the xlstm trace")
+    steps = int(st["decode_steps"])
+    # every prompt prefills once through one kernel call per mLSTM layer and
+    # decode never calls it; every model forward runs 2 spectral
+    # projections a block
+    per_prefill = n_periods(cfg) * (cfg.slstm_every - 1)
+    per_forward = 2 * cfg.n_layers
+    require_launches(launches, {"mlstm_chunk": per_prefill * len(trace),
+                                "spectral_matmul": per_forward * (len(trace) + steps)})
+    for r in trace:
+        got = out[r.rid]
+        if (engine.last_statuses.get(r.rid) != "finished" or len(got) != r.max_new_tokens
+                or got.min() < 0 or got.max() >= cfg.vocab):
+            raise AssertionError(f"xlstm request {r.rid}: status "
+                                 f"{engine.last_statuses.get(r.rid)}, tokens {got}")
+    print(f"[xlstm] {int(st['requests'])} requests, {int(st['prefill_tokens'])} prefill + "
+          f"{int(st['generated_tokens'])} generated tokens in {st['wall_s']:.3f} s "
+          f"({st['tokens_per_s']:.1f} tok/s), {steps} decode steps, ITL p50 "
+          f"{st['itl_p50_s'] * 1e3:.3f} ms p99 {st['itl_p99_s'] * 1e3:.3f} ms; launches "
+          f"{launches} = {per_prefill} mlstm_chunk per prefilled request (0 in decode) and "
+          f"{per_forward} spectral_matmul per forward ({len(trace)} prefills + {steps} "
+          f"decode steps)")
+    gap = check_oracles(engine, trace, out, trace, "xlstm")
+    # diagnostic, not gated: the static path with batch-1 steps (the
+    # engine's step is (slots, 1)); this model amplifies a rounding flip
+    b1 = [static_logit_gaps(cfg, engine.params, r.prompt, out[r.rid], pcfg.max_seq,
+                            device=device, rows=1) for r in trace[:2]]
+    b1_gap = max(float(g.max()) for g in b1)
+    print(f"[xlstm] diagnostic: the batch-1 static path, teacher-forced over requests 0-1: "
+          f"largest gap {b1_gap:.3f} of the allowance, first gap > 1 at token "
+          f"{[int(np.argmax(g > 1.0)) if g.max() > 1.0 else None for g in b1]}, "
+          f"{sum(int(np.sum(g == 0.0)) for g in b1)}/{sum(len(g) for g in b1)} tokens exactly "
+          f"its choice")
+    with torch.no_grad():
+        state = init_decode_state(cfg, 1, pcfg.max_seq, device=device)
+        toks = torch.as_tensor(trace[0].prompt, dtype=torch.int64, device=device)[None]
+        logits, state = prefill(engine.params, toks, cfg, state)
+    finite = all(bool(torch.isfinite(t).all()) for key in recurrent_slot_axes(cfg)
+                 for t in state[key].values())
+    if (tuple(logits.shape) != (1, 1, cfg.vocab) or not bool(torch.isfinite(logits).all())
+            or not finite):
+        raise AssertionError(f"xlstm prefill: logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}, state finite {finite}")
+    del state
+    # the prompt path's host-clock cost: the longest prompt's prefill, and
+    # the six sLSTM scans in it (a Python loop over tokens of small ops)
+    long = max(trace, key=lambda r: r.prompt_len)
+    toks = torch.as_tensor(long.prompt, dtype=torch.int64, device=device)[None]
+    x = torch.randn((1, long.prompt_len, cfg.d_model), device=device).to(torch.bfloat16)
+    with torch.no_grad():
+        times = []
+        for fn in (lambda: prefill(engine.params, toks, cfg,
+                                   init_decode_state(cfg, 1, pcfg.max_seq, device=device)),
+                   lambda: [xlstm_mod.apply_slstm_with_state(
+                       layer_slice(engine.params["periods"], i)[f"p{cfg.slstm_offset}"]["slstm"],
+                       x, cfg) for i in range(n_periods(cfg))]):
+            fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+    prefill_ms, slstm_ms = times
+    print(f"[xlstm] one {long.prompt_len}-token prefill {prefill_ms:.1f} ms (host clock), of "
+          f"which the {n_periods(cfg)} sLSTM scans {slstm_ms:.1f} ms")
+    record = {"arch": cfg.name, "params": n_params, "weight_bytes": engine.weight_bytes,
+              "recurrent_state_bytes": state_bytes, "requests": int(st["requests"]),
+              "prefill_tokens": int(st["prefill_tokens"]),
+              "generated_tokens": int(st["generated_tokens"]), "decode_steps": steps,
+              "wall_s": st["wall_s"], "tokens_per_s": st["tokens_per_s"],
+              "itl_gaps": st["itl_gaps"], "cold_itl_p50_ms": before["itl_p50_s"] * 1e3,
+              "cold_itl_p99_ms": before["itl_p99_s"] * 1e3,
+              "itl_p50_ms": st["itl_p50_s"] * 1e3, "itl_p99_ms": st["itl_p99_s"] * 1e3,
+              "max_memory_allocated": peak_mem, "launches": launches,
+              "identical_to_replay_alone": len(trace), "max_static_gap": gap,
+              "batch1_static_max_gap": b1_gap, "prefill_160_ms": prefill_ms,
+              "slstm_scans_160_ms": slstm_ms}
+    return engine, record
+
+
+def phase_xlstm_timing(torch, cfg, launches, errs):
+    """The mLSTM kernel and its plain version at the cell's prefill shape
+    (one 160-token prompt: B = 4 heads, dh 1024, empty state), in device
+    time only. No single PyTorch call computes this function: no library
+    time."""
+    from repro_torch.kernels.mlstm_chunk import CHUNK, mlstm_chunk
+    from repro_torch.kernels.mlstm_ref import mlstm_chunk_ref
+    from repro_torch.kernels.testing import mlstm_inputs
+
+    B, S, dh = cfg.n_heads, MLSTM_PREFILL_S, 2 * cfg.d_model // cfg.n_heads
+    q, k, v, i, f, _ = mlstm_inputs(B, S, dh, "unit", seed=SEED + 11, device="cuda")
+    t = {"ms": time_cold(torch, lambda: mlstm_chunk(q, k, v, i, f)),
+         "plain_ms": time_cold(torch, lambda: mlstm_chunk_ref(q, k, v, i, f, chunk=CHUNK,
+                                                              ragged=True)),
+         "library_ms": None}
+    y, st = mlstm_chunk(q, k, v, i, f)
+    yr, sr = mlstm_chunk_ref(q, k, v, i, f, chunk=CHUNK, ragged=True)
+    for g, r in zip((y, *st), (yr, *sr)):
+        add_err(t, g, r)
+    # the work these inputs need: causal scores and w.S @ v (S (S+1) / 2
+    # pairs x dh each), the state update (S dh^2) and n (S dh); the empty
+    # state makes q @ C0 no work. Bytes: q, k, v, the gates in; y, C, n, m out
+    pairs = S * (S + 1) // 2
+    t["flops"] = 2 * B * (2 * pairs * dh + S * dh * dh + S * dh)
+    t["bytes"] = 4 * B * (3 * S * dh + 2 * S + S * dh + dh * dh + dh + 1)
+    return kernel_entry("mlstm_chunk", "src/repro_torch/csrc/mlstm_chunk.cu",
+                        "src/repro/kernels/mlstm_chunk.py:82", t, "float32",
+                        f"one {S}-token prompt's mLSTM layer: B={B} (1 request x {B} heads), "
+                        f"S={S}, dh={dh}, empty state, fp32; no library call computes it",
+                        launches, errs)
 
 
 def device_rows(torch, prof):
@@ -1199,12 +1411,38 @@ def bound_of(t, peak_key):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def note(errs, name, e):
+    """Fold one check's (max abs, max RMS-scaled) error into ``errs``."""
+    raw, scaled = errs.get(name, (0.0, 0.0))
+    errs[name] = (max(raw, e[0]), max(scaled, e[1]))
+
+
+def merge_errs(errs, more):
+    for name, e in more.items():
+        note(errs, name, e)
+
+
+def add_err(t, y, yr):
+    """Fold the error of a timed kernel's output ``y`` against its plain
+    version's ``yr`` into ``t["err"]`` (max abs) and ``t["scaled"]``."""
+    from repro_torch.kernels.testing import kernel_error
+
+    e = kernel_error(y.detach().float().cpu().numpy(), yr.detach().float().cpu().numpy())
+    t["err"] = max(t.get("err", 0.0), e.max_abs)
+    t["scaled"] = max(t.get("scaled", 0.0), e.max_scaled)
+
+
 def kernel_entry(name, source, replaces, t, peak_key, shape, launches, errs):
-    """One entry of the ``kernels`` line."""
+    """One entry of the ``kernels`` line. ``max_abs_err`` is the error at
+    the timed shape; ``max_err`` the largest unscaled error of every
+    check; ``max_scaled_err`` the largest error of every check divided by
+    its reference's RMS, the quantity the ladder's rung bounds (fp32
+    5e-5, bf16 5e-2, plus rtol times |ref| / RMS)."""
+    raw, scaled = errs.get(name, (0.0, 0.0))
     entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches.get(name, 0), "max_abs_err": t["err"],
-        "max_err": max(t["err"], errs.get(name, 0.0)),
+        "max_err": max(t["err"], raw), "max_scaled_err": max(t["scaled"], scaled),
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         **bound_of(t, peak_key),
         "library_ms": t["library_ms"], "shape": shape,
@@ -1243,10 +1481,9 @@ def main() -> int:
         lap("build")
         print(f"[card] {smi}")
         errs = phase_kernels(torch, cfg)
-        errs.update({k: max(v, errs.get(k, 0.0))
-                     for k, v in phase_train_kernels(torch, train_cfg).items()})
+        merge_errs(errs, phase_train_kernels(torch, train_cfg))
         lap("kernel checks")
-        errs.update(phase_int8_kernels(torch, cfg))
+        merge_errs(errs, phase_int8_kernels(torch, cfg))
         lap("int8 kernel checks")
         engine, trace, serving = phase_serving(torch, cfg, device)
         kernels = phase_timing(torch, cfg, engine, trace, serving["launches"], errs)
@@ -1267,6 +1504,18 @@ def main() -> int:
         del engine, masters
         torch.cuda.empty_cache()
         lap("streaming")
+        xlstm_cfg = get_config(XLSTM_ARCH)
+        merge_errs(errs, phase_xlstm_kernels(torch, xlstm_cfg))
+        lap("xlstm kernel checks")
+        engine, xlstm = phase_xlstm_serving(torch, device)
+        # short prompts: the sLSTM's prefill scan is a host loop of small ops
+        # (thousands of profiler events a prompt); the stretch is about decode
+        xlstm["profile"] = phase_profile(torch, xlstm_cfg, engine, prompt_len=16)
+        del engine
+        torch.cuda.empty_cache()
+        lap("xlstm serving")
+        kernel_mlstm = phase_xlstm_timing(torch, xlstm_cfg, xlstm["launches"], errs)
+        lap("xlstm timing")
         kernels_int8 = phase_int8_timing(torch, cfg, int8["launches"], stream["launches"],
                                          errs)
         lap("int8 timing")
@@ -1281,17 +1530,20 @@ def main() -> int:
         return fail("a phase failed")
     kernels[0]["launches_train"] = train["launches"]["spectral_matmul"]
     kernels[0]["at_train_shape"] = {key: at_train[key] for key in (
-        "shape", "ms", "plain_ms", "library_ms", "max_abs_err", "bound_ms", "bound_by")}
+        "shape", "ms", "plain_ms", "library_ms", "max_abs_err", "max_scaled_err", "bound_ms",
+        "bound_by")}
     kernels += flash
     kernels_int8[0]["launches_streaming"] = stream["launches"].get("spectral_matmul_q8", 0)
-    kernels += kernels_int8
+    kernels[0]["launches_xlstm"] = xlstm["launches"].get("spectral_matmul", 0)
+    kernels += kernels_int8 + [kernel_mlstm]
     extra = [dict(at_train, name="spectral_matmul (training shape)",
                   launches=train["launches"]["spectral_matmul"]),
              dict(kernels_int8[0]["at_prefill_chunk"], name="spectral_matmul_q8 (prefill chunk)",
                   launches=kernels_int8[0]["launches"])]
     for kern in kernels + extra:
+        lib = "none" if kern["library_ms"] is None else f"{kern['library_ms']:.4f} ms"
         print(f"[timing] {kern['name']}: {kern['ms']:.4f} ms kernel, "
-              f"{kern['plain_ms']:.4f} ms plain, {kern['library_ms']:.4f} ms library, "
+              f"{kern['plain_ms']:.4f} ms plain, library {lib}, "
               f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}), "
               f"{kern['launches']} launches on the main path ({kern['shape']})")
     print(f"[total] {time.time() - t_start:.1f} s: "
@@ -1300,6 +1552,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"int8_serving": int8}))
     print(json.dumps({"streaming": stream}))
+    print(json.dumps({"xlstm_serving": xlstm}))
     print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

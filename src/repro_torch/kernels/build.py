@@ -33,7 +33,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("common.cu", "spectral_matmul.cu", "spectral_matmul_q8.cu", "paged_decode.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "mlstm_chunk.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -133,6 +133,8 @@ def library() -> ctypes.CDLL:
             lib.sct_flash_attention_fwd.restype = i
             lib.sct_flash_attention_bwd.argtypes = [p] * 11 + [i] * 8 + [f, p]
             lib.sct_flash_attention_bwd.restype = i
+            lib.sct_mlstm_chunk.argtypes = [p] * 13 + [i] * 3 + [p]
+            lib.sct_mlstm_chunk.restype = i
             _lib = lib
         return _lib
 

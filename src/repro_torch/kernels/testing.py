@@ -39,7 +39,16 @@ def tolerance_for(dtype: torch.dtype, ladder: Optional[dict] = None) -> Tol:
     return (TOLERANCE_LADDER if ladder is None else ladder)[dtype]
 
 
-def assert_kernel_matches(
+class KernelError(NamedTuple):
+    """How far a kernel's output is from its plain version's: the largest
+    absolute difference, and the same divided by the reference's root
+    mean square (what the gate compares; read it against a rung's atol)."""
+
+    max_abs: float
+    max_scaled: float
+
+
+def compare_kernel(
     kernel_fn: Callable[..., torch.Tensor],
     ref_fn: Callable[..., torch.Tensor],
     args: tuple,
@@ -48,7 +57,7 @@ def assert_kernel_matches(
     tol: Optional[Tol] = None,
     ref_args: Optional[tuple] = None,
     label: str = "",
-) -> float:
+) -> KernelError:
     """Run ``kernel_fn(*args)`` and ``ref_fn(*(ref_args or args))`` and
     assert they agree within the ladder rung for ``dtype`` (default: the
     kernel output's dtype). Both are compared in fp32 after dividing by
@@ -57,7 +66,7 @@ def assert_kernel_matches(
     reference package divides by ``max(1, max|ref|)``; for outputs well
     below 1, or with a few large entries, that makes the atol term as
     large as a typical output, and a wrong bf16 kernel can pass.)
-    Returns the unscaled max abs error."""
+    Returns the unscaled and the scaled max abs error."""
     y = kernel_fn(*args)
     yr = ref_fn(*(args if ref_args is None else ref_args))
     name = label or getattr(kernel_fn, "__name__", "kernel")
@@ -69,7 +78,27 @@ def assert_kernel_matches(
     yf = y.detach().float().cpu().numpy()
     yrf = yr.detach().float().cpu().numpy()
     assert_scaled_close(yf, yrf, tol, err_msg=f"{name}: kernel vs reference")
-    return float(np.max(np.abs(yf - yrf))) if yf.size else 0.0
+    return kernel_error(yf, yrf)
+
+
+def kernel_error(y, yr) -> KernelError:
+    """:class:`KernelError` of ``y`` against ``yr`` (arrays), no check."""
+    y = np.asarray(y, np.float32)
+    yr = np.asarray(yr, np.float32)
+    if not y.size:
+        return KernelError(0.0, 0.0)
+    err = float(np.max(np.abs(y - yr)))
+    return KernelError(err, err / _rms_scale(yr))
+
+
+def assert_kernel_matches(kernel_fn, ref_fn, args: tuple, **kw) -> float:
+    """:func:`compare_kernel`, returning the unscaled max abs error."""
+    return compare_kernel(kernel_fn, ref_fn, args, **kw).max_abs
+
+
+def _rms_scale(yr) -> float:
+    rms = float(np.sqrt(np.mean(np.square(yr)))) if yr.size else 0.0
+    return rms if rms > 0.0 else 1.0
 
 
 def assert_scaled_close(y, yr, tol: Tol, err_msg: str = "") -> None:
@@ -77,8 +106,7 @@ def assert_scaled_close(y, yr, tol: Tol, err_msg: str = "") -> None:
     the root mean square of ``yr`` (1 when ``yr`` is all zeros)."""
     y = np.asarray(y, np.float32)
     yr = np.asarray(yr, np.float32)
-    rms = float(np.sqrt(np.mean(np.square(yr)))) if yr.size else 0.0
-    scale = rms if rms > 0.0 else 1.0
+    scale = _rms_scale(yr)
     np.testing.assert_allclose(y / scale, yr / scale, rtol=tol.rtol, atol=tol.atol,
                                err_msg=f"{err_msg} (outputs scaled by 1/{scale:g})")
 
@@ -133,3 +161,42 @@ def make_block_table(batch: int, n_pages_per_seq: int, num_pages: int,
     for i in range(batch):
         table[i, int(lens[i]) // page + 1:] = num_pages
     return torch.tensor(table, dtype=torch.int32, device=device)
+
+
+MLSTM_PROFILES = ("unit", "stabiliser")
+
+
+def mlstm_inputs(B: int, S: int, dh: int, profile: str, seed: int = 0, device="cpu",
+                 with_state: bool = False):
+    """(q, k, v, i_pre, f_pre, state) fp32 for the chunkwise mLSTM, drawn
+    with numpy from ``seed``. q and k have mean 1 (k over sqrt(dh), as
+    the model pre-scales it), so a score q.k keeps its sign: where the
+    scores change sign, den = |sum_j w s| can cancel, and any two
+    summation orders then disagree by the cancellation, not by the
+    kernel. Gates: ``unit`` i ~ N(0, 1), f ~ N(1, 1); ``stabiliser``
+    drives the running max: i uniform in [-20, 20], f at either
+    saturation (8 + N(0, 1) or -8 + N(0, 1) at random). ``with_state``
+    adds a state (C, n, m) that the plain version reaches over a
+    37-token prefix of the same draw, else None."""
+    from repro_torch.kernels.mlstm_ref import mlstm_chunk_ref
+
+    if profile not in MLSTM_PROFILES:
+        raise ValueError(f"unknown mLSTM profile {profile!r}; one of {MLSTM_PROFILES}")
+    rng = np.random.default_rng(seed)
+    P = 37 if with_state else 0
+
+    def gates(n):
+        if profile == "unit":
+            return rng.standard_normal((B, n)), rng.standard_normal((B, n)) + 1.0
+        sign = np.where(rng.random((B, n)) < 0.5, 1.0, -1.0)
+        return rng.uniform(-20.0, 20.0, (B, n)), 8.0 * sign + rng.standard_normal((B, n))
+
+    q = rng.standard_normal((B, P + S, dh)) + 1.0
+    k = (rng.standard_normal((B, P + S, dh)) + 1.0) / np.sqrt(dh)
+    v = rng.standard_normal((B, P + S, dh))
+    i_pre, f_pre = gates(P + S)
+    t = [torch.tensor(a, dtype=torch.float32, device=device) for a in (q, k, v, i_pre, f_pre)]
+    state = None
+    if with_state:
+        _, state = mlstm_chunk_ref(*(x[:, :P] for x in t))
+    return (*(x[:, P:].contiguous() for x in t), state)

@@ -8,13 +8,25 @@ cache, replaying a staggered trace of variable-length requests.
   python -m repro_torch.launch.serve --arch llama3.2-1b --paged --stream \\
       --quantize int8 --streaming-window 4 --cold-kv int8 --verify
 
+  python -m repro_torch.launch.serve --arch xlstm-1.3b --paged --stream --verify
+
 Runs on the CUDA device unless ``--device`` names another. The weights
-are random, from ``--seed``. ``--verify`` replays every request through
-the batch-1 static-cache greedy path (:func:`static_greedy_reference`)
-and fails on any token mismatch; under ``--streaming-window`` only the
+are random, from ``--seed``. ``--verify`` checks every request against
+the batch-1 static-cache greedy path (:func:`static_greedy_reference`):
+in fp32 compute it requires identical tokens; in bf16 it requires every
+request to equal the same request served alone by a fresh engine
+(:func:`replay_alone`, bit for bit) and every token to lie within the
+tolerance ladder of the static path, teacher-forced
+(:func:`static_logit_gaps`) — :func:`check_oracles`, the check
+``chip_smoke.py`` runs too. Under ``--streaming-window`` only the
 requests within the identity horizon (sink + window pages of tokens)
-are replayed, since eviction changes what a longer one attends to (the
+are checked, since eviction changes what a longer one attends to (the
 reference CLI's ``src/repro/launch/serve.py:216-232``).
+
+``--arch xlstm-1.3b`` (the ``ssm_lm`` family) serves through the
+recurrent prompt path: each prompt prefills whole from position 0
+through the chunkwise mLSTM kernel and its state is scattered into the
+request's slot; decode steps every slot's recurrent state.
 
 ``--quantize int8`` serves int8 weights (spectral factors and dense
 projections). Its ``--verify`` oracle is the static path over the
@@ -29,12 +41,12 @@ a greedy token where fp32 on the CPU does not.
 
 The static path is exact on the CPU in fp32. In bf16 on the card it is
 not bit for bit the engine: its decode attention sums in another order
-than the paged kernel, so a bf16 logit can land one rounding step away
-and a near-tie between two tokens can go the other way (the batched
-GEMMs and the spectral kernels are row-invariant; the attention is
-not). :func:`replay_alone` is the exact oracle there, and
+than the paged kernel (and its batch-1 steps may take other GEMM
+kernels than the engine's batched ones), so a bf16 logit can land one
+rounding step away and a near-tie between two tokens can go the other
+way. :func:`replay_alone` is the exact oracle there, and
 :func:`static_logit_gaps` holds the tokens to the static path within
-the tolerance ladder; ``chip_smoke.py`` checks both.
+the tolerance ladder.
 
 ``--streaming-window W`` keeps the ``--sink-pages`` pinned pages plus a
 window of W pages resident per sequence; ``--cold-kv int8`` demotes the
@@ -54,6 +66,7 @@ import torch
 from repro_torch.config import get_config
 from repro_torch.device import compute_dtype, resolve_device
 from repro_torch.kernels.testing import tolerance_for
+from repro_torch.models.decode import recurrent_slot_axes
 from repro_torch.models.model import (
     decode_step,
     init_decode_state,
@@ -62,7 +75,7 @@ from repro_torch.models.model import (
     serving_params,
 )
 from repro_torch.serving.engine import ServingEngine
-from repro_torch.serving.paged_cache import PagedCacheConfig
+from repro_torch.serving.paged_cache import PagedCacheConfig, slot_write
 from repro_torch.serving.quantize import dequantize_tree
 from repro_torch.serving.scheduler import Request
 from repro_torch.serving.streaming import StreamingConfig, identity_horizon
@@ -100,22 +113,61 @@ def build_trace(args, vocab, pcfg):
     return reqs
 
 
+def _static_start(cfg, params, prompt, max_seq, rows, dev):
+    """The static path's prefill of ``prompt``; with ``rows`` > 1 (the
+    recurrent families only) the state then carries ``rows`` rows, the
+    prompt's state in row 0 and empty state elsewhere, so that the decode
+    steps run at that batch."""
+    toks = torch.as_tensor(np.asarray(prompt), dtype=torch.int64).to(dev)[None]
+    state = init_decode_state(cfg, 1, max_seq, device=dev)
+    logits, state = prefill(params, toks, cfg, state)
+    if rows > 1:
+        axes = recurrent_slot_axes(cfg)
+        if not axes:
+            raise ValueError(f"rows={rows}: only a recurrent family's static path runs "
+                             f"its steps batched")
+        full = init_decode_state(cfg, rows, max_seq, device=dev)
+        for key, axis in axes.items():
+            slot_write(full[key], axis, 0, state[key])
+        state = full
+    return logits, state
+
+
+def _static_step(cfg, params, tok, state, pos, rows, dev):
+    toks = torch.zeros((rows, 1), dtype=torch.int64, device=dev)
+    toks[0, 0] = int(tok)
+    logits, state = decode_step(params, toks, state, pos, cfg)
+    return logits[:1], state
+
+
+def static_rows(engine: ServingEngine) -> int:
+    """The batch of the static path's decode steps when it checks
+    ``engine``: 1, or the engine's slot count for a recurrent family.
+    Such an engine steps every slot at once, so its step's shape is
+    (slots, 1) whatever is active; torch's batched products (``bmm``)
+    round differently at another batch, the recurrent state carries the
+    difference from step to step, and a model this sensitive to rounding
+    (xlstm-1.3b with random weights in bf16 on the card) lands the
+    batch-1 path many times the ladder's allowance away within a few
+    tokens. At the engine's batch the static path tests the engine's own
+    machinery (prompt path, slot scatter, scheduling) bit for bit."""
+    return engine.pcfg.max_slots if recurrent_slot_axes(engine.cfg) else 1
+
+
 @torch.no_grad()
-def static_greedy_reference(cfg, params, prompt, gen, max_seq, *, device=None):
-    """Batch-1 static-cache greedy decode — the token-for-token oracle
-    for --verify: the same spectral kernel as the engine, fp32 decode
+def static_greedy_reference(cfg, params, prompt, gen, max_seq, *, device=None, rows=1):
+    """Static-cache greedy decode — the token-for-token oracle for
+    --verify: the same spectral kernel as the engine, fp32 decode
     attention over the gathered static cache instead of the paged
     kernel. ``params`` are cast as the engine casts them (a no-op on
-    an engine's own params)."""
+    an engine's own params). ``rows``: the decode steps' batch
+    (:func:`static_rows`)."""
     dev = resolve_device(device)
     params = serving_params(params, cfg, dev)
-    state = init_decode_state(cfg, 1, max_seq, device=dev)
-    tokens = torch.as_tensor(np.asarray(prompt), dtype=torch.int64).to(dev)[None]
-    logits, state = prefill(params, tokens, cfg, state)
+    logits, state = _static_start(cfg, params, prompt, max_seq, rows, dev)
     toks = [int(torch.argmax(logits[0, -1]))]
     for i in range(gen - 1):
-        tok = torch.tensor([[toks[-1]]], dtype=torch.int64, device=dev)
-        logits, state = decode_step(params, tok, state, len(prompt) + i, cfg)
+        logits, state = _static_step(cfg, params, toks[-1], state, len(prompt) + i, rows, dev)
         toks.append(int(torch.argmax(logits[0, -1])))
     return np.asarray(toks, dtype=np.int32)
 
@@ -139,20 +191,20 @@ def replay_alone(engine: ServingEngine, request: Request) -> np.ndarray:
 
 
 @torch.no_grad()
-def static_logit_gaps(cfg, params, prompt, tokens, max_seq, *, device=None) -> np.ndarray:
+def static_logit_gaps(cfg, params, prompt, tokens, max_seq, *, device=None,
+                      rows=1) -> np.ndarray:
     """Teacher-forced static path over ``tokens``: at every generated
     position, the static path's best logit less its logit for the token
     given, over the ladder's allowance for that step (``atol * rms +
     rtol * |best|`` of the compute dtype's rung, logits in fp32). A
     value <= 1 means the token given is the static path's choice within
     the kernels' tolerance; greedy tokens of a correct engine stay there
-    even where a near-tie flips them."""
+    even where a near-tie flips them. ``rows``: as in
+    :func:`static_greedy_reference`."""
     dev = resolve_device(device)
     params = serving_params(params, cfg, dev)
     tol = tolerance_for(compute_dtype(cfg))
-    state = init_decode_state(cfg, 1, max_seq, device=dev)
-    toks = torch.as_tensor(np.asarray(prompt), dtype=torch.int64).to(dev)[None]
-    logits, state = prefill(params, toks, cfg, state)
+    logits, state = _static_start(cfg, params, prompt, max_seq, rows, dev)
     gaps = []
     for i, tok in enumerate(np.asarray(tokens)):
         lg = logits[0, -1].float()
@@ -160,9 +212,44 @@ def static_logit_gaps(cfg, params, prompt, tokens, max_seq, *, device=None) -> n
         rms = torch.sqrt(torch.mean(lg * lg))
         gaps.append(float((best - lg[int(tok)]) / (tol.atol * rms + tol.rtol * best.abs())))
         if i + 1 < len(tokens):
-            nxt = torch.tensor([[int(tok)]], dtype=torch.int64, device=dev)
-            logits, state = decode_step(params, nxt, state, len(prompt) + i, cfg)
+            logits, state = _static_step(cfg, params, tok, state, len(prompt) + i, rows, dev)
     return np.asarray(gaps)
+
+
+def check_oracles(engine: ServingEngine, alone, out, to_static) -> dict:
+    """The bf16 gate: every request of ``alone`` equals its replay alone
+    through a fresh engine of the same configuration (exact), and the
+    requests of ``to_static`` stay within the tolerance ladder of the
+    static path, teacher-forced over the engine's tokens (gap <= 1), its
+    steps at :func:`static_rows`. Raises ``AssertionError`` at the first
+    departure; returns the counts and the largest gap."""
+    def done(r):
+        return engine.last_statuses.get(r.rid) == "finished"
+
+    for r in alone:
+        got = out[r.rid]
+        solo = replay_alone(engine, r)
+        if not np.array_equal(solo if done(r) else solo[:len(got)], got):
+            first = int(np.argmax(solo[:len(got)] != got)) if len(solo) >= len(got) else 0
+            raise AssertionError(f"request {r.rid}: engine tokens differ from the request "
+                                 f"served alone at position {first}:\n  alone  {solo}\n"
+                                 f"  engine {got}")
+    worst, exact, total = 0.0, 0, 0
+    for r in to_static:
+        gaps = static_logit_gaps(engine.cfg, engine.params, r.prompt, out[r.rid],
+                                 engine.pcfg.max_seq, device=engine.device,
+                                 rows=static_rows(engine))
+        if len(gaps) == 0:
+            continue
+        worst = max(worst, float(gaps.max()))
+        exact += int(np.sum(gaps == 0.0))
+        total += len(gaps)
+        if gaps.max() > 1.0:
+            first = int(np.argmax(gaps > 1.0))
+            raise AssertionError(f"request {r.rid}: token {first} is {gaps[first]:.3f}x the "
+                                 f"ladder's allowance below the static path's best logit")
+    return {"alone": len(alone), "static": len(to_static), "max_gap": worst,
+            "exact": exact, "tokens": total}
 
 
 def paged_config(args) -> PagedCacheConfig:
@@ -191,8 +278,12 @@ def run_stream(args, cfg, params) -> ServingEngine:
     print(f"served {int(st['requests'])} requests: "
           f"{int(st['prefill_tokens'])} prefill + {int(st['generated_tokens'])} generated "
           f"tokens in {st['wall_s']:.2f}s ({st['tokens_per_s']:.1f} tok/s)")
-    print(f"paged attention cache: {int(st['attn_cache_bytes'])} bytes "
-          f"({pcfg.num_pages}+1 pages x {pcfg.page_size} tokens)")
+    if st["recurrent_state_bytes"]:
+        print(f"recurrent state: {int(st['recurrent_state_bytes'])} bytes "
+              f"({pcfg.max_slots} slots)")
+    else:
+        print(f"paged attention cache: {int(st['attn_cache_bytes'])} bytes "
+              f"({pcfg.num_pages}+1 pages x {pcfg.page_size} tokens)")
     if args.prefix_cache:
         saved, total = int(st["prefix_shared_tokens"]), int(st["prompt_tokens"])
         print(f"prefix cache: {saved}/{total} prompt tokens served from cache")
@@ -216,32 +307,46 @@ def run_stream(args, cfg, params) -> ServingEngine:
 
 
 def verify(engine: ServingEngine, trace, out, params) -> None:
-    """Replay every request within the identity horizon through the
-    static path over the engine's own weights and require identical
-    tokens; under --quantize, print the agreement with the dequantized
-    and the unquantized weights as diagnostics."""
+    """Check every request within the identity horizon against the static
+    path over the engine's own weights: identical tokens in fp32
+    compute, :func:`check_oracles` in bf16. Under --quantize, print the
+    agreement with the dequantized and the unquantized weights as
+    diagnostics."""
     cfg, pcfg = engine.cfg, engine.pcfg
     horizon = (identity_horizon(engine.streaming, pcfg)
                if engine.streaming is not None else None)
     checked = [r for r in trace
                if horizon is None or r.prompt_len + r.max_new_tokens <= horizon]
-    bad = 0
-    for r in checked:
-        ref = static_greedy_reference(cfg, engine.params, r.prompt, r.max_new_tokens,
-                                      pcfg.max_seq, device=engine.device)
-        got = out[r.rid]
-        ok = (np.array_equal(ref[:len(got)], got)
-              if engine.last_statuses.get(r.rid) != "finished"
-              else np.array_equal(ref, got))
-        if not ok:
-            bad += 1
-            print(f"request {r.rid}: MISMATCH\n  static {ref}\n  paged  {got}")
-    if bad:
-        raise SystemExit(f"{bad}/{len(checked)} requests diverged from the static path")
     skipped = len(trace) - len(checked)
-    print(f"verify: all {len(checked)} requests match the static path token-for-token"
-          + (f" ({skipped} beyond the {horizon}-token streaming identity horizon "
-             f"skipped)" if skipped else ""))
+    note = (f" ({skipped} beyond the {horizon}-token streaming identity horizon skipped)"
+            if skipped else "")
+    if compute_dtype(cfg) == torch.float32:
+        bad = 0
+        for r in checked:
+            ref = static_greedy_reference(cfg, engine.params, r.prompt, r.max_new_tokens,
+                                          pcfg.max_seq, device=engine.device,
+                                          rows=static_rows(engine))
+            got = out[r.rid]
+            ok = (np.array_equal(ref[:len(got)], got)
+                  if engine.last_statuses.get(r.rid) != "finished"
+                  else np.array_equal(ref, got))
+            if not ok:
+                bad += 1
+                print(f"request {r.rid}: MISMATCH\n  static {ref}\n  paged  {got}")
+        if bad:
+            raise SystemExit(f"{bad}/{len(checked)} requests diverged from the static path")
+        print(f"verify: all {len(checked)} requests match the static path token-for-token"
+              + note)
+    else:
+        try:
+            rep = check_oracles(engine, checked, out, checked)
+        except AssertionError as e:
+            raise SystemExit(f"verify failed: {e}") from None
+        print(f"verify: all {rep['alone']} requests match the request served alone bit for "
+              f"bit, and every token lies within the {cfg.dtype} ladder of the static path, "
+              f"teacher-forced (largest gap {rep['max_gap']:.3f} of the allowance); "
+              f"{rep['exact']}/{rep['tokens']} tokens are exactly the static path's choice"
+              + note)
     if engine.quantize:
         for what, oracle in (("the dequantized int8 weights", dequantize_tree(engine.params)),
                              ("the unquantized weights", params)):
@@ -302,7 +407,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "them bf16, int8 demotes them to int8 shadow pools (with "
                          "--streaming-window)")
     ap.add_argument("--verify", action="store_true",
-                    help="check outputs against the static path token for token")
+                    help="check outputs against the static path: token for token in "
+                         "fp32; in bf16, each request equal to itself served alone and "
+                         "every token within the ladder of the static path")
     return ap
 
 

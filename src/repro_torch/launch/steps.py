@@ -10,6 +10,7 @@ import torch
 from repro_torch.checkpoint.store import flatten, unflatten
 from repro_torch.config.model_config import ModelConfig
 from repro_torch.core.precision import effective_policy
+from repro_torch.models.lm import require_family
 from repro_torch.models.model import train_loss
 from repro_torch.optim import SCTOptimizer, make_sct_optimizer
 
@@ -19,7 +20,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[SCTOptimizer] = None,
     """(state, batch) -> (state, metrics). The optimizer's precision
     policy sets the forward's compute dtype (legacy: ``cfg.dtype`` over
     the fp32 masters). Metrics are 0-d tensors: ``loss``, ``ce_loss``,
-    ``aux_loss``. Microbatching and rank telemetry are not ported."""
+    ``aux_loss``. Microbatching and rank telemetry are not ported, nor is
+    training a family other than ``dense_lm`` (``models/lm.py:SUPPORT``)."""
+    require_family(cfg, "train")
     if microbatches != 1:
         raise NotImplementedError("microbatched gradient accumulation is not ported")
     if telemetry:

@@ -1,11 +1,22 @@
-"""Serving paths for the dense decoder: cache construction, prefill and
-single-token decode, over a static ``(batch, max_seq)`` cache or paged
-pools (serving/paged_cache.py).
+"""Serving paths of the ported families: state construction, prefill
+and single-token decode.
 
-Caches are stacked along a leading layer axis; the layer loop hands
-each layer views of its slice, which the attention functions update in
-place. KV pools stay bf16 whatever the compute dtype, as in the
-reference's ``_attn_pool_spec``.
+``dense_lm`` caches KV in a static ``(batch, max_seq)`` cache or in paged
+pools (serving/paged_cache.py). Caches are stacked along a leading layer
+axis; the layer loop hands each layer views of its slice, which the
+attention functions update in place. KV pools stay bf16 whatever the
+compute dtype, as in the reference's ``_attn_pool_spec``.
+
+``ssm_lm`` (xlstm) carries fixed-size recurrent state per sequence,
+indexed by slot in both layouts (the reference's
+``src/repro/models/decode.py:138-181``): ``mlstm`` C (n_periods,
+slstm_every - 1, batch, heads, dh, dh), n and m, fp32; ``slstm`` h, c,
+n and m (n_periods, batch, heads, d // heads), fp32. Its prefill runs
+the chunkwise forward from the empty state and writes each layer's final
+state into the state it is given; its decode step updates the state in
+place for every slot (an inactive slot evolves harmlessly on token 0
+until a prefill overwrites it). It never prefills from an offset, so it
+opts out of prefix sharing and chunked prefill.
 """
 from __future__ import annotations
 
@@ -16,8 +27,9 @@ import torch
 from repro_torch.config.model_config import ModelConfig
 from repro_torch.core.tree import layer_slice
 from repro_torch.device import compute_dtype
-from repro_torch.models.lm import _norm_apply, require_dense
+from repro_torch.models.lm import _norm_apply, n_periods, require_family
 from repro_torch.nn import attention as attn
+from repro_torch.nn import xlstm as xlstm_mod
 from repro_torch.nn.embedding import apply_embedding, apply_lm_head
 from repro_torch.nn.mlp import apply_mlp
 from repro_torch.serving.paged_cache import paged_slots
@@ -38,9 +50,34 @@ def supports_prefix_sharing(cfg: ModelConfig) -> bool:
     return cfg.family in PREFIX_SHARING_FAMILIES
 
 
+def recurrent_slot_axes(cfg: ModelConfig) -> Dict[str, int]:
+    """State key -> the axis of the serving slot (batch) in its stacked
+    leaves; the engine scatters a prefilled sequence's state there."""
+    if cfg.family == "ssm_lm":
+        return {"mlstm": 2, "slstm": 1}
+    return {}
+
+
 # ======================================================================
 # State init
 # ======================================================================
+
+def _ssm_state(cfg: ModelConfig, batch: int, device):
+    """Zero recurrent state (m included, as the reference's zero-filled
+    ``lm_init_state``: a prefill replaces it before it is read)."""
+    _, h, dh = xlstm_mod.mlstm_dims(cfg)
+    P, n_m = n_periods(cfg), cfg.slstm_every - 1
+    ds = cfg.d_model // cfg.n_heads
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return {
+        "mlstm": {"C": zeros(P, n_m, batch, h, dh, dh), "n": zeros(P, n_m, batch, h, dh),
+                  "m": zeros(P, n_m, batch, h)},
+        "slstm": {name: zeros(P, batch, cfg.n_heads, ds) for name in ("h", "c", "n", "m")},
+    }
+
 
 def _kv_pair(shape, device):
     return {"k": torch.zeros(shape, dtype=KV_DTYPE, device=device),
@@ -49,8 +86,11 @@ def _kv_pair(shape, device):
 
 def lm_init_state(cfg: ModelConfig, batch: int, max_seq: int, *, device):
     """Zero static-cache decode state: {"cache": {"k"/"v": (L, batch,
-    max_seq, kvh, hd) bf16}}."""
-    require_dense(cfg)
+    max_seq, kvh, hd) bf16}}; for ssm_lm the recurrent state of
+    ``batch`` sequences (``max_seq`` does not bound it)."""
+    require_family(cfg, "serve")
+    if cfg.family == "ssm_lm":
+        return _ssm_state(cfg, batch, device)
     return {"cache": _kv_pair(
         (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim), device)}
 
@@ -62,10 +102,16 @@ def lm_init_paged_state(cfg: ModelConfig, pcfg, *, device, cold_kv: str = "none"
     tier's shadow leaves (the reference's ``_attn_pool_spec``,
     ``src/repro/models/decode.py:93-127``): ``k_q8``/``v_q8`` int8 of
     the pools' shape and ``k_scale``/``v_scale`` (L, num_pages + 1, kvh,
-    hd) fp32, one scale per page and channel."""
-    require_dense(cfg)
+    hd) fp32, one scale per page and channel. For ssm_lm: the recurrent
+    state of ``pcfg.max_slots`` slots (no pools)."""
+    require_family(cfg, "serve")
     if cold_kv not in ("none", "int8"):
         raise ValueError(f"cold_kv must be 'none' or 'int8', got {cold_kv!r}")
+    if cfg.family == "ssm_lm":
+        if cold_kv != "none":
+            raise NotImplementedError("a cold KV tier needs paged attention pools; "
+                                      f"family {cfg.family!r} has none")
+        return _ssm_state(cfg, pcfg.max_slots, device)
     L, P = cfg.n_layers, pcfg.num_pages + 1
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
     cache = _kv_pair((L, P, pcfg.page_size, kvh, hd), device)
@@ -84,8 +130,12 @@ def lm_init_paged_state(cfg: ModelConfig, pcfg, *, device, cold_kv: str = "none"
 
 def prefill_lm(params: Params, tokens: torch.Tensor, cfg: ModelConfig, state):
     """Process the prompt, fill the static cache. Returns (last-token
-    logits (b, 1, vocab), state)."""
-    require_dense(cfg)
+    logits (b, 1, vocab), state). For ssm_lm the prompt runs the
+    chunkwise forward from the empty state and every layer's final state
+    is written into ``state`` (b sequences)."""
+    require_family(cfg, "serve")
+    if cfg.family == "ssm_lm":
+        return _ssm_prefill(params, tokens, cfg, state)
     b, s = tokens.shape
     x = apply_embedding(params["embed"], tokens, compute_dtype=compute_dtype(cfg))
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -110,7 +160,9 @@ def prefill_lm(params: Params, tokens: torch.Tensor, cfg: ModelConfig, state):
 def decode_step_lm(params: Params, tokens: torch.Tensor, state, cache_len: int,
                    cfg: ModelConfig):
     """tokens (b, 1) + static state -> (logits (b, 1, vocab), state);
-    cache_len is the number of tokens already cached."""
+    cache_len is the number of tokens already cached (ssm_lm: unused)."""
+    if cfg.family == "ssm_lm":
+        return _ssm_decode(params, tokens, state, cfg)
     b, s = tokens.shape
     rope = attn.step_rope(cfg, torch.full((b, s), int(cache_len), dtype=torch.long,
                                           device=tokens.device))
@@ -130,7 +182,10 @@ def decode_step_lm_paged(params: Params, tokens: torch.Tensor, state,
     block_table: (slots, n_pages) int32; seq_lens: (slots,) int32;
     ``cold_flags`` (num_pages + 1,) int32: the streaming cold tier's
     per-page flags, with the shadow leaves in the state (threaded as in
-    ``src/repro/models/decode.py:379-432``)."""
+    ``src/repro/models/decode.py:379-432``). For ssm_lm the block table
+    and lengths are unused: every slot's recurrent state steps once."""
+    if cfg.family == "ssm_lm":
+        return _ssm_decode(params, tokens, state, cfg)
     # every layer shares the step's RoPE tables and append targets
     rope = attn.step_rope(cfg, seq_lens[:, None].long())
     slots = paged_slots(block_table, seq_lens, state["cache"]["k"].shape[2])
@@ -171,7 +226,7 @@ def _decode_step_body(params: Params, tokens: torch.Tensor, state, cfg: ModelCon
     """Layer loop shared by the static and paged steps;
     ``attn_decode(layer_params, h, cache) -> (out, cache)`` is the
     layout-specific part."""
-    require_dense(cfg)
+    require_family(cfg, "serve")
     x = apply_embedding(params["embed"], tokens, compute_dtype=compute_dtype(cfg))
     for i in range(cfg.n_layers):
         p = layer_slice(params["layers"], i)
@@ -180,5 +235,60 @@ def _decode_step_body(params: Params, tokens: torch.Tensor, state, cfg: ModelCon
         x = x + h
         h = _norm_apply(cfg, p["mlp_norm"], x)
         x = x + apply_mlp(p["mlp"], h, act=cfg.act)
+    x = _norm_apply(cfg, params["final_norm"], x)
+    return apply_lm_head(params["embed"], x), state
+
+
+# ======================================================================
+# ssm_lm (xlstm): prefill and decode over the recurrent state
+# ======================================================================
+
+def _ssm_layers(cfg: ModelConfig):
+    """(position in the period, index among the period's mLSTMs or None
+    for the sLSTM)."""
+    for p in range(cfg.slstm_every):
+        if p == cfg.slstm_offset:
+            yield p, None
+        else:
+            yield p, p if p < cfg.slstm_offset else p - 1
+
+
+def _ssm_prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, state):
+    x = apply_embedding(params["embed"], tokens, compute_dtype=compute_dtype(cfg))
+    for i in range(n_periods(cfg)):
+        pp = layer_slice(params["periods"], i)
+        for p, mi in _ssm_layers(cfg):
+            lp = pp[f"p{p}"]
+            h = _norm_apply(cfg, lp["pre_norm"], x)
+            if mi is None:
+                h, new = xlstm_mod.apply_slstm_with_state(lp["slstm"], h, cfg)
+                dst = layer_slice(state["slstm"], i)
+            else:
+                h, new = xlstm_mod.apply_mlstm_with_state(lp["mlstm"], h, cfg)
+                dst = layer_slice(layer_slice(state["mlstm"], i), mi)
+            for name, t in new.items():
+                dst[name].copy_(t)
+            x = x + h
+    x = _norm_apply(cfg, params["final_norm"], x[:, -1:, :])
+    return apply_lm_head(params["embed"], x), state
+
+
+def _ssm_decode(params: Params, tokens: torch.Tensor, state, cfg: ModelConfig):
+    require_family(cfg, "serve")
+    x = apply_embedding(params["embed"], tokens, compute_dtype=compute_dtype(cfg))
+    for i in range(n_periods(cfg)):
+        pp = layer_slice(params["periods"], i)
+        for p, mi in _ssm_layers(cfg):
+            lp = pp[f"p{p}"]
+            h = _norm_apply(cfg, lp["pre_norm"], x)
+            if mi is None:
+                st = layer_slice(state["slstm"], i)
+                h, new = xlstm_mod.apply_slstm_decode(lp["slstm"], h, cfg, state=st)
+                for name, t in new.items():
+                    st[name].copy_(t)
+            else:
+                st = layer_slice(layer_slice(state["mlstm"], i), mi)
+                h, _ = xlstm_mod.apply_mlstm_decode(lp["mlstm"], h, cfg, state=st)
+            x = x + h
     x = _norm_apply(cfg, params["final_norm"], x)
     return apply_lm_head(params["embed"], x), state

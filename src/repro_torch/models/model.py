@@ -1,4 +1,5 @@
-"""Model dispatcher: one API over the ported families (``dense_lm``).
+"""Model dispatcher: one API over the ported families (``dense_lm``;
+``ssm_lm`` for init, forward and serving — ``models/lm.py:SUPPORT``).
 
   init_model(cfg, seed=, device=)                 -> params
   forward(params, tokens, cfg)                    -> (logits, aux)
@@ -32,7 +33,6 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     ``device`` (the CUDA device unless told otherwise). Same
     distributions as the reference's init; other draws."""
     dev = resolve_device(device)
-    lm_mod.require_dense(cfg)
     return lm_mod.init_lm(cfg, generator=generator_for(dev, seed, generator), device=dev)
 
 
@@ -72,6 +72,10 @@ def prefill_chunk_paged(params, tokens, state, block_table, start: int, cfg: Mod
                                              start, cfg, cold_flags=cold_flags)
 
 
+# leaves serving keeps in fp32 whatever the compute dtype
+FP32_LEAVES = ("s", "wr")
+
+
 def serving_params(params, cfg: ModelConfig, device: torch.device,
                    quantize: Optional[str] = None):
     """Params on ``device`` as the engine serves them: with
@@ -79,8 +83,10 @@ def serving_params(params, cfg: ModelConfig, device: torch.device,
     (``serving/quantize.py:quantize_tree``, as the reference engine does
     at ``src/repro/serving/engine.py:112-117``); then every remaining
     floating leaf is cast once to the compute dtype, except the spectral
-    ``s`` vectors (the kernels scale h by s in fp32) and the leaves of a
-    quantized tensor (``q8`` stays int8, ``scale`` fp32). A tree that is
+    ``s`` vectors (the kernels scale h by s in fp32), the sLSTM's
+    recurrent ``wr`` (the reference casts it to the fp32 state's dtype,
+    ``src/repro/nn/xlstm.py:225``) and the leaves of a quantized tensor
+    (``q8`` stays int8, ``scale`` fp32). A tree that is
     already quantized passes through with its codes and scales as they
     are. The reference casts at every apply, which gives the same
     numbers; casting once keeps the 128k-row embedding/LM-head table out
@@ -98,7 +104,7 @@ def serving_params(params, cfg: ModelConfig, device: torch.device,
 
     def cast(name, t):
         t = t.to(device)
-        if t.is_floating_point() and name != "s":
+        if t.is_floating_point() and name not in FP32_LEAVES:
             t = t.to(dt)
         return t
 

@@ -26,6 +26,15 @@ attention reads through the cold decode kernel. Reference:
 ``src/repro/serving/engine.py:112-121`` (int8), ``:133-200`` and
 ``:515-700`` (streaming, the cold tier), ``:750-753`` (the stats).
 
+The recurrent family (``ssm_lm``, xlstm) takes the reference's recurrent
+prompt path (``src/repro/serving/engine.py:652-669`` ``_prefill_full``):
+the whole prompt prefills from position 0 into a batch-1 state, which is
+scattered into the sequence's slot of the engine state; every decode
+step then advances all slots' recurrent state at once. Such a family
+silently opts out of the prefix cache and chunked prefill, as in the
+reference; ``streaming=`` raises (its state cannot drop evicted
+history), and so does ``quantize="int8"`` until a test holds it.
+
 Not ported yet (they raise ``NotImplementedError``): tensor-parallel
 serving (``mesh``) and the SLO scheduler (``scheduler="slo"``).
 """
@@ -39,16 +48,23 @@ import numpy as np
 import torch
 
 from repro_torch.config.model_config import ModelConfig
+from repro_torch.core.tree import tree_leaves
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.decode import ATTN_STATE_KEYS, supports_prefix_sharing
-from repro_torch.models.lm import require_dense
+from repro_torch.models.decode import (
+    ATTN_STATE_KEYS,
+    recurrent_slot_axes,
+    supports_prefix_sharing,
+)
+from repro_torch.models.lm import require_family
 from repro_torch.models.model import (
     decode_step_paged,
+    init_decode_state,
     init_paged_state,
+    prefill,
     prefill_chunk_paged,
     serving_params,
 )
-from repro_torch.serving.paged_cache import PagedCacheConfig
+from repro_torch.serving.paged_cache import PagedCacheConfig, slot_write
 from repro_torch.serving.quantize import param_bytes, quantize_kv_pages
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler, Request, SeqState
 from repro_torch.serving.streaming import StreamingConfig
@@ -83,7 +99,16 @@ class ServingEngine:
             raise NotImplementedError("the SLO scheduler is not ported yet")
         if scheduler != "fifo":
             raise ValueError(f"unknown scheduler {scheduler!r}; options: fifo")
-        require_dense(cfg)
+        require_family(cfg, "serve")
+        self._offset_prefill = supports_prefix_sharing(cfg)
+        if streaming is not None and not self._offset_prefill:
+            raise NotImplementedError(
+                "streaming KV needs the offset-prefill paged path; family "
+                f"{cfg.family!r} carries recurrent state that cannot drop evicted history")
+        if quantize is not None and not self._offset_prefill:
+            raise NotImplementedError(
+                f"quantize={quantize!r} on the recurrent family {cfg.family!r} is not "
+                "ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.weight_bytes_fp = param_bytes(params)
@@ -95,7 +120,7 @@ class ServingEngine:
         # chunk size for chunked prefill: the step budget when set, else
         # a few pages' worth
         self.prefill_chunk = prefill_token_budget or 4 * pcfg.page_size
-        self._offset_prefill = supports_prefix_sharing(cfg)
+        # recurrent families silently opt out (models/decode.py)
         self.prefix_cache = bool(prefix_cache) and self._offset_prefill
         self.chunked_prefill = bool(chunked_prefill) and self._offset_prefill
         # streaming KV policy: attention sinks + sliding-window eviction
@@ -241,6 +266,9 @@ class ServingEngine:
                if self.streaming is not None else None)
         spent = 0
         for seq in self.sched.prefilling():
+            if not self._offset_prefill:
+                self._prefill_full(seq)
+                continue
             plen = seq.request.prompt_len
             logits = None
             while seq.prefill_pos < plen:
@@ -274,6 +302,21 @@ class ServingEngine:
         self.prefill_tokens += c
         self.prefill_chunks += 1
         return logits
+
+    def _prefill_full(self, seq: SeqState) -> None:
+        """The recurrent prompt path: the whole prompt from position 0
+        into a batch-1 state, scattered into the sequence's slot. Every
+        leaf of the slot is overwritten, so whatever the slot's state
+        became while it idled (decode steps every slot) is gone."""
+        req = seq.request
+        toks = torch.as_tensor(req.prompt, dtype=torch.int64).to(self.device)[None]
+        tmp = init_decode_state(self.cfg, 1, req.prompt_len, device=self.device)
+        logits, filled = prefill(self.params, toks, self.cfg, tmp)
+        for key, axis in recurrent_slot_axes(self.cfg).items():
+            slot_write(self.state[key], axis, seq.slot, filled[key])
+        seq.prefill_pos = req.prompt_len
+        self.prefill_tokens += req.prompt_len
+        self._complete_prefill(seq, logits)
 
     # --------------------------------------------------------- streaming --
     def _cold_flags(self) -> Optional[torch.Tensor]:
@@ -338,7 +381,7 @@ class ServingEngine:
             # copy-on-write fork: duplicate the shared page in every
             # layer's pools before the batched append may write it
             for key in ATTN_STATE_KEYS:
-                for pool in self.state[key].values():
+                for pool in self.state.get(key, {}).values():
                     pool[:, dst] = pool[:, src]
         bt_np, sl_np = self.sched.decode_view()
         bt = torch.as_tensor(bt_np).to(self.device)
@@ -359,7 +402,13 @@ class ServingEngine:
     def attn_cache_bytes(self) -> int:
         """Bytes held by the paged attention pools."""
         return sum(t.numel() * t.element_size()
-                   for key in ATTN_STATE_KEYS for t in self.state[key].values())
+                   for key in ATTN_STATE_KEYS for t in self.state.get(key, {}).values())
+
+    def recurrent_state_bytes(self) -> int:
+        """Bytes held by the slots' recurrent state (ssm_lm)."""
+        return sum(t.numel() * t.element_size()
+                   for key in recurrent_slot_axes(self.cfg)
+                   for t in tree_leaves(self.state[key]))
 
     def latency_percentiles(self) -> Dict[str, float]:
         """p50/p99 inter-token latency (seconds) over the sliding window
@@ -387,6 +436,7 @@ class ServingEngine:
             "wall_s": self.wall_s,
             "tokens_per_s": (self.prefill_tokens + gen) / self.wall_s if self.wall_s else 0.0,
             "attn_cache_bytes": float(self.attn_cache_bytes()),
+            "recurrent_state_bytes": float(self.recurrent_state_bytes()),
             "weight_bytes": float(self.weight_bytes),
             "weight_bytes_fp": float(self.weight_bytes_fp),
         }

@@ -119,6 +119,27 @@ def copy_page(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
     return pool
 
 
+# ------------------------------------------------- recurrent slot state --
+
+def slot_write(state_tree: Dict, axis: int, slot: int, values: Dict) -> Dict:
+    """Scatter one sequence's recurrent state (batch-1 leaves) into the
+    slot axis ``axis`` of the stacked serving state, in place, for every
+    leaf of the tree (the reference's functional ``slot_write``)."""
+    for name, leaf in state_tree.items():
+        if isinstance(leaf, dict):
+            slot_write(leaf, axis, slot, values[name])
+        else:
+            leaf.select(axis, slot).copy_(values[name].squeeze(axis))
+    return state_tree
+
+
+def slot_read(state_tree: Dict, axis: int, slot: int) -> Dict:
+    """One sequence's recurrent state as views, keeping a batch-1 axis so
+    it round-trips with :func:`slot_write`."""
+    return {name: slot_read(leaf, axis, slot) if isinstance(leaf, dict)
+            else leaf.narrow(axis, slot, 1) for name, leaf in state_tree.items()}
+
+
 # ======================================================================
 # Host-side allocator
 # ======================================================================

@@ -218,26 +218,43 @@ class PrefixCache:
             parent = key
 
     def evictable_count(self) -> int:
-        return sum(1 for e in self._entries.values()
-                   if not e.children and self.pool.refcount(e.page) == 1)
+        """Pages :meth:`evict` can free: every entry whose page only the
+        cache holds, leaf or not (an inner one goes with its subtree)."""
+        return sum(1 for e in self._entries.values() if self.pool.refcount(e.page) == 1)
 
     def evict(self, n: int) -> int:
-        """Drop up to ``n`` LRU leaf entries whose page only the cache
-        holds (releasing frees them). Evicting a leaf may expose its
-        parent as the next candidate. Returns pages actually freed."""
+        """Free up to ``n`` pages that only the cache holds. LRU leaves go
+        first (evicting one may expose its parent). When none is left, the
+        LRU inner entry whose page only the cache holds goes with its
+        subtree: a child can be held by a live sequence that does not hold
+        the parent (``insert`` chains a sequence's own page under an entry
+        another sequence inserted first), and the parent's page would
+        otherwise stay allocated, covered by no reservation and by no
+        eviction. Returns pages actually freed."""
         freed = 0
         while freed < n:
-            candidates = [e for e in self._entries.values()
-                          if not e.children and self.pool.refcount(e.page) == 1]
-            if not candidates:
+            only = [e for e in self._entries.values() if self.pool.refcount(e.page) == 1]
+            if not only:
                 break
-            victim = min(candidates, key=lambda e: e.tick)
-            del self._entries[victim.key]
-            if victim.parent is not None and victim.parent in self._entries:
-                self._entries[victim.parent].children.discard(victim.key)
-            self.pool.release([victim.page])
+            leaves = [e for e in only if not e.children]
+            freed += self._drop(min(leaves or only, key=lambda e: e.tick))
+        return freed
+
+    def _drop(self, entry: _PrefixEntry) -> int:
+        """Remove ``entry`` and its subtree from the index (a lookup stops
+        at the first miss, so the subtree is unreachable without it),
+        releasing the index's reference on each page. Returns pages freed."""
+        if entry.parent is not None and entry.parent in self._entries:
+            self._entries[entry.parent].children.discard(entry.key)
+        freed = 0
+        stack = [entry]
+        while stack:
+            e = stack.pop()
+            del self._entries[e.key]
+            stack.extend(self._entries[c] for c in e.children if c in self._entries)
+            freed += self.pool.refcount(e.page) == 1
+            self.pool.release([e.page])
             self.evicted_pages += 1
-            freed += 1
         return freed
 
     def stats(self) -> Dict[str, int]:

@@ -108,3 +108,69 @@ def test_cli_serves_and_verifies_on_cpu(capsys):
     main(["--arch", "llama3.2-1b", "--reduced", "--paged", "--stream", "--verify",
           "--device", "cpu", "--requests", "4", "--gen", "6", "--prompt-len", "10"])
     assert "verify: all 4 requests match" in capsys.readouterr().out
+
+
+def _llama_engine(dtype, trace_spec):
+    from repro_torch.models.model import init_model
+
+    cfg = get_config("llama3.2-1b", reduced=True).replace(dtype=dtype)
+    pcfg = PagedCacheConfig(**GEOM)
+    engine = ServingEngine(cfg, init_model(cfg, seed=0, device="cpu"), pcfg, device="cpu",
+                           prefill_token_budget=8)
+    rng = np.random.default_rng(3)
+    trace = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32),
+                     max_new_tokens=g, arrival=a) for i, (n, g, a) in enumerate(trace_spec)]
+    return engine, trace, engine.run(trace)
+
+
+def test_verify_is_exact_in_fp32(capsys):
+    """In fp32 --verify compares token for token with the static path: a
+    correct engine passes, one wrong token fails."""
+    from repro_torch.launch.serve import verify
+
+    engine, trace, out = _llama_engine("float32", [(5, 6, 0), (9, 5, 1)])
+    verify(engine, trace, out, None)
+    assert "verify: all 2 requests match the static path token-for-token" in \
+        capsys.readouterr().out
+    bad = dict(out)
+    bad[1] = out[1].copy()
+    bad[1][2] = (bad[1][2] + 1) % engine.cfg.vocab
+    with pytest.raises(SystemExit, match="1/2 requests diverged"):
+        verify(engine, trace, bad, None)
+
+
+def test_bf16_gate_accepts_a_near_tie_and_refuses_a_wrong_token():
+    """The bf16 gate (``check_oracles``): a token that is the static
+    path's runner-up within the ladder's allowance (a near-tie that a
+    rounding step can flip) passes the static half; the static path's
+    worst token at the same place is refused, and so is any token that
+    differs from the request served alone."""
+    from repro_torch.launch.serve import check_oracles, verify
+    from repro_torch.kernels.testing import tolerance_for
+    from repro_torch.models.model import decode_step, init_decode_state, prefill
+
+    engine, trace, out = _llama_engine("bfloat16", [(6, 16, 0)])
+    cfg, r = engine.cfg, trace[0]
+    tol = tolerance_for(torch.bfloat16)
+    with torch.no_grad():
+        state = init_decode_state(cfg, 1, engine.pcfg.max_seq, device="cpu")
+        logits, state = prefill(engine.params, torch.tensor(r.prompt)[None].long(), cfg, state)
+        for j, tok in enumerate(out[r.rid]):
+            lg = logits[0, -1].float()
+            top2 = torch.topk(lg, 2)
+            allowance = tol.atol * lg.pow(2).mean().sqrt() + tol.rtol * top2.values[0].abs()
+            if top2.values[0] - top2.values[1] <= allowance:
+                break
+            logits, state = decode_step(engine.params, torch.tensor([[int(tok)]]), state,
+                                        r.prompt_len + j, cfg)
+        else:
+            pytest.fail("no near-tie within the ladder in the request's tokens")
+    near = np.append(out[r.rid][:j], int(top2.indices[1])).astype(np.int32)
+    rep = check_oracles(engine, [], {r.rid: near}, [r])
+    assert 0.0 < rep["max_gap"] <= 1.0
+    wrong = np.append(out[r.rid][:j], int(torch.argmin(lg))).astype(np.int32)
+    with pytest.raises(AssertionError, match="ladder's allowance"):
+        check_oracles(engine, [], {r.rid: wrong}, [r])
+    with pytest.raises(SystemExit, match="served alone"):
+        verify(engine, trace, {r.rid: np.append(wrong, out[r.rid][j + 1:])}, None)
+    check_oracles(engine, trace, out, trace)           # the engine's own tokens pass

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the spectral matmul (and its autograd), its int8 variant, the
-paged GQA decode and its cold-tier variant, and the flash-attention
-forward and backward. Every test here needs a GPU and skips without one
+paged GQA decode and its cold-tier variant, the flash-attention
+forward and backward, and the chunkwise mLSTM. Every test here needs a GPU and skips without one
 (the kernels have no CPU mode). The file imports neither JAX nor the reference
 package, so it runs on a machine with CUDA and no JAX:
 
@@ -34,12 +34,17 @@ from repro_torch.kernels.paged_ref import (  # noqa: E402
     paged_gqa_decode_cold_ref,
     paged_gqa_decode_ref,
 )
+from repro_torch.kernels.mlstm_chunk import CHUNK as MLSTM_KERNEL_CHUNK  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk  # noqa: E402
+from repro_torch.kernels.mlstm_ref import mlstm_chunk_ref  # noqa: E402
 from repro_torch.kernels.ref import spectral_matmul_q8_ref, spectral_matmul_ref  # noqa: E402
 from repro_torch.serving.quantize import quantize_kv_pages  # noqa: E402
 from repro_torch.kernels.testing import (  # noqa: E402
+    MLSTM_PROFILES,
     SCALE_PROFILES,
     assert_kernel_matches,
     make_block_table,
+    mlstm_inputs,
     ragged_seq_lens,
     scale_profile,
 )
@@ -50,12 +55,21 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (M, m, n, k): ragged shapes, one row to a prefill-sized batch, ranks 8-256
 SPECTRAL = [(1, 64, 96, 16), (7, 130, 50, 8), (37, 300, 700, 64), (64, 128, 128, 128),
             (8, 2048, 8192, 128), (37, 8192, 2048, 128), (160, 2048, 8192, 128),
-            (3, 512, 384, 256)]
+            (3, 512, 384, 256),
+            # xlstm-1.3b's projections at decode (4 slots) and a 160-token
+            # prefill: up 2048->8192, down 4096->2048, ff_up 2048->5460,
+            # ff_down 2730->2048
+            (4, 2048, 8192, 128), (160, 4096, 2048, 128), (4, 2048, 5460, 128),
+            (160, 2730, 2048, 128)]
 # (M, m, n, k) of the int8 kernel: its rank is a multiple of 16
 SPECTRAL_Q8 = [(1, 64, 96, 16), (7, 130, 50, 16), (37, 300, 700, 64), (4, 2048, 8192, 128),
                (37, 8192, 2048, 128), (256, 2048, 8192, 128), (3, 512, 384, 256)]
 # b, kvh, rep, hd, page, n_pages_per_seq
 PAGED = [(5, 2, 3, 64, 4, 6), (4, 1, 4, 20, 3, 5), (4, 4, 1, 48, 8, 4), (8, 8, 4, 64, 16, 12)]
+# (B, S, dh) of the mLSTM kernel: a ragged 64-token chunk, one token, two
+# and sixteen chunks; the reduced head width and xlstm-1.3b's 1024
+MLSTM = ([(B, S, 32) for B in (1, 4) for S in (1, 37, 64, 300)]
+         + [(4, 160, 1024), (1, 1000, 1024)])
 # (b, s, g, r, d): rep 1 and 4 at s 256, 1000 (ragged tiles) and 4096, plus
 # head dim 128 and a group size that does not divide the 64-row tile
 FLASH = ([(1, s, g, r, 64) for s in (256, 1000, 4096) for g, r in ((4, 1), (2, 4))]
@@ -332,3 +346,71 @@ def test_spectral_autograd_vs_plain(cuda, dtype):
     for name, g, r in zip(("y", "dx", "dU", "ds", "dV"), got, ref):
         assert g.dtype == r.dtype, name
         assert_kernel_matches(lambda: g, lambda: r, (), dtype=DTYPES[dtype], label=name)
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["empty", "state"])
+@pytest.mark.parametrize("profile", MLSTM_PROFILES)
+@pytest.mark.parametrize("case", MLSTM, ids=lambda c: "x".join(map(str, c)))
+def test_mlstm_chunk_kernel_vs_plain(cuda, case, profile, with_state):
+    """y and the final (C, n, m), each against the plain version cut into
+    the kernel's chunks (the function is the same under any chunking;
+    the same chunks round the same prefix sums), at the fp32 rung."""
+    B, S, dh = case
+    q, k, v, i, f, state = mlstm_inputs(B, S, dh, profile, seed=S, device=cuda,
+                                        with_state=with_state)
+    before = LAUNCHES["mlstm_chunk"]
+    y, got = mlstm_chunk(q, k, v, i, f, state)
+    assert LAUNCHES["mlstm_chunk"] == before + 1
+    yr, ref = mlstm_chunk_ref(q, k, v, i, f, state, chunk=MLSTM_KERNEL_CHUNK, ragged=True)
+    for name, g, r in zip(("y", "C", "n", "m"), (y, *got), (yr, *ref)):
+        assert_kernel_matches(lambda: g, lambda: r, (), dtype=torch.float32,
+                              label=f"mlstm_chunk {name} {case} {profile}")
+
+
+@pytest.mark.parametrize("case", [(2, 37, 32), (2, 256, 64), (2, 300, 32), (1, 160, 1024)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_mlstm_chunk_kernel_vs_reference_chunking(cuda, case):
+    """Against the plain version chunked as the reference chunks (256,
+    or one chunk when 256 does not divide S): the kernel's 64-token
+    chunks give the same function."""
+    B, S, dh = case
+    q, k, v, i, f, _ = mlstm_inputs(B, S, dh, "unit", seed=1, device=cuda)
+    y, got = mlstm_chunk(q, k, v, i, f)
+    yr, ref = mlstm_chunk_ref(q, k, v, i, f)
+    for name, g, r in zip(("y", "C", "n", "m"), (y, *got), (yr, *ref)):
+        assert_kernel_matches(lambda: g, lambda: r, (), dtype=torch.float32,
+                              label=f"mlstm_chunk {name} {case}")
+
+
+def test_mlstm_chunk_kernel_refuses_what_it_cannot_run(cuda):
+    q, k, v, i, f, _ = mlstm_inputs(1, 8, 32, "unit", device=cuda)
+    with pytest.raises(TypeError):
+        mlstm_chunk(q.bfloat16(), k.bfloat16(), v.bfloat16(), i, f)
+    q, k, v, i, f, _ = mlstm_inputs(1, 8, 48, "unit", device=cuda)
+    with pytest.raises(ValueError):
+        mlstm_chunk(q, k, v, i, f)
+
+
+def test_xlstm_engine_on_cuda(cuda):
+    """Reduced xlstm through the engine on the card: every prefill runs the
+    mLSTM kernel once per mLSTM layer and decode never does; a slot is
+    reused after a finished request; every request equals itself served
+    alone and stays within the ladder of the static path."""
+    from repro_torch.launch.serve import check_oracles
+    from repro_torch.models.model import init_model
+    from repro_torch.serving import PagedCacheConfig, Request, ServingEngine
+
+    cfg = get_config("xlstm-1.3b", reduced=True)
+    pcfg = PagedCacheConfig(page_size=4, num_pages=48, max_slots=2, max_pages_per_seq=24)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32),
+                    max_new_tokens=g, arrival=a)
+            for i, (n, g, a) in enumerate([(9, 4, 0), (5, 9, 0), (13, 5, 1), (70, 3, 2)])]
+    engine = ServingEngine(cfg, init_model(cfg, seed=0, device=cuda), pcfg)
+    LAUNCHES.clear()
+    out = engine.run(reqs)
+    n_mlstm = cfg.n_layers // cfg.slstm_every * (cfg.slstm_every - 1)
+    assert LAUNCHES["mlstm_chunk"] == n_mlstm * len(reqs)
+    assert LAUNCHES["spectral_matmul"] > 0
+    engine.sched.check_invariants()
+    check_oracles(engine, reqs, out, reqs)
