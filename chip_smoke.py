@@ -82,7 +82,30 @@ Phases (any failure exits non-zero and prints no result line):
     stays within the ladder of the static path, teacher-forced; profile
     a decode-heavy stretch as in phase 5;
 15. time the mLSTM kernel and its plain version at the cell's prefill
-    shape (one 160-token prompt: 4 heads x 1024).
+    shape (one 160-token prompt: 4 heads x 1024);
+16. hold the selective-scan kernel against its plain version: b in {1,
+    2}, S in {1, 3, 37, 64, 160, 512, 1000}, di in {128, 200, 8192}, fp32
+    and bf16 inputs, two dt profiles (unit, and one that drives dt * A to
+    -30): y and the final state at the fp32 rung (the kernel computes the
+    plain version's fp32 operations in its order, so a bf16 y rounds
+    from the same value); print the bf16 gap to the reference model's
+    scan, which carries h in bf16 (not gated); hold the spectral kernel at
+    jamba's MLP shapes (rank 256, M in {4, 160}) and the paged decode at
+    head dim 128 (b 4, kvh 8, rep 4, ragged lengths, a null-page slot),
+    bf16 and fp32;
+17. serve jamba-v0.1-52b at full width (32 layers: 4 periods of 7 mamba +
+    1 attention, MoE of 16 experts top-2 on every other layer, d_model
+    4096, 32/8 heads of 128, d_ff 14336, vocab 65536, rank 256, bf16;
+    random weights from seed 0; capacity factor 8.0, the JAX package's
+    tests' pin) on phase 3's trace and geometry: the scan kernel launched
+    28 times per prefilled request and never in decode, the spectral
+    kernel 48 times per model forward, the paged decode 4 times per
+    decode step, the flash kernels never; every request equals the
+    request served alone (bit for bit) and stays within the ladder of the
+    static path, teacher-forced; weight, recurrent-state and peak device
+    bytes printed; profile a decode-heavy stretch as in phase 5;
+18. time the scan kernel and its plain version at one 160-token prompt's
+    mamba layer (b 1, di 8192, d_state 16, bf16).
 
 Every entry of the ``kernels`` line carries ``max_scaled_err``: the
 largest error of its checks divided by the reference's RMS, the figure
@@ -141,6 +164,14 @@ XLSTM_ARCH = "xlstm-1.3b"
 # token, the cell's longest prompt, two chunks of the reference's 256)
 MLSTM_DH, MLSTM_B, MLSTM_S = (32, 1024), (1, 4), (1, 37, 64, 160, 256, 300, 1000)
 MLSTM_PREFILL_S = 160           # the cell's longest prompt: the timed shape
+
+# the jamba cell: jamba-v0.1-52b at full width on slice 1's trace and
+# geometry, at the capacity factor the JAX package's tests pin
+JAMBA_ARCH, JAMBA_CAPACITY = "jamba-v0.1-52b", 8.0
+# selective-scan checks: batch, prompt lengths (one token, ragged 32-step
+# tiles, the cell's longest prompt, long), channels (one block, a ragged
+# edge, jamba's 8192)
+MAMBA_B, MAMBA_S, MAMBA_DI = (1, 2), (1, 3, 37, 64, 160, 512, 1000), (128, 200, 8192)
 
 
 def fail(msg: str) -> int:
@@ -1385,6 +1416,231 @@ def phase_xlstm_timing(torch, cfg, launches, errs):
                         launches, errs)
 
 
+def phase_jamba_kernels(torch, cfg):
+    """The selective-scan kernel against its plain version over the sweep
+    (y and hT at the fp32 rung), its gap to the reference model's bf16
+    scan (printed), the spectral kernel at jamba's MLP shapes and the
+    paged decode at head dim 128."""
+    from repro_torch.kernels.mamba_ref import mamba_scan_ref, mamba_scan_twin_ref
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.ops import spectral_matmul
+    from repro_torch.kernels.paged_decode import paged_gqa_decode
+    from repro_torch.kernels.paged_ref import paged_gqa_decode_ref
+    from repro_torch.kernels.ref import spectral_matmul_ref
+    from repro_torch.kernels.testing import (
+        MAMBA_PROFILES,
+        compare_kernel,
+        kernel_error,
+        mamba_inputs,
+        ragged_seq_lens,
+    )
+
+    errs = {}
+    cases = 0
+    ds = cfg.mamba_d_state
+    for b in MAMBA_B:
+        for S in MAMBA_S:
+            for di in MAMBA_DI:
+                for dtype in (torch.float32, torch.bfloat16):
+                    for profile in MAMBA_PROFILES:
+                        args = mamba_inputs(b, S, di, ds, profile, dtype=dtype, seed=SEED + S,
+                                            device="cuda")
+                        y, h = mamba_scan(*args)
+                        yr, hr = mamba_scan_ref(*args)
+                        for name, g, r in (("y", y, yr), ("hT", h, hr)):
+                            note(errs, "mamba_scan", compare_kernel(
+                                lambda: g, lambda: r, (), dtype=torch.float32,
+                                label=f"mamba_scan {name} b={b} S={S} di={di} {dtype} "
+                                      f"{profile}"))
+                        cases += 1
+    print(f"[kernels] mamba_scan: y and hT match the plain version at the fp32 rung over "
+          f"{cases} cases (b {list(MAMBA_B)}, S {list(MAMBA_S)}, di {list(MAMBA_DI)}, fp32 "
+          f"and bf16, dt profiles {list(MAMBA_PROFILES)}); max scaled error "
+          f"{errs['mamba_scan'][1]:.3e}")
+    di = cfg.mamba_expand * cfg.d_model
+    args = mamba_inputs(1, MLSTM_PREFILL_S, di, ds, "unit", dtype=torch.bfloat16,
+                        seed=SEED + 13, device="cuda")
+    y, h = mamba_scan(*args)
+    yt, ht = mamba_scan_twin_ref(*args)
+    gy = kernel_error(yt.float().cpu().numpy(), y.float().cpu().numpy())
+    gh = kernel_error(ht.float().cpu().numpy(), h.cpu().numpy())
+    print(f"[kernels] mamba_scan vs the reference model's scan (h carried in bf16) at "
+          f"b=1 S={MLSTM_PREFILL_S} di={di} bf16, not gated: y max scaled gap "
+          f"{gy.max_scaled:.3e}, hT {gh.max_scaled:.3e}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    d, f, k = cfg.d_model, cfg.d_ff, cfg.sct.rank
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, n in ((d, f), (f, d)):
+            for M in (SLOTS, MLSTM_PREFILL_S):
+                note(errs, "spectral_matmul", compare_kernel(
+                    spectral_matmul, spectral_matmul_ref,
+                    spectral_inputs(torch, M, m, n, k, dtype, gen),
+                    label=f"spectral_matmul {M}x{m}->{n} rank {k} {dtype}"))
+        n_pages = 12
+        lens = ragged_seq_lens(SLOTS, PAGE * n_pages - 1, PAGE, seed=SEED + 1).tolist()
+        pargs = paged_inputs(torch, lens, n_pages, cfg.n_kv_heads,
+                             cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, dtype, gen,
+                             null_slot=True)
+        for part, what in ((slice(1, None), "live slots"), (slice(0, 1), "null slot")):
+            note(errs, "paged_gqa_decode", compare_kernel(
+                lambda *a: paged_gqa_decode(*a)[part],
+                lambda *a: paged_gqa_decode_ref(*a)[part],
+                pargs, label=f"paged_gqa_decode hd {cfg.head_dim} {dtype} {what}"))
+    print(f"[kernels] spectral_matmul at jamba's MLP shapes ({d}->{f}, {f}->{d}, rank {k}, "
+          f"M {SLOTS}/{MLSTM_PREFILL_S}) and paged_gqa_decode at hd {cfg.head_dim} (b "
+          f"{SLOTS}, kvh {cfg.n_kv_heads}, rep {cfg.n_heads // cfg.n_kv_heads}, lens {lens}, "
+          f"null slot), bf16 and fp32, match")
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_jamba_serving(torch, device):
+    """jamba-v0.1-52b at full width through the engine on slice 1's trace
+    and geometry; returns (engine, record).
+
+    The model is built with capacity_factor=8.0, the JAX package's tests'
+    pin (``tests/test_serving.py:190``). Its MoE sizes each expert's
+    capacity per forward; at 8.0 a decode step over 4 slots gives every
+    expert 4 slots and drops nothing, so the engine's batched step routes
+    each request as the request served alone and the static path do, and
+    the identity gates mean something. At the config's 1.25 the capacity
+    is 1: the rows of a step compete for it, and the reference's own CLI
+    then reports 4 of 8 requests off its static path."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.models.lm import is_moe_layer, n_periods
+    from repro_torch.models.model import init_decode_state, init_model, param_count, prefill
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paged_cache import PagedCacheConfig
+
+    cfg = get_config(JAMBA_ARCH).replace(capacity_factor=JAMBA_CAPACITY)
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    masters = init_model(cfg, seed=SEED, device=device)
+    n_params = param_count(masters)
+    pcfg = PagedCacheConfig(page_size=PAGE, num_pages=NUM_PAGES, max_slots=SLOTS,
+                            max_pages_per_seq=PAGES_PER_SEQ)
+    engine = ServingEngine(cfg, masters, pcfg, device=device, prefill_token_budget=64)
+    del masters                                 # the engine holds its bf16 copy
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    a_log = engine.params["periods"]["p0"]["mamba"]["A_log"]
+    if a_log.dtype != torch.float32:
+        raise AssertionError(f"mamba's A_log is served in {a_log.dtype}, not fp32")
+    state_bytes = engine.recurrent_state_bytes()
+    pool_bytes = engine.attn_cache_bytes()
+    P = n_periods(cfg)
+    print(f"[jamba] {cfg.name}: {n_params} parameters, {cfg.n_layers} layers ({P} periods of "
+          f"{cfg.attn_every - 1} mamba + 1 attention), {cfg.n_experts} experts top-"
+          f"{cfg.top_k} every {cfg.moe_every} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, rank {cfg.sct.rank}, {cfg.dtype}, capacity factor "
+          f"{cfg.capacity_factor}; weight_bytes {engine.weight_bytes}, recurrent state "
+          f"{state_bytes} bytes ({SLOTS} slots), paged pools {pool_bytes} bytes; init + load "
+          f"{time.time() - t0:.1f} s, peak device memory {init_peak} bytes")
+    engine.run(make_trace(cfg.vocab, SEED + 3, rid0=len(TRACE)))       # warm-up
+    before = engine.stats()
+    trace = make_trace(cfg.vocab, SEED)
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, st = run_measured(torch, engine, trace)
+    peak_mem = torch.cuda.max_memory_allocated()
+    engine.sched.check_invariants()
+    if engine.sched.pool.allocated_count != 0:
+        raise AssertionError("pages still allocated after the jamba trace")
+    steps = int(st["decode_steps"])
+    # every prompt prefills once through one scan a mamba layer, decode never
+    # scans; the dense MLPs (3 spectral projections each) are the only
+    # spectral layers; one paged decode an attention layer and step
+    per_prefill = P * (cfg.attn_every - 1)
+    per_forward = 3 * P * sum(not is_moe_layer(cfg, p) for p in range(cfg.attn_every))
+    require_launches(launches, {"mamba_scan": per_prefill * len(trace),
+                                "spectral_matmul": per_forward * (len(trace) + steps),
+                                "paged_gqa_decode": P * steps,
+                                "flash_attention_fwd": 0, "flash_attention_bwd": 0})
+    for r in trace:
+        got = out[r.rid]
+        if (engine.last_statuses.get(r.rid) != "finished" or len(got) != r.max_new_tokens
+                or got.min() < 0 or got.max() >= cfg.vocab):
+            raise AssertionError(f"jamba request {r.rid}: status "
+                                 f"{engine.last_statuses.get(r.rid)}, tokens {got}")
+    print(f"[jamba] {int(st['requests'])} requests, {int(st['prefill_tokens'])} prefill + "
+          f"{int(st['generated_tokens'])} generated tokens in {st['wall_s']:.3f} s "
+          f"({st['tokens_per_s']:.1f} tok/s), {steps} decode steps, ITL p50 "
+          f"{st['itl_p50_s'] * 1e3:.3f} ms p99 {st['itl_p99_s'] * 1e3:.3f} ms, peak device "
+          f"memory {peak_mem} bytes; launches {launches} = {per_prefill} mamba_scan per "
+          f"prefilled request (0 in decode), {per_forward} spectral_matmul per forward "
+          f"({len(trace)} prefills + {steps} decode steps), {P} paged_gqa_decode per step")
+    gap = check_oracles(engine, trace, out, trace, "jamba")
+    with torch.no_grad():
+        state = init_decode_state(cfg, 1, pcfg.max_seq, device=device)
+        toks = torch.as_tensor(trace[0].prompt, dtype=torch.int64, device=device)[None]
+        logits, state = prefill(engine.params, toks, cfg, state)
+    finite = all(bool(torch.isfinite(t).all()) for part in state.values()
+                 for t in part.values())
+    if (tuple(logits.shape) != (1, 1, cfg.vocab) or not bool(torch.isfinite(logits).all())
+            or not finite):
+        raise AssertionError(f"jamba prefill: logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}, state finite {finite}")
+    del state
+    # the prompt path's host-clock cost: the longest prompt's prefill
+    long = max(trace, key=lambda r: r.prompt_len)
+    toks = torch.as_tensor(long.prompt, dtype=torch.int64, device=device)[None]
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            prefill(engine.params, toks, cfg, init_decode_state(cfg, 1, long.prompt_len,
+                                                                 device=device))
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t1) * 1e3
+    print(f"[jamba] one {long.prompt_len}-token prefill {prefill_ms:.1f} ms (host clock)")
+    record = {"arch": cfg.name, "params": n_params, "capacity_factor": cfg.capacity_factor,
+              "weight_bytes": engine.weight_bytes, "recurrent_state_bytes": state_bytes,
+              "attn_cache_bytes": pool_bytes, "init_peak_memory": init_peak,
+              "requests": int(st["requests"]), "prefill_tokens": int(st["prefill_tokens"]),
+              "generated_tokens": int(st["generated_tokens"]), "decode_steps": steps,
+              "wall_s": st["wall_s"], "tokens_per_s": st["tokens_per_s"],
+              "itl_gaps": st["itl_gaps"], "cold_itl_p50_ms": before["itl_p50_s"] * 1e3,
+              "cold_itl_p99_ms": before["itl_p99_s"] * 1e3,
+              "itl_p50_ms": st["itl_p50_s"] * 1e3, "itl_p99_ms": st["itl_p99_s"] * 1e3,
+              "max_memory_allocated": peak_mem, "launches": launches,
+              "identical_to_replay_alone": len(trace), "max_static_gap": gap,
+              "prefill_160_ms": prefill_ms}
+    return engine, record
+
+
+def phase_jamba_timing(torch, cfg, launches, errs):
+    """The scan kernel and its plain version at one 160-token prompt's
+    mamba layer (b 1, di 8192, d_state 16, bf16; A and D in bf16 as the
+    model hands them over), in device time only. No single PyTorch call
+    computes a selective scan: no library time."""
+    from repro_torch.kernels.mamba_ref import mamba_scan_ref
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.testing import mamba_inputs
+
+    S, di, ds = MLSTM_PREFILL_S, cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+    u, dt, B, C, A, D = mamba_inputs(1, S, di, ds, "unit", dtype=torch.bfloat16,
+                                     seed=SEED + 12, device="cuda")
+    A, D = A.bfloat16(), D.bfloat16()
+    t = {"ms": time_cold(torch, lambda: mamba_scan(u, dt, B, C, A, D)),
+         "plain_ms": time_cold(torch, lambda: mamba_scan_ref(u, dt, B, C, A, D)),
+         "library_ms": None}
+    y, h = mamba_scan(u, dt, B, C, A, D)
+    yr, hr = mamba_scan_ref(u, dt, B, C, A, D)
+    add_err(t, y, yr)
+    add_err(t, h, hr)
+    # bytes: u, dt, B, C, A, D in (bf16) and y (bf16), hT (fp32) out; the
+    # operations a (step, channel): dt u, u D and the sum's add, and a state
+    # dt A, dA h, du B, their sum, h C and its add
+    t["bytes"] = 2 * (3 * S * di + 2 * S * ds + di * ds + di) + 4 * di * ds
+    t["flops"] = S * di * (6 * ds + 3)
+    return kernel_entry("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
+                        "src/repro/kernels/mamba_scan.py:52", t, "float32",
+                        f"one {S}-token prompt's mamba layer: b=1, S={S}, di={di}, "
+                        f"d_state={ds}, bf16 in and out, fp32 state; no library call "
+                        f"computes it", launches, errs)
+
+
 def device_rows(torch, prof):
     """(device ms, launches, kernel name) of every device kernel row of a
     profile, largest first (host ops are skipped: their kernels are rows
@@ -1516,6 +1772,16 @@ def main() -> int:
         lap("xlstm serving")
         kernel_mlstm = phase_xlstm_timing(torch, xlstm_cfg, xlstm["launches"], errs)
         lap("xlstm timing")
+        jamba_cfg = get_config(JAMBA_ARCH)
+        merge_errs(errs, phase_jamba_kernels(torch, jamba_cfg))
+        lap("jamba kernel checks")
+        engine, jamba = phase_jamba_serving(torch, device)
+        jamba["profile"] = phase_profile(torch, engine.cfg, engine)
+        del engine
+        torch.cuda.empty_cache()
+        lap("jamba serving")
+        kernel_mamba = phase_jamba_timing(torch, jamba_cfg, jamba["launches"], errs)
+        lap("jamba timing")
         kernels_int8 = phase_int8_timing(torch, cfg, int8["launches"], stream["launches"],
                                          errs)
         lap("int8 timing")
@@ -1535,7 +1801,13 @@ def main() -> int:
     kernels += flash
     kernels_int8[0]["launches_streaming"] = stream["launches"].get("spectral_matmul_q8", 0)
     kernels[0]["launches_xlstm"] = xlstm["launches"].get("spectral_matmul", 0)
-    kernels += kernels_int8 + [kernel_mlstm]
+    kernels[0]["launches_jamba"] = jamba["launches"].get("spectral_matmul", 0)
+    kernels[1]["launches_jamba"] = jamba["launches"].get("paged_gqa_decode", 0)
+    kernels += kernels_int8 + [kernel_mlstm, kernel_mamba]
+    for kern in kernels:                        # checks of later phases count too
+        raw, scaled = errs.get(kern["name"], (0.0, 0.0))
+        kern["max_err"] = max(kern["max_err"], raw)
+        kern["max_scaled_err"] = max(kern["max_scaled_err"], scaled)
     extra = [dict(at_train, name="spectral_matmul (training shape)",
                   launches=train["launches"]["spectral_matmul"]),
              dict(kernels_int8[0]["at_prefill_chunk"], name="spectral_matmul_q8 (prefill chunk)",
@@ -1553,6 +1825,7 @@ def main() -> int:
     print(json.dumps({"int8_serving": int8}))
     print(json.dumps({"streaming": stream}))
     print(json.dumps({"xlstm_serving": xlstm}))
+    print(json.dumps({"jamba_serving": jamba}))
     print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,12 +25,14 @@ def layer_slice(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 def stack_trees(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Stack same-layout trees along a new leading axis (the reference's
-    vmapped per-layer init)."""
+    vmapped per-layer init). The input dicts are emptied leaf by leaf as
+    the leaves are stacked, so a model's layers never exist twice in
+    memory."""
     import torch
 
     first = trees[0]
     if isinstance(first, dict):
-        return {k: stack_trees([t[k] for t in trees]) for k in first}
+        return {k: stack_trees([t.pop(k) for t in trees]) for k in list(first)}
     return torch.stack(trees)
 
 

@@ -33,7 +33,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("common.cu", "spectral_matmul.cu", "spectral_matmul_q8.cu", "paged_decode.cu",
-           "flash_attention.cu", "mlstm_chunk.cu")
+           "flash_attention.cu", "mlstm_chunk.cu", "mamba_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -135,6 +135,8 @@ def library() -> ctypes.CDLL:
             lib.sct_flash_attention_bwd.restype = i
             lib.sct_mlstm_chunk.argtypes = [p] * 13 + [i] * 3 + [p]
             lib.sct_mlstm_chunk.restype = i
+            lib.sct_mamba_scan.argtypes = [p] * 8 + [i] * 5 + [p]
+            lib.sct_mamba_scan.restype = i
             _lib = lib
         return _lib
 

@@ -200,3 +200,32 @@ def mlstm_inputs(B: int, S: int, dh: int, profile: str, seed: int = 0, device="c
     if with_state:
         _, state = mlstm_chunk_ref(*(x[:, :P] for x in t))
     return (*(x[:, P:].contiguous() for x in t), state)
+
+
+MAMBA_PROFILES = ("unit", "underflow")
+
+
+def mamba_inputs(b: int, S: int, di: int, ds: int, profile: str, *, dtype=torch.float32,
+                 seed: int = 0, device="cpu"):
+    """(u, dt, B, C, A, D) for the selective scan, drawn with numpy from
+    ``seed``: u, dt (b, S, di) and B, C (b, S, ds) in ``dtype``; A (di,
+    ds) and D (di,) fp32. A is the model's -(1..ds) a channel, each
+    entry scaled by exp(0.3 N(0, 1)); B, C ~ N(0, 1 / 4); D ~ 1 + N(0,
+    1 / 100). ``unit``: u ~ N(0, 1), dt = softplus(N(-1, 1)), the JAX
+    package's test draws; ``underflow``: dt sized so that dt * A spans
+    down to -27..-30 in every channel (exp(dt A) ~ 1e-13: the state forgets
+    at once)."""
+    if profile not in MAMBA_PROFILES:
+        raise ValueError(f"unknown mamba profile {profile!r}; one of {MAMBA_PROFILES}")
+    rng = np.random.default_rng(seed)
+    A = -np.arange(1, ds + 1) * np.exp(0.3 * rng.standard_normal((di, ds)))
+    u = rng.standard_normal((b, S, di))
+    if profile == "unit":
+        dt = np.log1p(np.exp(rng.standard_normal((b, S, di)) - 1.0))
+    else:
+        dt = rng.uniform(0.9, 1.0, (b, S, di)) * 30.0 / np.abs(A).max(axis=1)
+    B = 0.5 * rng.standard_normal((b, S, ds))
+    C = 0.5 * rng.standard_normal((b, S, ds))
+    D = 1.0 + 0.1 * rng.standard_normal((di,))
+    t = [torch.tensor(a, dtype=torch.float32, device=device) for a in (u, dt, B, C, A, D)]
+    return (*(x.to(dtype) for x in t[:4]), t[4], t[5])

@@ -10,6 +10,8 @@ cache, replaying a staggered trace of variable-length requests.
 
   python -m repro_torch.launch.serve --arch xlstm-1.3b --paged --stream --verify
 
+  python -m repro_torch.launch.serve --arch jamba-v0.1-52b --paged --stream
+
 Runs on the CUDA device unless ``--device`` names another. The weights
 are random, from ``--seed``. ``--verify`` checks every request against
 the batch-1 static-cache greedy path (:func:`static_greedy_reference`):
@@ -27,6 +29,16 @@ reference CLI's ``src/repro/launch/serve.py:216-232``).
 recurrent prompt path: each prompt prefills whole from position 0
 through the chunkwise mLSTM kernel and its state is scattered into the
 request's slot; decode steps every slot's recurrent state.
+
+``--arch jamba-v0.1-52b`` (the ``hybrid`` family) takes the same path:
+the prompt's mamba layers run the selective-scan kernel, its attention
+K/V is written into the request's pages and its mamba state into its
+slot; decode steps every slot through the paged decode kernel and the
+mamba recurrence. Its MoE layers size expert capacity per forward, so a
+decode step's capacity depends on the slot count: where it binds
+(:func:`decode_capacity_binds`) the engine's batched decode drops other
+tokens than the static path, and ``--verify`` refuses to run (the
+reference's tests pin ``capacity_factor=8.0`` for the same reason).
 
 ``--quantize int8`` serves int8 weights (spectral factors and dense
 projections). Its ``--verify`` oracle is the static path over the
@@ -66,14 +78,16 @@ import torch
 from repro_torch.config import get_config
 from repro_torch.device import compute_dtype, resolve_device
 from repro_torch.kernels.testing import tolerance_for
-from repro_torch.models.decode import recurrent_slot_axes
+from repro_torch.models.decode import ATTN_STATE_KEYS, recurrent_slot_axes
 from repro_torch.models.model import (
     decode_step,
+    decode_step_paged,
     init_decode_state,
     init_model,
     prefill,
     serving_params,
 )
+from repro_torch.nn.moe import capacity
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.paged_cache import PagedCacheConfig, slot_write
 from repro_torch.serving.quantize import dequantize_tree
@@ -113,11 +127,16 @@ def build_trace(args, vocab, pcfg):
     return reqs
 
 
-def _static_start(cfg, params, prompt, max_seq, rows, dev):
+def _static_start(cfg, params, prompt, max_seq, rows, dev, page_size=None):
     """The static path's prefill of ``prompt``; with ``rows`` > 1 (the
     recurrent families only) the state then carries ``rows`` rows, the
-    prompt's state in row 0 and empty state elsewhere, so that the decode
-    steps run at that batch."""
+    prompt's state (its recurrent state and any attention cache) in row 0
+    and empty state elsewhere, so that the decode steps run at that
+    batch. With ``page_size`` the attention caches then become paged
+    pools in logical order (row i's positions on pages i n .. i n + n - 1,
+    n = max_seq / page_size, and a null page) that the decode steps read
+    through the engine's paged decode. Returns (logits, state, the block
+    table or None)."""
     toks = torch.as_tensor(np.asarray(prompt), dtype=torch.int64).to(dev)[None]
     state = init_decode_state(cfg, 1, max_seq, device=dev)
     logits, state = prefill(params, toks, cfg, state)
@@ -129,14 +148,30 @@ def _static_start(cfg, params, prompt, max_seq, rows, dev):
         full = init_decode_state(cfg, rows, max_seq, device=dev)
         for key, axis in axes.items():
             slot_write(full[key], axis, 0, state[key])
+        for key in ATTN_STATE_KEYS:
+            for name, leaf in state.get(key, {}).items():
+                full[key][name][:, :1] = leaf       # (layers, batch, max_seq, ...)
         state = full
-    return logits, state
+    if page_size is None:
+        return logits, state, None
+    n = max_seq // page_size
+    if n * page_size != max_seq:
+        raise ValueError(f"max_seq {max_seq} is not a whole number of {page_size}-token pages")
+    for key in ATTN_STATE_KEYS:
+        for name, leaf in state.get(key, {}).items():
+            pool = leaf.reshape(leaf.shape[0], rows * n, page_size, *leaf.shape[3:])
+            state[key][name] = torch.cat([pool, torch.zeros_like(pool[:, :1])], dim=1)
+    return logits, state, torch.arange(rows * n, dtype=torch.int32, device=dev).view(rows, n)
 
 
-def _static_step(cfg, params, tok, state, pos, rows, dev):
+def _static_step(cfg, params, tok, state, pos, rows, dev, block_table=None):
     toks = torch.zeros((rows, 1), dtype=torch.int64, device=dev)
     toks[0, 0] = int(tok)
-    logits, state = decode_step(params, toks, state, pos, cfg)
+    if block_table is None:
+        logits, state = decode_step(params, toks, state, pos, cfg)
+    else:
+        lens = torch.full((rows,), pos, dtype=torch.int32, device=dev)
+        logits, state = decode_step_paged(params, toks, state, block_table, lens, cfg)
     return logits[:1], state
 
 
@@ -154,20 +189,42 @@ def static_rows(engine: ServingEngine) -> int:
     return engine.pcfg.max_slots if recurrent_slot_axes(engine.cfg) else 1
 
 
+def static_page_size(engine: ServingEngine) -> Optional[int]:
+    """The page size through which the static path's decode steps read
+    their K/V when it checks ``engine``: the engine's, for a recurrent
+    family with attention layers (hybrid), else None (fp32 attention over
+    the static cache). Such a model routes its MoE on bf16 router logits:
+    an attention output one bf16 step away flips a top-2 choice, the
+    recurrent state keeps the difference, and the static path departs by
+    whole tokens (jamba-v0.1-52b in bf16 on an H100: row 0's routing
+    differed at 45-67 (step, layer) pairs of a request, teacher-forced;
+    ``tools/jamba_probe.py``).
+    Read through the paged decode in the engine's page geometry, the
+    static path rounds as the engine does and checks its prompt path,
+    page writes, slot scatter and scheduling bit for bit; the decode
+    kernel is held to its plain version on its own."""
+    if recurrent_slot_axes(engine.cfg) and any(k in engine.state for k in ATTN_STATE_KEYS):
+        return engine.pcfg.page_size
+    return None
+
+
 @torch.no_grad()
-def static_greedy_reference(cfg, params, prompt, gen, max_seq, *, device=None, rows=1):
+def static_greedy_reference(cfg, params, prompt, gen, max_seq, *, device=None, rows=1,
+                            page_size=None):
     """Static-cache greedy decode — the token-for-token oracle for
     --verify: the same spectral kernel as the engine, fp32 decode
     attention over the gathered static cache instead of the paged
     kernel. ``params`` are cast as the engine casts them (a no-op on
     an engine's own params). ``rows``: the decode steps' batch
-    (:func:`static_rows`)."""
+    (:func:`static_rows`); ``page_size``: read the K/V through the paged
+    decode instead (:func:`static_page_size`)."""
     dev = resolve_device(device)
     params = serving_params(params, cfg, dev)
-    logits, state = _static_start(cfg, params, prompt, max_seq, rows, dev)
+    logits, state, bt = _static_start(cfg, params, prompt, max_seq, rows, dev, page_size)
     toks = [int(torch.argmax(logits[0, -1]))]
     for i in range(gen - 1):
-        logits, state = _static_step(cfg, params, toks[-1], state, len(prompt) + i, rows, dev)
+        logits, state = _static_step(cfg, params, toks[-1], state, len(prompt) + i, rows, dev,
+                                     bt)
         toks.append(int(torch.argmax(logits[0, -1])))
     return np.asarray(toks, dtype=np.int32)
 
@@ -192,19 +249,19 @@ def replay_alone(engine: ServingEngine, request: Request) -> np.ndarray:
 
 @torch.no_grad()
 def static_logit_gaps(cfg, params, prompt, tokens, max_seq, *, device=None,
-                      rows=1) -> np.ndarray:
+                      rows=1, page_size=None) -> np.ndarray:
     """Teacher-forced static path over ``tokens``: at every generated
     position, the static path's best logit less its logit for the token
     given, over the ladder's allowance for that step (``atol * rms +
     rtol * |best|`` of the compute dtype's rung, logits in fp32). A
     value <= 1 means the token given is the static path's choice within
     the kernels' tolerance; greedy tokens of a correct engine stay there
-    even where a near-tie flips them. ``rows``: as in
+    even where a near-tie flips them. ``rows``, ``page_size``: as in
     :func:`static_greedy_reference`."""
     dev = resolve_device(device)
     params = serving_params(params, cfg, dev)
     tol = tolerance_for(compute_dtype(cfg))
-    logits, state = _static_start(cfg, params, prompt, max_seq, rows, dev)
+    logits, state, bt = _static_start(cfg, params, prompt, max_seq, rows, dev, page_size)
     gaps = []
     for i, tok in enumerate(np.asarray(tokens)):
         lg = logits[0, -1].float()
@@ -212,7 +269,8 @@ def static_logit_gaps(cfg, params, prompt, tokens, max_seq, *, device=None,
         rms = torch.sqrt(torch.mean(lg * lg))
         gaps.append(float((best - lg[int(tok)]) / (tol.atol * rms + tol.rtol * best.abs())))
         if i + 1 < len(tokens):
-            logits, state = _static_step(cfg, params, tok, state, len(prompt) + i, rows, dev)
+            logits, state = _static_step(cfg, params, tok, state, len(prompt) + i, rows, dev,
+                                         bt)
     return np.asarray(gaps)
 
 
@@ -221,8 +279,9 @@ def check_oracles(engine: ServingEngine, alone, out, to_static) -> dict:
     through a fresh engine of the same configuration (exact), and the
     requests of ``to_static`` stay within the tolerance ladder of the
     static path, teacher-forced over the engine's tokens (gap <= 1), its
-    steps at :func:`static_rows`. Raises ``AssertionError`` at the first
-    departure; returns the counts and the largest gap."""
+    steps at :func:`static_rows` and :func:`static_page_size`. Raises
+    ``AssertionError`` at the first departure; returns the counts and the
+    largest gap."""
     def done(r):
         return engine.last_statuses.get(r.rid) == "finished"
 
@@ -238,7 +297,8 @@ def check_oracles(engine: ServingEngine, alone, out, to_static) -> dict:
     for r in to_static:
         gaps = static_logit_gaps(engine.cfg, engine.params, r.prompt, out[r.rid],
                                  engine.pcfg.max_seq, device=engine.device,
-                                 rows=static_rows(engine))
+                                 rows=static_rows(engine),
+                                 page_size=static_page_size(engine))
         if len(gaps) == 0:
             continue
         worst = max(worst, float(gaps.max()))
@@ -250,6 +310,16 @@ def check_oracles(engine: ServingEngine, alone, out, to_static) -> dict:
                                  f"ladder's allowance below the static path's best logit")
     return {"alone": len(alone), "static": len(to_static), "max_gap": worst,
             "exact": exact, "tokens": total}
+
+
+def decode_capacity_binds(cfg, slots: int) -> Optional[int]:
+    """The expert capacity of a decode step over ``slots`` rows when it is
+    below ``slots`` (a step can then drop a token its rows route to an
+    expert), else None (no experts, or capacity never binds)."""
+    if not cfg.n_experts:
+        return None
+    cap = capacity(cfg, slots, cfg.capacity_factor)
+    return cap if cap < slots else None
 
 
 def paged_config(args) -> PagedCacheConfig:
@@ -325,7 +395,8 @@ def verify(engine: ServingEngine, trace, out, params) -> None:
         for r in checked:
             ref = static_greedy_reference(cfg, engine.params, r.prompt, r.max_new_tokens,
                                           pcfg.max_seq, device=engine.device,
-                                          rows=static_rows(engine))
+                                          rows=static_rows(engine),
+                                          page_size=static_page_size(engine))
             got = out[r.rid]
             ok = (np.array_equal(ref[:len(got)], got)
                   if engine.last_statuses.get(r.rid) != "finished"
@@ -428,6 +499,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             raise SystemExit(f"streaming resident cap {cap} pages (sink + window + "
                              f"growth) exceeds --pages-per-seq {args.pages_per_seq}")
     cfg = get_config(args.arch, reduced=args.reduced)
+    cap = decode_capacity_binds(cfg, args.slots)
+    if args.verify and cap is not None:
+        raise SystemExit(
+            f"--verify: {cfg.name}'s decode step gives each expert a capacity of {cap} "
+            f"tokens (capacity_factor {cfg.capacity_factor} x {args.slots} slots x top_k "
+            f"{cfg.top_k} / {cfg.n_experts} experts), below the {args.slots} slots: the "
+            f"engine's batched step then drops other tokens than the static path, and the "
+            f"token identity --verify checks does not hold. The reference's own tests pin "
+            f"capacity_factor=8.0, where capacity does not bind.")
     params = init_model(cfg, seed=args.seed, device=args.device)
     run_stream(args, cfg, params)
 

@@ -1,5 +1,6 @@
 """Model dispatcher: one API over the ported families (``dense_lm``;
-``ssm_lm`` for init, forward and serving — ``models/lm.py:SUPPORT``).
+``ssm_lm`` and ``hybrid`` for init, forward and serving —
+``models/lm.py:SUPPORT``).
 
   init_model(cfg, seed=, device=)                 -> params
   forward(params, tokens, cfg)                    -> (logits, aux)
@@ -73,7 +74,7 @@ def prefill_chunk_paged(params, tokens, state, block_table, start: int, cfg: Mod
 
 
 # leaves serving keeps in fp32 whatever the compute dtype
-FP32_LEAVES = ("s", "wr")
+FP32_LEAVES = ("s", "wr", "A_log")
 
 
 def serving_params(params, cfg: ModelConfig, device: torch.device,
@@ -85,7 +86,9 @@ def serving_params(params, cfg: ModelConfig, device: torch.device,
     floating leaf is cast once to the compute dtype, except the spectral
     ``s`` vectors (the kernels scale h by s in fp32), the sLSTM's
     recurrent ``wr`` (the reference casts it to the fp32 state's dtype,
-    ``src/repro/nn/xlstm.py:225``) and the leaves of a quantized tensor
+    ``src/repro/nn/xlstm.py:225``), mamba's ``A_log`` (the reference
+    takes ``-exp`` of it in fp32 at every call, ``src/repro/nn/mamba.py:91``:
+    a bf16 copy would give another A) and the leaves of a quantized tensor
     (``q8`` stays int8, ``scale`` fp32). A tree that is
     already quantized passes through with its codes and scales as they
     are. The reference casts at every apply, which gives the same

@@ -26,14 +26,16 @@ attention reads through the cold decode kernel. Reference:
 ``src/repro/serving/engine.py:112-121`` (int8), ``:133-200`` and
 ``:515-700`` (streaming, the cold tier), ``:750-753`` (the stats).
 
-The recurrent family (``ssm_lm``, xlstm) takes the reference's recurrent
-prompt path (``src/repro/serving/engine.py:652-669`` ``_prefill_full``):
-the whole prompt prefills from position 0 into a batch-1 state, which is
-scattered into the sequence's slot of the engine state; every decode
-step then advances all slots' recurrent state at once. Such a family
-silently opts out of the prefix cache and chunked prefill, as in the
-reference; ``streaming=`` raises (its state cannot drop evicted
-history), and so does ``quantize="int8"`` until a test holds it.
+The recurrent families (``ssm_lm``, xlstm; ``hybrid``, jamba) take the
+reference's recurrent prompt path (``src/repro/serving/engine.py:652-669``
+``_prefill_full``): the whole prompt prefills from position 0 into a
+batch-1 static state, whose attention K/V (hybrid) is written into the
+sequence's pages and whose recurrent state is scattered into the
+sequence's slot of the engine state; every decode step then advances all
+slots at once. Such a family silently opts out of the prefix cache and
+chunked prefill, as in the reference; ``streaming=`` raises (its state
+cannot drop evicted history), and so does ``quantize="int8"`` until a
+test holds it.
 
 Not ported yet (they raise ``NotImplementedError``): tensor-parallel
 serving (``mesh``) and the SLO scheduler (``scheduler="slo"``).
@@ -64,7 +66,7 @@ from repro_torch.models.model import (
     prefill_chunk_paged,
     serving_params,
 )
-from repro_torch.serving.paged_cache import PagedCacheConfig, slot_write
+from repro_torch.serving.paged_cache import PagedCacheConfig, paged_write_pages, slot_write
 from repro_torch.serving.quantize import param_bytes, quantize_kv_pages
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler, Request, SeqState
 from repro_torch.serving.streaming import StreamingConfig
@@ -151,7 +153,7 @@ class ServingEngine:
             self._cold_bytes_per_page = sum(
                 leaf.shape[0] * int(np.prod(leaf.shape[2:]))
                 for key in ATTN_STATE_KEYS
-                for name, leaf in self.state[key].items() if name.endswith("_q8"))
+                for name, leaf in self.state.get(key, {}).items() if name.endswith("_q8"))
 
         # stats (bounded: counters + a fixed-width latency window)
         self.prefill_tokens = 0          # prompt tokens actually computed
@@ -305,13 +307,19 @@ class ServingEngine:
 
     def _prefill_full(self, seq: SeqState) -> None:
         """The recurrent prompt path: the whole prompt from position 0
-        into a batch-1 state, scattered into the sequence's slot. Every
-        leaf of the slot is overwritten, so whatever the slot's state
-        became while it idled (decode steps every slot) is gone."""
+        into a batch-1 static state; its attention K/V is written into the
+        sequence's pages (every stacked layer at once) and its recurrent
+        state scattered into the sequence's slot. Every leaf of the slot
+        is overwritten, so whatever the slot's state became while it idled
+        (decode steps every slot) is gone."""
         req = seq.request
         toks = torch.as_tensor(req.prompt, dtype=torch.int64).to(self.device)[None]
         tmp = init_decode_state(self.cfg, 1, req.prompt_len, device=self.device)
         logits, filled = prefill(self.params, toks, self.cfg, tmp)
+        page_ids = torch.as_tensor(seq.pages, dtype=torch.int64).to(self.device)
+        for key in ATTN_STATE_KEYS:
+            for name, vals in filled.get(key, {}).items():
+                paged_write_pages(self.state[key][name], page_ids, vals[:, 0], n_stack=1)
         for key, axis in recurrent_slot_axes(self.cfg).items():
             slot_write(self.state[key], axis, seq.slot, filled[key])
         seq.prefill_pos = req.prompt_len
@@ -342,7 +350,7 @@ class ServingEngine:
         feature) into the shadow leaves. Unlike the reference's
         functional update, it writes the shadow pools in place."""
         for key in ATTN_STATE_KEYS:
-            cache = self.state[key]
+            cache = self.state.get(key, {})
             for name in [n for n in cache if n + "_q8" in cache]:
                 qt = quantize_kv_pages(cache[name][:, page], token_axis=1)
                 cache[name + "_q8"][:, page] = qt["q8"]
@@ -405,7 +413,7 @@ class ServingEngine:
                    for key in ATTN_STATE_KEYS for t in self.state.get(key, {}).values())
 
     def recurrent_state_bytes(self) -> int:
-        """Bytes held by the slots' recurrent state (ssm_lm)."""
+        """Bytes held by the slots' recurrent state (ssm_lm, hybrid)."""
         return sum(t.numel() * t.element_size()
                    for key in recurrent_slot_axes(self.cfg)
                    for t in tree_leaves(self.state[key]))

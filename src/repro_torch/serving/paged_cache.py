@@ -15,6 +15,7 @@ Device side (leaves are per-layer pools):
   * ``paged_append``      — write one new token per slot at its fill
     position.
   * ``paged_write_slice`` — write a prompt chunk at a logical offset.
+  * ``paged_write_pages`` — scatter a whole prompt's cache into its pages.
   * ``copy_page``         — the device half of a copy-on-write fork.
 
 Unlike the reference's functional updates, the writers update the pool
@@ -109,6 +110,28 @@ def paged_write_slice(pool: torch.Tensor, block_table: torch.Tensor, start: int,
     pos = int(start) + torch.arange(vals.shape[0], device=pool.device)
     phys = block_table.long()[pos // page]
     pool[phys, pos % page] = vals.to(pool.dtype)
+    return pool
+
+
+def paged_write_pages(pool: torch.Tensor, page_ids: torch.Tensor, vals: torch.Tensor,
+                      *, n_stack: int = 0) -> torch.Tensor:
+    """Scatter a contiguous per-sequence cache into its pages, in place.
+
+    pool (*stack, P, page, *f) with ``n_stack`` leading stacked axes (the
+    block table is shared by every layer, so one call writes every
+    layer's pool); page_ids (n,); vals (*stack, s, *f) with s <= n*page.
+    The tail of the last page is written as zeros, as the reference's
+    ``paged_write_pages`` pads it (masked until an append overwrites it).
+    """
+    page = pool.shape[n_stack + 1]
+    n = page_ids.shape[0]
+    s = vals.shape[n_stack]
+    pad = list(vals.shape)
+    pad[n_stack] = n * page - s
+    vals = torch.cat([vals.to(pool.dtype), vals.new_zeros(pad, dtype=pool.dtype)],
+                     dim=n_stack)
+    vals = vals.reshape(vals.shape[:n_stack] + (n, page) + vals.shape[n_stack + 1:])
+    pool[(slice(None),) * n_stack + (page_ids.long(),)] = vals
     return pool
 
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the spectral matmul (and its autograd), its int8 variant, the
 paged GQA decode and its cold-tier variant, the flash-attention
-forward and backward, and the chunkwise mLSTM. Every test here needs a GPU and skips without one
+forward and backward, the chunkwise mLSTM and the selective scan; and
+the reduced xlstm and jamba engines on the card. Every test here needs a GPU and skips without one
 (the kernels have no CPU mode). The file imports neither JAX nor the reference
 package, so it runs on a machine with CUDA and no JAX:
 
@@ -37,13 +38,17 @@ from repro_torch.kernels.paged_ref import (  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import CHUNK as MLSTM_KERNEL_CHUNK  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk  # noqa: E402
 from repro_torch.kernels.mlstm_ref import mlstm_chunk_ref  # noqa: E402
+from repro_torch.kernels.mamba_ref import mamba_scan_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels.ref import spectral_matmul_q8_ref, spectral_matmul_ref  # noqa: E402
 from repro_torch.serving.quantize import quantize_kv_pages  # noqa: E402
 from repro_torch.kernels.testing import (  # noqa: E402
+    MAMBA_PROFILES,
     MLSTM_PROFILES,
     SCALE_PROFILES,
     assert_kernel_matches,
     make_block_table,
+    mamba_inputs,
     mlstm_inputs,
     ragged_seq_lens,
     scale_profile,
@@ -60,16 +65,25 @@ SPECTRAL = [(1, 64, 96, 16), (7, 130, 50, 8), (37, 300, 700, 64), (64, 128, 128,
             # prefill: up 2048->8192, down 4096->2048, ff_up 2048->5460,
             # ff_down 2730->2048
             (4, 2048, 8192, 128), (160, 4096, 2048, 128), (4, 2048, 5460, 128),
-            (160, 2730, 2048, 128)]
+            (160, 2730, 2048, 128),
+            # jamba-v0.1-52b's MLPs at the kernel's largest rank: up/gate
+            # 4096->14336 and down 14336->4096 at decode and a 160-token prefill
+            (4, 4096, 14336, 256), (160, 4096, 14336, 256), (4, 14336, 4096, 256),
+            (160, 14336, 4096, 256)]
 # (M, m, n, k) of the int8 kernel: its rank is a multiple of 16
 SPECTRAL_Q8 = [(1, 64, 96, 16), (7, 130, 50, 16), (37, 300, 700, 64), (4, 2048, 8192, 128),
                (37, 8192, 2048, 128), (256, 2048, 8192, 128), (3, 512, 384, 256)]
 # b, kvh, rep, hd, page, n_pages_per_seq
-PAGED = [(5, 2, 3, 64, 4, 6), (4, 1, 4, 20, 3, 5), (4, 4, 1, 48, 8, 4), (8, 8, 4, 64, 16, 12)]
+PAGED = [(5, 2, 3, 64, 4, 6), (4, 1, 4, 20, 3, 5), (4, 4, 1, 48, 8, 4), (8, 8, 4, 64, 16, 12),
+         (4, 8, 4, 128, 16, 12)]     # jamba's attention layers: head dim 128
 # (B, S, dh) of the mLSTM kernel: a ragged 64-token chunk, one token, two
 # and sixteen chunks; the reduced head width and xlstm-1.3b's 1024
 MLSTM = ([(B, S, 32) for B in (1, 4) for S in (1, 37, 64, 300)]
          + [(4, 160, 1024), (1, 1000, 1024)])
+# (b, S, di, ds) of the selective scan: one token, ragged channels and
+# steps, jamba's prefill (di 8192, ds 16), every state width it is built for
+MAMBA = [(1, 1, 128, 16), (2, 37, 200, 16), (1, 160, 8192, 16), (2, 300, 96, 4),
+         (1, 64, 130, 64), (2, 1000, 256, 8), (1, 33, 64, 32)]
 # (b, s, g, r, d): rep 1 and 4 at s 256, 1000 (ragged tiles) and 4096, plus
 # head dim 128 and a group size that does not divide the 64-row tile
 FLASH = ([(1, s, g, r, 64) for s in (256, 1000, 4096) for g, r in ((4, 1), (2, 4))]
@@ -411,6 +425,77 @@ def test_xlstm_engine_on_cuda(cuda):
     out = engine.run(reqs)
     n_mlstm = cfg.n_layers // cfg.slstm_every * (cfg.slstm_every - 1)
     assert LAUNCHES["mlstm_chunk"] == n_mlstm * len(reqs)
+    assert LAUNCHES["spectral_matmul"] > 0
+    engine.sched.check_invariants()
+    check_oracles(engine, reqs, out, reqs)
+
+
+@pytest.mark.parametrize("profile", MAMBA_PROFILES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", MAMBA, ids=lambda c: "x".join(map(str, c)))
+def test_mamba_scan_kernel_vs_plain(cuda, case, dtype, profile):
+    """y and the final state at the fp32 rung, bf16 inputs included: the
+    kernel computes the plain version's fp32 operations in its order, so
+    a bf16 y rounds from the same value."""
+    b, S, di, ds = case
+    args = mamba_inputs(b, S, di, ds, profile, dtype=DTYPES[dtype], seed=S, device=cuda)
+    before = LAUNCHES["mamba_scan"]
+    y, h = mamba_scan(*args)
+    assert LAUNCHES["mamba_scan"] == before + 1
+    assert y.dtype == DTYPES[dtype] and h.dtype == torch.float32
+    yr, hr = mamba_scan_ref(*args)
+    for name, g, r in (("y", y, yr), ("hT", h, hr)):
+        assert_kernel_matches(lambda: g, lambda: r, (), dtype=torch.float32,
+                              label=f"mamba_scan {name} {case} {dtype} {profile}")
+
+
+def test_mamba_scan_kernel_refuses_what_it_cannot_run(cuda):
+    u, dt, B, C, A, D = mamba_inputs(1, 8, 64, 16, "unit", device=cuda)
+    with pytest.raises(TypeError):
+        mamba_scan(u.half(), dt.half(), B.half(), C.half(), A, D)
+    with pytest.raises(TypeError):
+        mamba_scan(u.bfloat16(), dt, B, C, A, D)
+    with pytest.raises(ValueError):
+        mamba_scan(u, dt, B[..., :12], C[..., :12], A[:, :12], D)
+    with pytest.raises(ValueError):
+        mamba_scan(u[:, :0], dt[:, :0], B[:, :0], C[:, :0], A, D)
+
+
+def test_moe_top_k_ties_on_cuda(cuda):
+    """The stable descending sort breaks exact ties toward the lower
+    expert index on the card too (``jax.lax.top_k``'s order)."""
+    from repro_torch.nn.moe import top_k
+
+    probs = torch.tensor([[0.1, 0.3, 0.3, 0.3], [0.25, 0.25, 0.25, 0.25],
+                          [0.4, 0.1, 0.4, 0.1]], device=cuda).repeat(64, 1)
+    _, idx = top_k(probs, 2)
+    assert idx.cpu().tolist() == [[1, 2], [0, 1], [0, 2]] * 64
+
+
+def test_jamba_engine_on_cuda(cuda):
+    """Reduced jamba (capacity factor 8.0, where capacity never binds)
+    through the engine on the card: every prefill runs the scan kernel
+    once per mamba layer and decode never does; every decode step runs
+    the paged decode kernel once per attention layer; a slot is reused;
+    every request equals itself served alone and stays within the ladder
+    of the static path."""
+    from repro_torch.launch.serve import check_oracles
+    from repro_torch.models.lm import n_periods
+    from repro_torch.models.model import init_model
+    from repro_torch.serving import PagedCacheConfig, Request, ServingEngine
+
+    cfg = get_config("jamba-v0.1-52b", reduced=True).replace(capacity_factor=8.0)
+    pcfg = PagedCacheConfig(page_size=4, num_pages=48, max_slots=2, max_pages_per_seq=24)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32),
+                    max_new_tokens=g, arrival=a)
+            for i, (n, g, a) in enumerate([(9, 4, 0), (5, 9, 0), (13, 5, 1), (70, 3, 2)])]
+    engine = ServingEngine(cfg, init_model(cfg, seed=0, device=cuda), pcfg)
+    LAUNCHES.clear()
+    out = engine.run(reqs)
+    n_mamba = n_periods(cfg) * (cfg.attn_every - 1)
+    assert LAUNCHES["mamba_scan"] == n_mamba * len(reqs)
+    assert LAUNCHES["paged_gqa_decode"] == n_periods(cfg) * engine.decode_steps
     assert LAUNCHES["spectral_matmul"] > 0
     engine.sched.check_invariants()
     check_oracles(engine, reqs, out, reqs)
