@@ -33,7 +33,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("common.cu", "spectral_matmul.cu", "spectral_matmul_q8.cu", "paged_decode.cu",
-           "flash_attention.cu", "mlstm_chunk.cu", "mamba_scan.cu")
+           "paged_mla_decode.cu", "flash_attention.cu", "mlstm_chunk.cu", "mamba_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -129,6 +129,10 @@ def library() -> ctypes.CDLL:
             lib.sct_paged_gqa_decode.restype = i
             lib.sct_paged_gqa_decode_cold.argtypes = [p] * 11 + [i] * 7 + [f, p]
             lib.sct_paged_gqa_decode_cold.restype = i
+            lib.sct_paged_mla_decode.argtypes = [p] * 7 + [i] * 7 + [f, p]
+            lib.sct_paged_mla_decode.restype = i
+            lib.sct_paged_mla_decode_cold.argtypes = [p] * 12 + [i] * 7 + [f, p]
+            lib.sct_paged_mla_decode_cold.restype = i
             lib.sct_flash_attention_fwd.argtypes = [p] * 6 + [i] * 8 + [f, p]
             lib.sct_flash_attention_fwd.restype = i
             lib.sct_flash_attention_bwd.argtypes = [p] * 11 + [i] * 8 + [f, p]

@@ -1,7 +1,10 @@
-"""Paged GQA flash-decode: the CUDA kernels (``csrc/paged_decode.cu``),
-which replace the JAX package's
-``kernels/paged_decode.py:110`` ``paged_gqa_decode_pallas`` and
-``:205`` ``paged_gqa_decode_cold_pallas``, and their wrappers.
+"""Paged flash-decode: the CUDA kernels and their wrappers.
+
+``csrc/paged_decode.cu`` replaces the JAX package's GQA kernels
+``kernels/paged_decode.py:110`` ``paged_gqa_decode_pallas`` and ``:205``
+``paged_gqa_decode_cold_pallas``; ``csrc/paged_mla_decode.cu`` its
+absorbed-MLA kernels ``:301`` ``paged_mla_decode_pallas`` and ``:399``
+``paged_mla_decode_cold_pallas``.
 
 The tensor's device decides: CPU tensors run the plain version
 (``kernels/paged_ref.py``), CUDA tensors launch the kernel or raise.
@@ -11,7 +14,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_ref import paged_gqa_decode_cold_ref, paged_gqa_decode_ref
+from repro_torch.kernels.paged_ref import (
+    paged_gqa_decode_cold_ref,
+    paged_gqa_decode_ref,
+    paged_mla_decode_cold_ref,
+    paged_mla_decode_ref,
+)
+
+# the MLA kernel keeps a thread's share of the latent accumulator in
+# registers: at most this latent width (deepseek-v2/v3: 512)
+MLA_MAX_LATENT = 512
 
 
 def _check_pools(name, q, k_pool, v_pool, block_table, seq_lens):
@@ -110,3 +122,109 @@ def paged_gqa_decode_cold(q, k_pool, v_pool, k_q8, k_scale, v_q8, v_scale,
     return paged_gqa_decode_cold_cuda(q.contiguous(), k_pool, v_pool, k_q8, k_scale, v_q8,
                                       v_scale, block_table.contiguous(),
                                       seq_lens.contiguous(), cold_flags.contiguous())
+
+
+def _check_mla(name, q_lat, q_rope, ckv_pool, kr_pool, block_table, seq_lens):
+    b, h, lat = q_lat.shape
+    if (q_rope.shape[:2] != (b, h) or ckv_pool.shape[2:] != (lat,)
+            or kr_pool.shape[:2] != ckv_pool.shape[:2] or kr_pool.shape[2:] != q_rope.shape[2:]
+            or block_table.shape[0] != b or seq_lens.shape != (b,)):
+        raise ValueError(
+            f"{name}: shapes q_lat {tuple(q_lat.shape)}, q_rope {tuple(q_rope.shape)}, "
+            f"pools {tuple(ckv_pool.shape)}/{tuple(kr_pool.shape)}, block_table "
+            f"{tuple(block_table.shape)}, seq_lens {tuple(seq_lens.shape)}")
+    if lat > MLA_MAX_LATENT:
+        raise ValueError(f"{name}: latent width {lat} > {MLA_MAX_LATENT}, the kernel's limit")
+    if q_rope.dtype != q_lat.dtype:
+        raise TypeError(f"{name}: q_lat {q_lat.dtype} and q_rope {q_rope.dtype} differ")
+    if block_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError(f"{name}: block_table and seq_lens must be int32")
+    if ckv_pool.dtype != torch.bfloat16 or kr_pool.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernel reads bf16 pools, got "
+                        f"{ckv_pool.dtype}/{kr_pool.dtype}")
+
+
+def _mla_launch(name, fn, q_lat, q_rope, ckv_pool, kr_pool, block_table, seq_lens, scale,
+                cold=()):
+    b, h, lat = q_lat.shape
+    q_code = build.dtype_code(q_lat, name)
+    build.require_cuda(name, q_lat, q_rope, ckv_pool, kr_pool, block_table, seq_lens, *cold)
+    out = torch.empty_like(q_lat)
+    err = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(), kr_pool.data_ptr(),
+             *(t.data_ptr() for t in cold), block_table.data_ptr(), seq_lens.data_ptr(),
+             out.data_ptr(), b, h, lat, q_rope.shape[2], ckv_pool.shape[1],
+             block_table.shape[1], q_code, float(scale), build.stream_of(q_lat))
+    build.check(err, name)
+    build.LAUNCHES[name] += 1
+    return out
+
+
+def paged_mla_decode_cuda(q_lat, q_rope, ckv_pool, kr_pool, block_table, seq_lens, *,
+                          scale: float):
+    """The kernel launch; all tensors contiguous on one CUDA device, the
+    pools in bf16, q_lat and q_rope in one dtype (fp32 or bf16)."""
+    _check_mla("paged_mla_decode", q_lat, q_rope, ckv_pool, kr_pool, block_table, seq_lens)
+    return _mla_launch("paged_mla_decode", build.library().sct_paged_mla_decode, q_lat,
+                       q_rope, ckv_pool, kr_pool, block_table, seq_lens, scale)
+
+
+def paged_mla_decode_cold_cuda(q_lat, q_rope, ckv_pool, kr_pool, ckv_q8, ckv_scale, kr_q8,
+                               kr_scale, block_table, seq_lens, cold_flags, *, scale: float):
+    """The cold kernel's launch: :func:`paged_mla_decode_cuda`'s contract
+    plus the int8 shadow pools (the pools' shapes), their fp32 per-page
+    scales (P+1, L) / (P+1, R) and the int32 cold flags (P+1,)."""
+    name = "paged_mla_decode_cold"
+    _check_mla(name, q_lat, q_rope, ckv_pool, kr_pool, block_table, seq_lens)
+    P, lat, rope_d = ckv_pool.shape[0], ckv_pool.shape[2], kr_pool.shape[2]
+    if (ckv_q8.shape != ckv_pool.shape or kr_q8.shape != kr_pool.shape
+            or ckv_scale.shape != (P, lat) or kr_scale.shape != (P, rope_d)
+            or cold_flags.shape != (P,)):
+        raise ValueError(
+            f"{name}: shadow pools {tuple(ckv_q8.shape)}/{tuple(kr_q8.shape)}, scales "
+            f"{tuple(ckv_scale.shape)}/{tuple(kr_scale.shape)}, cold_flags "
+            f"{tuple(cold_flags.shape)} for pools {tuple(ckv_pool.shape)}/"
+            f"{tuple(kr_pool.shape)}")
+    if (ckv_q8.dtype != torch.int8 or kr_q8.dtype != torch.int8
+            or ckv_scale.dtype != torch.float32 or kr_scale.dtype != torch.float32
+            or cold_flags.dtype != torch.int32):
+        raise TypeError(f"{name}: shadow pools int8, scales fp32, cold_flags int32")
+    return _mla_launch(name, build.library().sct_paged_mla_decode_cold, q_lat, q_rope,
+                       ckv_pool, kr_pool, block_table, seq_lens, scale,
+                       cold=(ckv_q8, ckv_scale, kr_q8, kr_scale, cold_flags))
+
+
+def paged_mla_decode(q_lat, q_rope, ckv_pool, kr_pool, block_table, seq_lens, *,
+                     scale: float):
+    """Absorbed-MLA one-token decode. q_lat (b, h, L): q_nope absorbed
+    through W_uk; q_rope (b, h, R); latent pools ckv (P+1, page, L) and kr
+    (P+1, page, R) with this step's token already appended at position
+    seq_lens[i]; block_table (b, n_pages) int32; seq_lens (b,) int32;
+    ``scale`` = 1/sqrt(qk_nope + qk_rope), passed in (it is not derived
+    from L). Returns the latent context o_lat (b, h, L) in q_lat.dtype;
+    the caller applies W_uv and W_o."""
+    if q_lat.device.type == "cpu":
+        return paged_mla_decode_ref(q_lat, q_rope, ckv_pool, kr_pool, block_table, seq_lens,
+                                    scale=scale)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"paged_mla_decode: no kernel for device {q_lat.device}")
+    return paged_mla_decode_cuda(q_lat.contiguous(), q_rope.contiguous(), ckv_pool, kr_pool,
+                                 block_table.contiguous(), seq_lens.contiguous(), scale=scale)
+
+
+def paged_mla_decode_cold(q_lat, q_rope, ckv_pool, kr_pool, ckv_q8, ckv_scale, kr_q8,
+                          kr_scale, block_table, seq_lens, cold_flags, *, scale: float):
+    """:func:`paged_mla_decode` with the streaming cold tier: pages
+    flagged in ``cold_flags`` (P+1,) int32 read ``q8 * scale`` from the
+    int8 shadow pools ``ckv_q8`` / ``kr_q8`` and their per-page scales
+    ``ckv_scale`` (P+1, L) / ``kr_scale`` (P+1, R), keys and values both;
+    hot pages read the bf16 pools as :func:`paged_mla_decode` does."""
+    if q_lat.device.type == "cpu":
+        return paged_mla_decode_cold_ref(q_lat, q_rope, ckv_pool, kr_pool, ckv_q8, ckv_scale,
+                                         kr_q8, kr_scale, block_table, seq_lens, cold_flags,
+                                         scale=scale)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"paged_mla_decode_cold: no kernel for device {q_lat.device}")
+    return paged_mla_decode_cold_cuda(q_lat.contiguous(), q_rope.contiguous(), ckv_pool,
+                                      kr_pool, ckv_q8, ckv_scale, kr_q8, kr_scale,
+                                      block_table.contiguous(), seq_lens.contiguous(),
+                                      cold_flags.contiguous(), scale=scale)

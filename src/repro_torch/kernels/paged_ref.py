@@ -1,7 +1,7 @@
-"""Plain PyTorch versions of the paged GQA decode kernels: gather the
-block table into the logical view, then masked direct softmax; the cold
-variant first substitutes the dequantized int8 shadow rows for the
-pages flagged cold.
+"""Plain PyTorch versions of the paged decode kernels (GQA and absorbed
+MLA): gather the block table into the logical view, then masked direct
+softmax; the cold variants first substitute the dequantized int8 shadow
+rows for the pages flagged cold.
 
 The reference's ``kernels/paged_ref.py:paged_gqa_decode_ref`` computes
 in q's dtype; this version holds the fp32 decode contract the kernels
@@ -49,3 +49,39 @@ def paged_gqa_decode_cold_ref(q, k_pool, v_pool, k_q8, k_scale, v_q8, v_scale,
     k = torch.where(sel, k_q8.float() * k_scale.float()[:, None], k_pool.float())
     v = torch.where(sel, v_q8.float() * v_scale.float()[:, None], v_pool.float())
     return paged_gqa_decode_ref(q, k, v, block_table, seq_lens)
+
+
+def paged_mla_decode_ref(q_lat, q_rope, ckv_pool, kr_pool, block_table, seq_lens, *,
+                         scale: float):
+    """Absorbed-MLA one-token decode, plain. q_lat (b, h, L) is q_nope
+    already absorbed through W_uk, q_rope (b, h, R); latent pools ckv
+    (P+1, page, L) and kr (P+1, page, R); ``scale`` is 1/sqrt(qk_nope +
+    qk_rope), the pre-absorption head dim. The score is ``(q_lat . ckv +
+    q_rope . kr) * scale`` over positions ``pos <= seq_lens[i]``; the ckv
+    rows are also the values. Returns o_lat (b, h, L) in q_lat's dtype:
+    the reference's ``kernels/paged_ref.py:paged_mla_decode_ref`` under
+    the fp32 decode contract (scores, softmax and the sum in fp32, one
+    rounding at the output)."""
+    cckv = paged_gather(ckv_pool, block_table).float()  # (b, S, L)
+    ckr = paged_gather(kr_pool, block_table).float()    # (b, S, R)
+    S = cckv.shape[1]
+    valid = torch.arange(S, device=q_lat.device)[None, :] <= seq_lens[:, None].long()
+    scores = (torch.einsum("bhl,bSl->bhS", q_lat.float(), cckv)
+              + torch.einsum("bhr,bSr->bhS", q_rope.float(), ckr)) * scale
+    probs = torch.softmax(scores.masked_fill(~valid[:, None, :], NEG_INF), dim=-1)
+    return torch.einsum("bhS,bSl->bhl", probs, cckv).to(q_lat.dtype)
+
+
+def paged_mla_decode_cold_ref(q_lat, q_rope, ckv_pool, kr_pool, ckv_q8, ckv_scale, kr_q8,
+                              kr_scale, block_table, seq_lens, cold_flags, *, scale: float):
+    """:func:`paged_mla_decode_ref` with the cold tier: every page flagged
+    in ``cold_flags`` (P+1,) int32 reads ``q8 * scale`` in fp32 from the
+    int8 shadow pools ``ckv_q8`` (P+1, page, L) / ``kr_q8`` (P+1, page, R)
+    and their per-page scales ``ckv_scale`` (P+1, L) / ``kr_scale``
+    (P+1, R), for keys and values both — the oracle
+    ``tests/test_kernels_paged.py:187-209`` builds for the reference's
+    ``paged_mla_decode_cold_pallas``."""
+    sel = (cold_flags != 0)[:, None, None]
+    ckv = torch.where(sel, ckv_q8.float() * ckv_scale.float()[:, None], ckv_pool.float())
+    kr = torch.where(sel, kr_q8.float() * kr_scale.float()[:, None], kr_pool.float())
+    return paged_mla_decode_ref(q_lat, q_rope, ckv, kr, block_table, seq_lens, scale=scale)

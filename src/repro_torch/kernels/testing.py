@@ -229,3 +229,46 @@ def mamba_inputs(b: int, S: int, di: int, ds: int, profile: str, *, dtype=torch.
     D = 1.0 + 0.1 * rng.standard_normal((di,))
     t = [torch.tensor(a, dtype=torch.float32, device=device) for a in (u, dt, B, C, A, D)]
     return (*(x.to(dtype) for x in t[:4]), t[4], t[5])
+
+
+def mla_inputs(seq_lens, n_pages: int, h: int, lat: int, rope: int, page: int, *,
+               dtype=torch.float32, null_slot: bool = False, p_cold: Optional[float] = None,
+               seed: int = 0, device="cpu"):
+    """Inputs of the absorbed-MLA paged decode, drawn with numpy from
+    ``seed``: q_lat (b, h, lat) and q_rope (b, h, rope) ~ N(0, 1) in
+    ``dtype``; latent pools ckv (P+1, page, lat) and kr (P+1, page, rope)
+    ~ N(0, 1) in bf16 everywhere (the null page included), P = b n_pages
+    + 3; a shuffled block table whose rows end in null pages
+    (:func:`make_block_table`); ``seq_lens`` (b,) int32. With
+    ``null_slot`` slot 0 becomes an inactive slot (null page, length 0).
+    Returns (q_lat, q_rope, ckv, kr, block_table, seq_lens); with
+    ``p_cold`` (q_lat, q_rope, ckv, kr, ckv_q8, ckv_scale, kr_q8, kr_scale,
+    block_table, seq_lens, cold_flags): int8 shadows quantized per page
+    from independent noise (a read of the wrong tier misses by O(1)) and
+    cold flags drawn with probability ``p_cold``."""
+    from repro_torch.serving.quantize import quantize_kv_pages
+
+    b = len(seq_lens)
+    num_pages = b * n_pages + 3
+    rng = np.random.default_rng(seed)
+    sl = torch.tensor(np.asarray(seq_lens), dtype=torch.int32)
+    bt = make_block_table(b, n_pages, num_pages, sl, page, seed=seed)
+    if null_slot:
+        bt[0, :] = num_pages
+        sl[0] = 0
+
+    def draw(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=device)
+
+    q_lat, q_rope = draw(b, h, lat).to(dtype), draw(b, h, rope).to(dtype)
+    ckv, kr = draw(num_pages + 1, page, lat), draw(num_pages + 1, page, rope)
+    out = [q_lat, q_rope, ckv.to(torch.bfloat16), kr.to(torch.bfloat16)]
+    if p_cold is not None:
+        for src in (draw(*ckv.shape), draw(*kr.shape)):
+            qt = quantize_kv_pages(src, token_axis=1)
+            out += [qt["q8"], qt["scale"]]
+    out += [bt.to(device), sl.to(device)]
+    if p_cold is not None:
+        out.append(torch.tensor(rng.uniform(size=num_pages + 1) < p_cold, dtype=torch.int32,
+                                device=device))
+    return tuple(out)

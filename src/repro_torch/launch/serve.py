@@ -40,8 +40,17 @@ decode step's capacity depends on the slot count: where it binds
 tokens than the static path, and ``--verify`` refuses to run (the
 reference's tests pin ``capacity_factor=8.0`` for the same reason).
 
+``--arch deepseek-v3-671b`` (the ``moe_lm`` family) serves through the
+paged chunk path like the dense family: MLA writes each layer's latent
+and rope key into the pages, and decode runs the absorbed-MLA kernel
+(its cold variant under ``--cold-kv int8``). Its MoE sizes capacity per
+forward as jamba's does, and ``--verify`` refuses where it binds (the
+config's 1.25, and 8.0 too, at 4 slots of 256 experts top-8). At full
+width its 61 layers (65 G parameters) do not fit one card; ``--reduced``
+runs anywhere, and ``chip_smoke.py`` serves it cut to 8 layers.
+
 ``--quantize int8`` serves int8 weights (spectral factors and dense
-projections). Its ``--verify`` oracle is the static path over the
+projections; not for ``moe_lm``). Its ``--verify`` oracle is the static path over the
 engine's own int8 tree. The reference CLI's oracle is the fp32 static
 path over ``dequantize_tree(engine.params)``; here that agreement, and
 the agreement with the unquantized weights, are printed as diagnostics
@@ -128,25 +137,20 @@ def build_trace(args, vocab, pcfg):
 
 
 def _static_start(cfg, params, prompt, max_seq, rows, dev, page_size=None):
-    """The static path's prefill of ``prompt``; with ``rows`` > 1 (the
-    recurrent families only) the state then carries ``rows`` rows, the
-    prompt's state (its recurrent state and any attention cache) in row 0
-    and empty state elsewhere, so that the decode steps run at that
-    batch. With ``page_size`` the attention caches then become paged
-    pools in logical order (row i's positions on pages i n .. i n + n - 1,
-    n = max_seq / page_size, and a null page) that the decode steps read
-    through the engine's paged decode. Returns (logits, state, the block
-    table or None)."""
+    """The static path's prefill of ``prompt``; with ``rows`` > 1 the
+    state then carries ``rows`` rows, the prompt's state (its recurrent
+    state and any attention cache) in row 0 and empty state elsewhere, so
+    that the decode steps run at that batch. With ``page_size`` the
+    attention caches then become paged pools in logical order (row i's
+    positions on pages i n .. i n + n - 1, n = max_seq / page_size, and a
+    null page) that the decode steps read through the engine's paged
+    decode. Returns (logits, state, the block table or None)."""
     toks = torch.as_tensor(np.asarray(prompt), dtype=torch.int64).to(dev)[None]
     state = init_decode_state(cfg, 1, max_seq, device=dev)
     logits, state = prefill(params, toks, cfg, state)
     if rows > 1:
-        axes = recurrent_slot_axes(cfg)
-        if not axes:
-            raise ValueError(f"rows={rows}: only a recurrent family's static path runs "
-                             f"its steps batched")
         full = init_decode_state(cfg, rows, max_seq, device=dev)
-        for key, axis in axes.items():
+        for key, axis in recurrent_slot_axes(cfg).items():
             slot_write(full[key], axis, 0, state[key])
         for key in ATTN_STATE_KEYS:
             for name, leaf in state.get(key, {}).items():

@@ -7,6 +7,15 @@ axis; the layer loop hands each layer views of its slice, which the
 attention functions update in place. KV pools stay bf16 whatever the
 compute dtype, as in the reference's ``_attn_pool_spec``.
 
+``moe_lm`` (deepseek) caches like ``dense_lm``, one stack per layer
+stack: ``dense_cache`` for its ``first_dense_layers``, ``moe_cache`` for
+its MoE layers (the reference's ``src/repro/models/decode.py:33``). Its
+MLA layers cache the compressed latent ``ckv`` (…, kv_lora) and the
+shared rope key ``krope`` (…, qk_rope) in place of K/V: static
+``(L, batch, max_seq, ·)``, paged ``(L, num_pages + 1, page, ·)``, bf16;
+with the cold tier ``ckv_q8``/``krope_q8`` int8 and per-page scales
+``ckv_scale`` (L, num_pages + 1, kv_lora) / ``krope_scale`` fp32.
+
 ``ssm_lm`` (xlstm) carries fixed-size recurrent state per sequence,
 indexed by slot in both layouts (the reference's
 ``src/repro/models/decode.py:138-181``): ``mlstm`` C (n_periods,
@@ -41,18 +50,26 @@ import torch
 from repro_torch.config.model_config import ModelConfig
 from repro_torch.core.tree import layer_slice
 from repro_torch.device import compute_dtype
-from repro_torch.models.lm import _norm_apply, ff_apply, n_periods, require_family
+from repro_torch.models.lm import (
+    _norm_apply,
+    ff_apply,
+    layer_stacks,
+    n_periods,
+    require_family,
+)
 from repro_torch.nn import attention as attn
 from repro_torch.nn import mamba as mamba_mod
 from repro_torch.nn import xlstm as xlstm_mod
 from repro_torch.nn.embedding import apply_embedding, apply_lm_head
-from repro_torch.nn.mlp import apply_mlp
 from repro_torch.serving.paged_cache import paged_slots
 
 Params = Dict[str, Any]
 
 # state-dict keys holding attention caches
-ATTN_STATE_KEYS = ("cache", "attn_cache")
+ATTN_STATE_KEYS = ("cache", "dense_cache", "moe_cache", "attn_cache")
+
+# the cache key of each homogeneous layer stack (models/lm.py:layer_stacks)
+CACHE_KEYS = {"layers": "cache", "dense_layers": "dense_cache", "moe_layers": "moe_cache"}
 
 # families whose whole decode state is paged attention KV, so a prompt
 # can prefill from an offset (shared prefixes, chunked prefill)
@@ -104,30 +121,49 @@ def _mamba_state(cfg: ModelConfig, batch: int, device):
     return {name: t.view(P, n_m, batch, *t.shape[1:]) for name, t in st.items()}
 
 
-def _kv_pair(shape, device):
-    return {"k": torch.zeros(shape, dtype=KV_DTYPE, device=device),
-            "v": torch.zeros(shape, dtype=KV_DTYPE, device=device)}
+def _attn_leaves(cfg: ModelConfig, lead, device, cold_kv: str = "none"):
+    """One stack's attention cache: ``lead`` is (layers, batch, max_seq)
+    static or (layers, num_pages + 1, page) paged. GQA: "k"/"v" (*lead,
+    kvh, hd); MLA: "ckv" (*lead, kv_lora), "krope" (*lead, qk_rope); bf16.
+    ``cold_kv="int8"`` (paged) adds every leaf's int8 shadow ``<name>_q8``
+    and its fp32 per-page scales ``<name>_scale`` (layers, num_pages + 1,
+    *feature), the token axis reduced."""
+    if cfg.attention == "mla":
+        feats = {"ckv": (cfg.kv_lora_rank,), "krope": (cfg.qk_rope_dim,)}
+    else:
+        feats = {"k": (cfg.n_kv_heads, cfg.head_dim), "v": (cfg.n_kv_heads, cfg.head_dim)}
+    cache = {name: torch.zeros((*lead, *f), dtype=KV_DTYPE, device=device)
+             for name, f in feats.items()}
+    if cold_kv == "int8":
+        for name, f in feats.items():
+            cache[name + "_q8"] = torch.zeros((*lead, *f), dtype=torch.int8, device=device)
+            cache[name + "_scale"] = torch.zeros((*lead[:2], *f), dtype=torch.float32,
+                                                 device=device)
+    return cache
 
 
-def _attn_layers(cfg: ModelConfig) -> int:
-    """Attention layers stacked in the cache: every layer of a dense model,
-    one a period of a hybrid one."""
-    return n_periods(cfg) if cfg.family == "hybrid" else cfg.n_layers
+def _attn_state(cfg: ModelConfig, lead, device, cold_kv: str = "none"):
+    """The attention caches of every stack: {cache key: leaves}, ``lead``
+    without the layer axis. hybrid: one attention layer a period."""
+    if cfg.family == "hybrid":
+        return {"attn_cache": _attn_leaves(cfg, (n_periods(cfg), *lead), device, cold_kv)}
+    return {CACHE_KEYS[key]: _attn_leaves(cfg, (count, *lead), device, cold_kv)
+            for key, _, count in layer_stacks(cfg)}
 
 
 def lm_init_state(cfg: ModelConfig, batch: int, max_seq: int, *, device):
     """Zero static-cache decode state: {"cache": {"k"/"v": (L, batch,
-    max_seq, kvh, hd) bf16}}; for ssm_lm the recurrent state of
+    max_seq, kvh, hd) bf16}}; for moe_lm {"dense_cache", "moe_cache"} of
+    MLA leaves (L, batch, max_seq, ·); for ssm_lm the recurrent state of
     ``batch`` sequences (``max_seq`` does not bound it); for hybrid
     {"attn_cache": (n_periods, batch, max_seq, kvh, hd) pairs, "mamba"}."""
     require_family(cfg, "serve")
     if cfg.family == "ssm_lm":
         return _ssm_state(cfg, batch, device)
-    cache = _kv_pair((_attn_layers(cfg), batch, max_seq, cfg.n_kv_heads, cfg.head_dim),
-                     device)
+    state = _attn_state(cfg, (batch, max_seq), device)
     if cfg.family == "hybrid":
-        return {"attn_cache": cache, "mamba": _mamba_state(cfg, batch, device)}
-    return {"cache": cache}
+        state["mamba"] = _mamba_state(cfg, batch, device)
+    return state
 
 
 def lm_init_paged_state(cfg: ModelConfig, pcfg, *, device, cold_kv: str = "none"):
@@ -137,10 +173,11 @@ def lm_init_paged_state(cfg: ModelConfig, pcfg, *, device, cold_kv: str = "none"
     tier's shadow leaves (the reference's ``_attn_pool_spec``,
     ``src/repro/models/decode.py:93-127``): ``k_q8``/``v_q8`` int8 of
     the pools' shape and ``k_scale``/``v_scale`` (L, num_pages + 1, kvh,
-    hd) fp32, one scale per page and channel. For ssm_lm: the recurrent
-    state of ``pcfg.max_slots`` slots (no pools); for hybrid the pools of
-    its attention layers (one a period) under "attn_cache" and the mamba
-    state of ``pcfg.max_slots`` slots."""
+    hd) fp32, one scale per page and channel. For moe_lm the MLA pools of
+    each stack (``_attn_leaves``) under "dense_cache" and "moe_cache". For
+    ssm_lm: the recurrent state of ``pcfg.max_slots`` slots (no pools);
+    for hybrid the pools of its attention layers (one a period) under
+    "attn_cache" and the mamba state of ``pcfg.max_slots`` slots."""
     require_family(cfg, "serve")
     if cold_kv not in ("none", "int8"):
         raise ValueError(f"cold_kv must be 'none' or 'int8', got {cold_kv!r}")
@@ -149,18 +186,10 @@ def lm_init_paged_state(cfg: ModelConfig, pcfg, *, device, cold_kv: str = "none"
             raise NotImplementedError("a cold KV tier needs paged attention pools; "
                                       f"family {cfg.family!r} has none")
         return _ssm_state(cfg, pcfg.max_slots, device)
-    L, P = _attn_layers(cfg), pcfg.num_pages + 1
-    kvh, hd = cfg.n_kv_heads, cfg.head_dim
-    cache = _kv_pair((L, P, pcfg.page_size, kvh, hd), device)
-    if cold_kv == "int8":
-        for name in ("k", "v"):
-            cache[name + "_q8"] = torch.zeros((L, P, pcfg.page_size, kvh, hd),
-                                              dtype=torch.int8, device=device)
-            cache[name + "_scale"] = torch.zeros((L, P, kvh, hd), dtype=torch.float32,
-                                                 device=device)
+    state = _attn_state(cfg, (pcfg.num_pages + 1, pcfg.page_size), device, cold_kv)
     if cfg.family == "hybrid":
-        return {"attn_cache": cache, "mamba": _mamba_state(cfg, pcfg.max_slots, device)}
-    return {"cache": cache}
+        state["mamba"] = _mamba_state(cfg, pcfg.max_slots, device)
+    return state
 
 
 # ======================================================================
@@ -181,23 +210,15 @@ def prefill_lm(params: Params, tokens: torch.Tensor, cfg: ModelConfig, state):
     x = apply_embedding(params["embed"], tokens, compute_dtype=compute_dtype(cfg))
     positions = torch.arange(s, device=x.device).expand(b, s)
     rope = attn.step_rope(cfg, positions)
-    if cfg.family == "hybrid":
-        def attn_prefill(p, h, cache):
-            return attn.apply_gqa_prefill(p, h, cfg, positions=positions, cache=cache,
-                                          rope=rope)
+    prefill = attn.apply_mla_prefill if cfg.attention == "mla" else attn.apply_gqa_prefill
 
+    def attn_prefill(p, h, cache):
+        return prefill(p, h, cfg, positions=positions, cache=cache, rope=rope)
+
+    if cfg.family == "hybrid":
         x = _hybrid_stack(params, x, state, cfg, attn_prefill, _mamba_prefill)
-        x = _norm_apply(cfg, params["final_norm"], x[:, -1:, :])
-        return apply_lm_head(params["embed"], x), state
-    for i in range(cfg.n_layers):
-        p = layer_slice(params["layers"], i)
-        cache = layer_slice(state["cache"], i)
-        h = _norm_apply(cfg, p["attn_norm"], x)
-        h, _ = attn.apply_gqa_prefill(p["attn"], h, cfg, positions=positions, cache=cache,
-                                      rope=rope)
-        x = x + h
-        h = _norm_apply(cfg, p["mlp_norm"], x)
-        x = x + apply_mlp(p["mlp"], h, act=cfg.act)
+    else:
+        x = _layer_stacks(params, x, state, cfg, attn_prefill)
     x = _norm_apply(cfg, params["final_norm"], x[:, -1:, :])
     return apply_lm_head(params["embed"], x), state
 
@@ -216,9 +237,10 @@ def decode_step_lm(params: Params, tokens: torch.Tensor, state, cache_len: int,
     rope = attn.step_rope(cfg, torch.full((b, s), int(cache_len), dtype=torch.long,
                                           device=tokens.device))
 
+    decode = attn.apply_mla_decode if cfg.attention == "mla" else attn.apply_gqa_decode
+
     def attn_decode(p, h, cache):
-        return attn.apply_gqa_decode(p, h, cfg, cache=cache, cache_len=int(cache_len),
-                                     rope=rope)
+        return decode(p, h, cfg, cache=cache, cache_len=int(cache_len), rope=rope)
 
     return _decode_step_body(params, tokens, state, cfg, attn_decode)
 
@@ -235,15 +257,16 @@ def decode_step_lm_paged(params: Params, tokens: torch.Tensor, state,
     and lengths are unused: every slot's recurrent state steps once."""
     if cfg.family == "ssm_lm":
         return _ssm_decode(params, tokens, state, cfg)
-    # every layer shares the step's RoPE tables and append targets
+    # every layer shares the step's RoPE tables and append targets (every
+    # stack's pools share one page geometry)
     rope = attn.step_rope(cfg, seq_lens[:, None].long())
-    pools = state["attn_cache" if cfg.family == "hybrid" else "cache"]
-    slots = paged_slots(block_table, seq_lens, pools["k"].shape[2])
+    pool = next(iter(state[next(k for k in ATTN_STATE_KEYS if k in state)].values()))
+    slots = paged_slots(block_table, seq_lens, pool.shape[2])
+    decode = attn.apply_mla_decode_paged if cfg.attention == "mla" else attn.apply_gqa_decode_paged
 
     def attn_decode(p, h, cache):
-        return attn.apply_gqa_decode_paged(p, h, cfg, cache=cache,
-                                           block_table=block_table, seq_lens=seq_lens,
-                                           rope=rope, slots=slots, cold_flags=cold_flags)
+        return decode(p, h, cfg, cache=cache, block_table=block_table, seq_lens=seq_lens,
+                      rope=rope, slots=slots, cold_flags=cold_flags)
 
     return _decode_step_body(params, tokens, state, cfg, attn_decode)
 
@@ -263,10 +286,12 @@ def prefill_chunk_lm_paged(params: Params, tokens: torch.Tensor, state,
     c = tokens.shape[1]
     rope = attn.step_rope(cfg, (int(start) + torch.arange(c, device=tokens.device))[None])
 
+    chunk = (attn.apply_mla_prefill_paged if cfg.attention == "mla"
+             else attn.apply_gqa_prefill_paged)
+
     def attn_chunk(p, h, cache):
-        return attn.apply_gqa_prefill_paged(p, h, cfg, cache=cache,
-                                            block_table=block_table, start=int(start),
-                                            rope=rope, cold_flags=cold_flags)
+        return chunk(p, h, cfg, cache=cache, block_table=block_table, start=int(start),
+                     rope=rope, cold_flags=cold_flags)
 
     return _decode_step_body(params, tokens, state, cfg, attn_chunk)
 
@@ -281,15 +306,28 @@ def _decode_step_body(params: Params, tokens: torch.Tensor, state, cfg: ModelCon
     if cfg.family == "hybrid":
         x = _hybrid_stack(params, x, state, cfg, attn_decode, _mamba_decode)
     else:
-        for i in range(cfg.n_layers):
-            p = layer_slice(params["layers"], i)
-            h = _norm_apply(cfg, p["attn_norm"], x)
-            h, _ = attn_decode(p["attn"], h, layer_slice(state["cache"], i))
-            x = x + h
-            h = _norm_apply(cfg, p["mlp_norm"], x)
-            x = x + apply_mlp(p["mlp"], h, act=cfg.act)
+        x = _layer_stacks(params, x, state, cfg, attn_decode)
     x = _norm_apply(cfg, params["final_norm"], x)
     return apply_lm_head(params["embed"], x), state
+
+
+def _layer_stacks(params: Params, x: torch.Tensor, state, cfg: ModelConfig,
+                  attn_fn: Callable) -> torch.Tensor:
+    """Every layer of every homogeneous stack (dense_lm's ``layers``;
+    moe_lm's ``dense_layers`` then ``moe_layers``) over ``x``:
+    ``attn_fn(p, h, cache)`` runs the attention against the layer's view
+    of its stack's cache (written in place), then the MLP or the MoE (its
+    aux loss dropped, as in the reference's serving paths)."""
+    for key, _, count in layer_stacks(cfg):
+        caches = state[CACHE_KEYS[key]]
+        for i in range(count):
+            p = layer_slice(params[key], i)
+            h, _ = attn_fn(p["attn"], _norm_apply(cfg, p["attn_norm"], x),
+                           layer_slice(caches, i))
+            x = x + h
+            h, _ = ff_apply(cfg, p, _norm_apply(cfg, p["mlp_norm"], x))
+            x = x + h
+    return x
 
 
 # ======================================================================

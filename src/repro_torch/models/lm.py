@@ -1,4 +1,4 @@
-"""Decoder-only language models of three families:
+"""Decoder-only language models of four families:
 
   dense_lm — llama3.2-1b, granite-3-2b, qwen1.5, smollm2, llama-70b-sct:
              token embedding, RMSNorm, GQA attention with RoPE, a SwiGLU
@@ -11,11 +11,17 @@
              elsewhere (nn/mamba.py), each followed by an MoE
              (nn/moe.py) on every ``moe_every``-th layer and a spectral
              SwiGLU MLP on the others; the MoE's load-balance loss is the
+             forward's aux loss;
+  moe_lm   — deepseek-v2-236b, deepseek-v3-671b: MLA attention
+             (nn/attention.py) in every layer, a spectral SwiGLU MLP in
+             the ``first_dense_layers`` leading layers and an MoE with
+             shared experts in the others; the summed MoE aux loss is the
              forward's aux loss.
 
 Parameters keep the reference's stacked layout — every leaf under
 ``layers`` carries a leading ``n_layers`` axis (``layers/mlp/up/U`` is
-``(L, m, k)``), every leaf under ``periods`` a leading period axis — so
+``(L, m, k)``; moe_lm's ``dense_layers`` and ``moe_layers`` stacks likewise),
+every leaf under ``periods`` a leading period axis — so
 an npz checkpoint maps onto them key for key. The layer loop is a Python
 loop over views of those stacks; with ``cfg.remat`` each layer (or
 period) body is recomputed in the backward (``torch.utils.checkpoint``,
@@ -49,7 +55,8 @@ Params = Dict[str, Any]
 # loss value), serving (prefill and decode), training (gradients)
 SUPPORT = {"dense_lm": ("init", "forward", "serve", "train"),
            "ssm_lm": ("init", "forward", "serve"),
-           "hybrid": ("init", "forward", "serve")}
+           "hybrid": ("init", "forward", "serve"),
+           "moe_lm": ("init", "forward", "serve")}
 
 
 def require_family(cfg: ModelConfig, path: str) -> None:
@@ -64,26 +71,47 @@ def require_family(cfg: ModelConfig, path: str) -> None:
             raise NotImplementedError(
                 "training the hybrid family is not ported yet: it needs a hand-written "
                 "backward kernel for the selective scan")
+        if cfg.family == "moe_lm" and path == "train":
+            raise NotImplementedError(
+                "training the moe_lm family is not ported yet: the port serves it only")
         ported = ", ".join(f"{fam} ({'/'.join(paths)})" for fam, paths in SUPPORT.items())
         raise NotImplementedError(f"family {cfg.family!r}: {path} is not ported yet "
                                   f"(the port runs {ported})")
-    if cfg.norm != "rmsnorm" or (cfg.family != "ssm_lm" and cfg.attention != "gqa"):
+    mla_ok = cfg.family == "moe_lm" and cfg.attention == "mla"
+    if cfg.norm != "rmsnorm" or (cfg.family != "ssm_lm" and cfg.attention != "gqa"
+                                 and not mla_ok):
         raise NotImplementedError(
-            f"attention={cfg.attention!r}, norm={cfg.norm!r}: only GQA with "
-            f"RMSNorm is ported")
+            f"attention={cfg.attention!r}, norm={cfg.norm!r}: only GQA (MLA in the "
+            f"moe_lm family) with RMSNorm is ported")
 
 
 def _norm_apply(cfg, p, x):
     return apply_rmsnorm(p, x)
 
 
+def _init_attn(cfg, **kw):
+    if cfg.attention == "mla":
+        return attn.init_mla(cfg, **kw)
+    return attn.init_gqa(cfg, **kw)
+
+
 def _init_dense_layer(cfg, generator, device):
     kw = dict(generator=generator, device=device)
     return {
         "attn_norm": init_rmsnorm(cfg.d_model, device=device),
-        "attn": attn.init_gqa(cfg, **kw),
+        "attn": _init_attn(cfg, **kw),
         "mlp_norm": init_rmsnorm(cfg.d_model, device=device),
         "mlp": init_mlp(cfg.d_model, cfg.d_ff, rank=cfg.mlp_rank, act=cfg.act, **kw),
+    }
+
+
+def _init_moe_layer(cfg, generator, device):
+    kw = dict(generator=generator, device=device)
+    return {
+        "attn_norm": init_rmsnorm(cfg.d_model, device=device),
+        "attn": _init_attn(cfg, **kw),
+        "mlp_norm": init_rmsnorm(cfg.d_model, device=device),
+        "moe": init_moe(cfg, **kw),
     }
 
 
@@ -136,6 +164,10 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
         init_period = _init_hybrid_period if cfg.family == "hybrid" else _init_xlstm_period
         params["periods"] = stack_trees(
             [init_period(cfg, generator, device) for _ in range(n_periods(cfg))])
+    elif cfg.family == "moe_lm":
+        for key, init_layer, count in layer_stacks(cfg):
+            params[key] = stack_trees([init_layer(cfg, generator, device)
+                                       for _ in range(count)])
     else:
         params["layers"] = stack_trees(
             [_init_dense_layer(cfg, generator, device) for _ in range(cfg.n_layers)])
@@ -143,15 +175,34 @@ def init_lm(cfg: ModelConfig, *, generator: torch.Generator,
     return params
 
 
+def layer_stacks(cfg: ModelConfig):
+    """(params key, layer init, count) of each homogeneous stack, in order:
+    dense_lm's ``layers``; moe_lm's ``dense_layers`` (the
+    ``first_dense_layers``, when any) then ``moe_layers``."""
+    if cfg.family != "moe_lm":
+        return [("layers", _init_dense_layer, cfg.n_layers)]
+    stacks = [("dense_layers", _init_dense_layer, cfg.first_dense_layers)]
+    stacks.append(("moe_layers", _init_moe_layer, cfg.n_layers - cfg.first_dense_layers))
+    return [st for st in stacks if st[2]]
+
+
+def attn_apply(cfg, p, h, positions, rope=None):
+    """The no-cache attention of a dense or MoE layer (GQA or MLA)."""
+    if cfg.attention == "mla":
+        return attn.apply_mla(p, h, cfg, positions=positions, rope=rope)
+    return attn.apply_gqa(p, h, cfg, positions=positions, rope=rope)
+
+
 def _dense_block(cfg, p, x, positions, rope=None):
+    """A dense or MoE layer: (output, the MoE's aux loss or None)."""
     h = _norm_apply(cfg, p["attn_norm"], x)
-    x = x + attn.apply_gqa(p["attn"], h, cfg, positions=positions, rope=rope)
-    h = _norm_apply(cfg, p["mlp_norm"], x)
-    return x + apply_mlp(p["mlp"], h, act=cfg.act)
+    x = x + attn_apply(cfg, p["attn"], h, positions, rope)
+    h, aux = ff_apply(cfg, p, _norm_apply(cfg, p["mlp_norm"], x))
+    return x + h, aux
 
 
 def ff_apply(cfg, lp, h):
-    """A hybrid layer's feed-forward: (output, the MoE's aux loss or None)."""
+    """A layer's feed-forward: (output, the MoE's aux loss or None)."""
     if "moe" in lp:
         return apply_moe(lp["moe"], h, cfg, capacity_factor=cfg.capacity_factor)
     return apply_mlp(lp["mlp"], h, act=cfg.act), None
@@ -187,39 +238,40 @@ def _xlstm_period_fwd(cfg, pp, x):
 
 
 def forward_lm(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
-    """tokens (b, s) -> (logits (b, s, vocab), aux_loss): the hybrid
-    family's summed MoE load-balance loss, 0.0 for the others."""
+    """tokens (b, s) -> (logits (b, s, vocab), aux_loss): the hybrid and
+    moe_lm families' summed MoE load-balance loss, 0.0 for the others."""
     require_family(cfg, "forward")
     b, s = tokens.shape
     x = apply_embedding(params["embed"], tokens, compute_dtype=compute_dtype(cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     positions = torch.arange(s, device=x.device).expand(b, s)
     if cfg.family == "ssm_lm":
-        stack, count = params["periods"], n_periods(cfg)
+        stacks = [(params["periods"], n_periods(cfg))]
 
         def body(p, h):
             return _xlstm_period_fwd(cfg, p, h), None
     elif cfg.family == "hybrid":
-        stack, count = params["periods"], n_periods(cfg)
+        stacks = [(params["periods"], n_periods(cfg))]
 
         def body(p, h):
             return _hybrid_period_fwd(cfg, p, h, positions)
     else:
-        stack, count = params["layers"], cfg.n_layers
+        stacks = [(params[key], count) for key, _, count in layer_stacks(cfg)]
         rope = attn.step_rope(cfg, positions)
 
         def body(p, h):
-            return _dense_block(cfg, p, h, positions, rope), None
+            return _dense_block(cfg, p, h, positions, rope)
     remat = cfg.remat and torch.is_grad_enabled()
-    # one unbind per stacked leaf: its backward stacks the layers' grads once
-    for layer in unstack_tree(stack, count):
-        if remat:
-            x, a = checkpoint(lambda h, p=layer: body(p, h), x,
-                              use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, a = body(layer, x)
-        if a is not None:
-            aux = aux + a
+    for stack, count in stacks:
+        # one unbind per stacked leaf: its backward stacks the layers' grads once
+        for layer in unstack_tree(stack, count):
+            if remat:
+                x, a = checkpoint(lambda h, p=layer: body(p, h), x,
+                                  use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, a = body(layer, x)
+            if a is not None:
+                aux = aux + a
     x = _norm_apply(cfg, params["final_norm"], x)
     logits = apply_lm_head(params["embed"], x)
     return logits, aux

@@ -1,5 +1,5 @@
 """Model dispatcher: one API over the ported families (``dense_lm``;
-``ssm_lm`` and ``hybrid`` for init, forward and serving —
+``ssm_lm``, ``hybrid`` and ``moe_lm`` for init, forward and serving —
 ``models/lm.py:SUPPORT``).
 
   init_model(cfg, seed=, device=)                 -> params
@@ -73,8 +73,10 @@ def prefill_chunk_paged(params, tokens, state, block_table, start: int, cfg: Mod
                                              start, cfg, cold_flags=cold_flags)
 
 
-# leaves serving keeps in fp32 whatever the compute dtype
+# leaves serving keeps in fp32 whatever the compute dtype: by leaf name,
+# and by the last two keys of the leaf's path
 FP32_LEAVES = ("s", "wr", "A_log")
+FP32_PATHS = (("wukv", "w"),)
 
 
 def serving_params(params, cfg: ModelConfig, device: torch.device,
@@ -88,7 +90,11 @@ def serving_params(params, cfg: ModelConfig, device: torch.device,
     recurrent ``wr`` (the reference casts it to the fp32 state's dtype,
     ``src/repro/nn/xlstm.py:225``), mamba's ``A_log`` (the reference
     takes ``-exp`` of it in fp32 at every call, ``src/repro/nn/mamba.py:91``:
-    a bf16 copy would give another A) and the leaves of a quantized tensor
+    a bf16 copy would give another A), MLA's up-projection ``wukv/w`` (the
+    absorbed decode reads it as fp32 W_uk and W_uv,
+    ``src/repro/nn/attention.py:678-684``: a bf16 copy would give another
+    q_lat; the prefill paths cast it to the compute dtype at each use, as
+    the reference does) and the leaves of a quantized tensor
     (``q8`` stays int8, ``scale`` fp32). A tree that is
     already quantized passes through with its codes and scales as they
     are. The reference casts at every apply, which gives the same
@@ -100,14 +106,15 @@ def serving_params(params, cfg: ModelConfig, device: torch.device,
         raise ValueError(f"unknown quantization {quantize!r}; options: int8")
     dt = compute_dtype(cfg)
 
-    def walk(tree):
+    def walk(tree, parent=None):
         if is_quantized(tree):
             return {"q8": tree["q8"].to(device), "scale": tree["scale"].to(device).float()}
-        return {k: walk(v) if isinstance(v, dict) else cast(k, v) for k, v in tree.items()}
+        return {k: walk(v, k) if isinstance(v, dict) else cast((parent, k), v)
+                for k, v in tree.items()}
 
-    def cast(name, t):
+    def cast(path, t):
         t = t.to(device)
-        if t.is_floating_point() and name not in FP32_LEAVES:
+        if t.is_floating_point() and path[1] not in FP32_LEAVES and path not in FP32_PATHS:
             t = t.to(dt)
         return t
 

@@ -37,6 +37,11 @@ chunked prefill, as in the reference; ``streaming=`` raises (its state
 cannot drop evicted history), and so does ``quantize="int8"`` until a
 test holds it.
 
+The ``moe_lm`` family (deepseek, MLA + MoE) takes the paged chunk path
+like ``dense_lm``: its MLA layers write their latent and rope key into
+the pages and decode through the absorbed-MLA kernel (the cold one
+under ``cold_kv="int8"``); ``quantize="int8"`` raises for it.
+
 Not ported yet (they raise ``NotImplementedError``): tensor-parallel
 serving (``mesh``) and the SLO scheduler (``scheduler="slo"``).
 """
@@ -107,10 +112,9 @@ class ServingEngine:
             raise NotImplementedError(
                 "streaming KV needs the offset-prefill paged path; family "
                 f"{cfg.family!r} carries recurrent state that cannot drop evicted history")
-        if quantize is not None and not self._offset_prefill:
+        if quantize is not None and (not self._offset_prefill or cfg.family == "moe_lm"):
             raise NotImplementedError(
-                f"quantize={quantize!r} on the recurrent family {cfg.family!r} is not "
-                "ported yet")
+                f"quantize={quantize!r} on the family {cfg.family!r} is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.weight_bytes_fp = param_bytes(params)

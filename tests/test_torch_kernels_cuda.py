@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the spectral matmul (and its autograd), its int8 variant, the
-paged GQA decode and its cold-tier variant, the flash-attention
-forward and backward, the chunkwise mLSTM and the selective scan; and
-the reduced xlstm and jamba engines on the card. Every test here needs a GPU and skips without one
+paged GQA decode and its cold-tier variant, the absorbed-MLA paged
+decode and its cold-tier variant, the flash-attention forward and
+backward, the chunkwise mLSTM and the selective scan; and the reduced
+xlstm, jamba and deepseek engines on the card. Every test here needs a GPU and skips without one
 (the kernels have no CPU mode). The file imports neither JAX nor the reference
 package, so it runs on a machine with CUDA and no JAX:
 
@@ -30,10 +31,17 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 )
 from repro_torch.kernels.flash_ref import flash_bwd_ref, flash_fwd_ref  # noqa: E402
 from repro_torch.kernels.ops import spectral_matmul, spectral_matmul_q8  # noqa: E402
-from repro_torch.kernels.paged_decode import paged_gqa_decode, paged_gqa_decode_cold  # noqa: E402
+from repro_torch.kernels.paged_decode import (  # noqa: E402
+    paged_gqa_decode,
+    paged_gqa_decode_cold,
+    paged_mla_decode,
+    paged_mla_decode_cold,
+)
 from repro_torch.kernels.paged_ref import (  # noqa: E402
     paged_gqa_decode_cold_ref,
     paged_gqa_decode_ref,
+    paged_mla_decode_cold_ref,
+    paged_mla_decode_ref,
 )
 from repro_torch.kernels.mlstm_chunk import CHUNK as MLSTM_KERNEL_CHUNK  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk  # noqa: E402
@@ -49,6 +57,7 @@ from repro_torch.kernels.testing import (  # noqa: E402
     assert_kernel_matches,
     make_block_table,
     mamba_inputs,
+    mla_inputs,
     mlstm_inputs,
     ragged_seq_lens,
     scale_profile,
@@ -76,6 +85,11 @@ SPECTRAL_Q8 = [(1, 64, 96, 16), (7, 130, 50, 16), (37, 300, 700, 64), (4, 2048, 
 # b, kvh, rep, hd, page, n_pages_per_seq
 PAGED = [(5, 2, 3, 64, 4, 6), (4, 1, 4, 20, 3, 5), (4, 4, 1, 48, 8, 4), (8, 8, 4, 64, 16, 12),
          (4, 8, 4, 128, 16, 12)]     # jamba's attention layers: head dim 128
+# b, h, lat, rope, page, n_pages_per_seq of the absorbed-MLA decode: the
+# reduced deepseek's widths, ragged head groups and page sizes, and
+# deepseek-v3-671b's (128 heads, latent 512, rope 64, page 16)
+MLA = [(3, 4, 16, 8, 4, 6), (4, 20, 32, 12, 3, 5), (2, 16, 512, 64, 16, 4),
+       (4, 128, 512, 64, 16, 12), (1, 128, 512, 64, 16, 12)]
 # (B, S, dh) of the mLSTM kernel: a ragged 64-token chunk, one token, two
 # and sixteen chunks; the reduced head width and xlstm-1.3b's 1024
 MLSTM = ([(B, S, 32) for B in (1, 4) for S in (1, 37, 64, 300)]
@@ -241,6 +255,93 @@ def test_paged_decode_kernel_vs_plain(cuda, case, dtype):
         assert_kernel_matches(lambda *a: paged_gqa_decode(*a)[part],
                               lambda *a: paged_gqa_decode_ref(*a)[part], args)
     assert LAUNCHES["paged_gqa_decode"] == before + 2
+
+
+def _mla_case(case, dtype, device, p_cold=None):
+    b, h, lat, rope, page, n = case
+    lens = ragged_seq_lens(b, page * n - 1, page).tolist() if b > 1 else [page * n - 1]
+    return mla_inputs(lens, n, h, lat, rope, page, dtype=dtype, null_slot=b > 1,
+                      p_cold=p_cold, device=device)
+
+
+def _mla_parts(b):
+    """Live slots, then the null slot (one raw latent row: compared on its
+    own so it does not set the live slots' scale)."""
+    return [slice(1, None), slice(0, 1)] if b > 1 else [slice(None)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", MLA, ids=lambda c: "-".join(map(str, c)))
+def test_paged_mla_decode_kernel_vs_plain(cuda, case, dtype):
+    args = _mla_case(case, DTYPES[dtype], cuda)
+    scale = 1.0 / math.sqrt(case[2] // 4 + case[3])
+    before = LAUNCHES["paged_mla_decode"]
+    for part in _mla_parts(case[0]):
+        assert_kernel_matches(lambda *a: paged_mla_decode(*a, scale=scale)[part],
+                              lambda *a: paged_mla_decode_ref(*a, scale=scale)[part], args)
+    assert LAUNCHES["paged_mla_decode"] == before + len(_mla_parts(case[0]))
+
+
+@pytest.mark.parametrize("p_cold", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", MLA, ids=lambda c: "-".join(map(str, c)))
+def test_paged_mla_decode_cold_kernel_vs_plain(cuda, case, dtype, p_cold):
+    args = _mla_case(case, DTYPES[dtype], cuda, p_cold)
+    scale = 1.0 / math.sqrt(case[2] // 4 + case[3])
+    before = LAUNCHES["paged_mla_decode_cold"]
+    for part in _mla_parts(case[0]):
+        assert_kernel_matches(lambda *a: paged_mla_decode_cold(*a, scale=scale)[part],
+                              lambda *a: paged_mla_decode_cold_ref(*a, scale=scale)[part],
+                              args)
+    assert LAUNCHES["paged_mla_decode_cold"] == before + len(_mla_parts(case[0]))
+    if p_cold == 0.0:                      # no page flagged: bit for bit the hot kernel
+        q_lat, q_rope, ckv, kr, _, _, _, _, bt, sl, cold = args
+        assert not cold.any()
+        assert torch.equal(paged_mla_decode_cold(*args, scale=scale),
+                           paged_mla_decode(q_lat, q_rope, ckv, kr, bt, sl, scale=scale))
+
+
+def test_paged_mla_decode_kernel_refuses_what_it_cannot_run(cuda):
+    q_lat, q_rope, ckv, kr, bt, sl = _mla_case((2, 4, 16, 8, 4, 3), torch.float32, cuda)
+    with pytest.raises(TypeError, match="differ"):
+        paged_mla_decode(q_lat, q_rope.bfloat16(), ckv, kr, bt, sl, scale=0.1)
+    with pytest.raises(TypeError, match="bf16 pools"):
+        paged_mla_decode(q_lat, q_rope, ckv.float(), kr, bt, sl, scale=0.1)
+    wide = torch.zeros((*ckv.shape[:2], 1024), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="limit"):
+        paged_mla_decode(torch.zeros((2, 4, 1024), device=cuda), q_rope, wide, kr, bt, sl,
+                         scale=0.1)
+
+
+def test_deepseek_engine_on_cuda(cuda):
+    """Reduced deepseek-v3-671b (capacity factor 8.0) through the engine on
+    the card: every decode step runs the absorbed-MLA kernel once per
+    layer and the GQA one never; with the int8 cold tier the cold kernel
+    takes every step instead; every request equals itself served alone
+    and stays within the ladder of the static path."""
+    from repro_torch.launch.serve import check_oracles
+    from repro_torch.models.model import init_model
+    from repro_torch.serving import PagedCacheConfig, Request, ServingEngine
+    from repro_torch.serving.streaming import StreamingConfig
+
+    cfg = get_config("deepseek-v3-671b", reduced=True).replace(capacity_factor=8.0)
+    pcfg = PagedCacheConfig(page_size=4, num_pages=32, max_slots=2, max_pages_per_seq=8)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32),
+                    max_new_tokens=g, arrival=a)
+            for i, (n, g, a) in enumerate([(9, 4, 0), (5, 9, 0), (13, 5, 1), (7, 6, 2)])]
+    params = init_model(cfg, seed=0, device=cuda)
+    for streaming, name in ((None, "paged_mla_decode"),
+                            (StreamingConfig(sink_pages=1, window_pages=2, cold_kv="int8"),
+                             "paged_mla_decode_cold")):
+        engine = ServingEngine(cfg, params, pcfg, streaming=streaming)
+        LAUNCHES.clear()
+        out = engine.run(reqs)
+        assert LAUNCHES[name] == cfg.n_layers * engine.decode_steps
+        other = "paged_mla_decode" if streaming else "paged_mla_decode_cold"
+        assert LAUNCHES[other] == 0 and LAUNCHES["paged_gqa_decode"] == 0
+        engine.sched.check_invariants()
+        check_oracles(engine, reqs, out, reqs if streaming is None else [])
 
 
 def test_engine_on_cuda_matches_static_reference(cuda):

@@ -161,9 +161,14 @@ def test_apply_rope_matches_reference():
 
 
 def test_unported_families_raise():
-    cfg = get_config("deepseek-v3-671b", reduced=True)
+    """encdec (whisper) is not ported; moe_lm (deepseek) serves but does
+    not train."""
+    from repro_torch.models.lm import require_family
+
     with pytest.raises(NotImplementedError):
-        tm.init_model(cfg, device="cpu")
+        tm.init_model(get_config("whisper-medium", reduced=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="training the moe_lm family"):
+        require_family(get_config("deepseek-v3-671b", reduced=True), "train")
 
 
 def test_entry_points_need_a_device_or_cuda(monkeypatch):
