@@ -10,7 +10,9 @@ Phases (any failure exits non-zero and prints no result line):
    under the tolerance ladder (fp32 5e-5, bf16 5e-2, on outputs scaled
    by the reference's RMS), at the main paths' shapes in bf16 and fp32:
    the decode shapes, and the training shapes (flash forward and
-   backward, the spectral autograd Function at M = 8192);
+   backward, the spectral autograd Function at M = 8192); every bf16
+   spectral row of M in {37, 64, 8192} equals the row alone, bit for bit
+   (bf16 runs on the tensor cores, fp32 on the CUDA cores);
 3. serve llama3.2-1b at full width (16 layers, d_model 2048, 32/8
    heads, d_ff 8192, vocab 128256, rank 128, bf16; random weights from
    seed 0) through ``ServingEngine``: one warm-up trace, then the
@@ -18,7 +20,8 @@ Phases (any failure exits non-zero and prints no result line):
    zeroed just before it and read just after; replay two requests
    through ``static_greedy_reference`` and require identical tokens;
 4. time each kernel, its plain version and a library call computing the
-   same function at the decode shapes, in device time only;
+   same function at the decode shapes (and the spectral kernel at a
+   64-token prefill chunk), in device time only;
 5. trace a decode-heavy stretch of serving with ``torch.profiler`` and
    print device time by kernel and the device's busy share of the wall
    clock;
@@ -30,12 +33,16 @@ Phases (any failure exits non-zero and prints no result line):
    launch the flash forward 48 times (forward and remat recompute), the
    flash backward 24 times and the spectral kernel 144 times; losses
    finite, orthogonality error <= 1e-4, every gradient leaf finite and
-   non-zero; then trace one more warm step with ``torch.profiler``;
+   non-zero; then trace one more warm step with ``torch.profiler`` and
+   print its device time by kernel family (flash backward and forward,
+   spectral, QR retraction, GEMM, other);
 7. resume a reduced run from its step-3 checkpoint on the card and
    require the losses of steps 4-6 and the final parameters bit-identical
    to an uninterrupted run;
 8. time the flash kernels and the spectral kernel at the training
-   shapes against their plain versions, SDPA and the three-GEMM chain;
+   shapes (the up and the down projection) against their plain versions,
+   SDPA and the three-GEMM chain; two flash-backward calls on the same
+   inputs give the same bits;
 9. hold the int8 kernels against their plain versions: the int8
    spectral matmul at M in {1, 4, 37, 64, 256} on both MLP shapes under
    every scale profile of the JAX package's tests, with every row of
@@ -186,6 +193,10 @@ REPLAYS = (0, 1)
 # int8 kernel checks: batch sizes and the JAX package's scale profiles
 Q8_ROWS = (1, 4, 37, 64, 256)
 Q8_PREFILL_M = 64
+# bf16 spectral batch invariance: rows of these M against the row alone,
+# across the tensor-core kernel's row tiles (16 at decode, 64 above) and
+# its two ways of running the m slices (a cluster; one block at M 8192)
+BF16_INVARIANT_ROWS = (37, 64, 8192)
 # the streaming cell: int8 weights + int8 cold KV, four long requests far
 # past the resident cap (sink + window + 1 = 6 pages: 18-23 pages each,
 # 160-192 new tokens, cut from 448-512 to keep the run's time) and four
@@ -349,6 +360,18 @@ def phase_kernels(torch, cfg):
                 args, label=f"paged_gqa_decode {dtype} {what}"))
         print(f"[kernels] {dtype}: spectral_matmul (M in 1/8/37/256, both MLP shapes) "
               f"and paged_gqa_decode (ragged lens {lens}, null slot) match")
+    for m, n in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+        x, U, s, V = spectral_inputs(torch, max(BF16_INVARIANT_ROWS), m, n, k, torch.bfloat16,
+                                     gen)
+        for M in BF16_INVARIANT_ROWS:
+            full = spectral_matmul(x[:M], U, s, V)
+            for i in sorted({0, M // 2, M - 1}):
+                if not torch.equal(spectral_matmul(x[i:i + 1], U, s, V)[0], full[i]):
+                    raise AssertionError(f"spectral_matmul {m}->{n} bf16: row {i} of M={M} "
+                                         "differs from the row alone")
+        del x, full
+    print(f"[kernels] bfloat16: spectral_matmul is batch invariant (rows of M in "
+          f"{list(BF16_INVARIANT_ROWS)} == the row alone, both MLP shapes)")
     torch.cuda.synchronize()
     return errs
 
@@ -467,19 +490,23 @@ def phase_timing(torch, cfg, engine, trace, launches, errs):
     dt = torch.bfloat16
     k, d, f = cfg.sct.rank, cfg.d_model, cfg.d_ff
 
-    # one layer's MLP at decode: up and gate (d -> f), down (f -> d), M = slots
+    # one layer's MLP at decode (M = slots) and in a 64-token prefill chunk:
+    # up and gate (d -> f), down (f -> d)
     shapes = [(d, f), (d, f), (f, d)]
-    sm = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0,
-          "err": 0.0}
-    for m, n in shapes:
-        x, U, s, V = spectral_inputs(torch, SLOTS, m, n, k, dt, gen)
-        sm["ms"] += time_cold(torch, lambda: spectral_matmul(x, U, s, V))
-        sm["plain_ms"] += time_cold(torch, lambda: spectral_matmul_ref(x, U, s, V))
-        fac = {"U": U, "s": s, "V": V}
-        sm["library_ms"] += time_cold(torch, lambda: spectral_apply(fac, x))
-        sm["bytes"] += 2 * (SLOTS * m + m * k + n * k + SLOTS * n) + 4 * k
-        sm["flops"] += 2 * SLOTS * k * (m + n)
-        add_err(sm, spectral_matmul(x, U, s, V), spectral_matmul_ref(x, U, s, V))
+    layer = {}
+    for M in (SLOTS, Q8_PREFILL_M):
+        sm = layer[M] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+                         "flops": 0, "err": 0.0}
+        for m, n in shapes:
+            x, U, s, V = spectral_inputs(torch, M, m, n, k, dt, gen)
+            sm["ms"] += time_cold(torch, lambda: spectral_matmul(x, U, s, V))
+            sm["plain_ms"] += time_cold(torch, lambda: spectral_matmul_ref(x, U, s, V))
+            fac = {"U": U, "s": s, "V": V}
+            sm["library_ms"] += time_cold(torch, lambda: spectral_apply(fac, x))
+            sm["bytes"] += 2 * (M * m + m * k + n * k + M * n) + 4 * k
+            sm["flops"] += 2 * M * k * (m + n)
+            add_err(sm, spectral_matmul(x, U, s, V), spectral_matmul_ref(x, U, s, V))
+    sm, chunk = layer[SLOTS], layer[Q8_PREFILL_M]
 
     # one layer's decode attention: all slots mid-trace (prompt + half the
     # generation cached), pools at the engine's geometry
@@ -504,11 +531,19 @@ def phase_timing(torch, cfg, engine, trace, launches, errs):
     pd["flops"] = 4 * h * hd * live
     add_err(pd, paged_gqa_decode(q, kp, vp, bt, sl), paged_gqa_decode_ref(q, kp, vp, bt, sl))
 
+    spectral = kernel_entry(
+        "spectral_matmul", "src/repro_torch/csrc/spectral_matmul_tc.cu",
+        "src/repro/kernels/spectral_matmul.py:57", sm, "bfloat16",
+        f"one decode layer's MLP: 2x({SLOTS},{d})->{f} + ({SLOTS},{f})->{d}, rank {k}, bf16 "
+        f"(tensor cores; fp32 runs csrc/spectral_matmul.cu)", launches, errs)
+    spectral["at_prefill_chunk"] = {
+        "shape": f"one 64-token prefill chunk's MLP: 2x({Q8_PREFILL_M},{d})->{f} + "
+                 f"({Q8_PREFILL_M},{f})->{d}",
+        "ms": chunk["ms"], "plain_ms": chunk["plain_ms"], "library_ms": chunk["library_ms"],
+        "max_abs_err": chunk["err"], "max_scaled_err": chunk["scaled"],
+        **bound_of(chunk, "bfloat16")}
     return [
-        kernel_entry("spectral_matmul", "src/repro_torch/csrc/spectral_matmul.cu",
-                     "src/repro/kernels/spectral_matmul.py:57", sm, "bfloat16",
-                     f"one decode layer's MLP: 2x({SLOTS},{d})->{f} + ({SLOTS},{f})->{d}, "
-                     f"rank {k}, bf16", launches, errs),
+        spectral,
         kernel_entry("paged_gqa_decode", "src/repro_torch/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_decode.py:110", pd, "float32",
                      f"one decode layer: b={b} kvh={kvh} rep={rep} hd={hd} page={PAGE} "
@@ -714,12 +749,16 @@ def phase_training(torch, device):
           f"({100.0 * busy_ms / (wall * 1e3):.1f}% of wall)")
     for ms, count, key in rows[:20]:
         print(f"[profile] {ms:10.3f} ms {count:7d}x  {key[:160]}")
+    split = step_split(rows)
+    print("[profile] one training step's device ms by kernel family: " + ", ".join(
+        f"{name} {ms:.1f} ms ({count}x)" for name, (ms, count) in split.items()))
     return {
         "arch": cfg.name, "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms, "ortho": orthos,
         "warm_step_ms": warm_ms, "tokens_per_s": tokens_per_s,
         "max_memory_allocated": peak_mem, "launches": totals, "launches_per_step": expect,
         "profile": {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+                    "by_family": {name: ms for name, (ms, _) in split.items()},
                     "top": [{"ms": ms, "launches": c, "kernel": key[:120]}
                             for ms, c, key in rows[:20]]},
     }
@@ -778,10 +817,16 @@ def phase_train_timing(torch, cfg, launches, errs):
     add_err(fwd, out, ref[0])
     bwd = {"ms": time_cold(torch, lambda: flash_attention_bwd(q, k, v, out, m, l, do)),
            "plain_ms": time_cold(torch, lambda: flash_bwd_ref(q, k, v, out, m, l, do))}
-    for a, c in zip(flash_attention_bwd(q, k, v, out, m, l, do),
-                    flash_bwd_ref(q, k, v, out, m, l, do)):
+    first = flash_attention_bwd(q, k, v, out, m, l, do)
+    for a, c in zip(first, flash_bwd_ref(q, k, v, out, m, l, do)):
         add_err(bwd, a, c)
-    del ref
+    # deterministic: no atomics, every sum in a fixed order
+    for name, a, c in zip(("dq", "dk", "dv"), first, flash_attention_bwd(q, k, v, out, m, l, do)):
+        if not torch.equal(a, c):
+            raise AssertionError(f"flash_attention_bwd {name}: two calls on the same inputs "
+                                 "differ")
+    print("[kernels] flash_attention_bwd at the training shape: two calls give the same bits")
+    del ref, first
 
     # library yardstick: SDPA in its (b, h, s, d) layout, causal; the
     # backward alone is autograd.grad through a recorded SDPA forward
@@ -808,16 +853,25 @@ def phase_train_timing(torch, cfg, launches, errs):
     bwd["bytes"] = 3 * act + 2 * kv + 2 * stats + act + 2 * kv   # q k v out do m l in; dq dk dv
     del qh, kh, vh, qg, kg, vg, oh, doh, q, k, v, do, out, m, l
 
-    # one MLP up projection in training: (b * s, d_model) -> d_ff
-    M, mm, n, kk = b * s, cfg.d_model, cfg.d_ff, cfg.sct.rank
-    x, U, sv, V = spectral_inputs(torch, M, mm, n, kk, dt, gen)
-    fac = {"U": U, "s": sv, "V": V}
-    sm = {"ms": time_cold(torch, lambda: spectral_matmul(x, U, sv, V)),
-          "plain_ms": time_cold(torch, lambda: spectral_matmul_ref(x, U, sv, V)),
-          "library_ms": time_cold(torch, lambda: spectral_apply(fac, x)),
-          "bytes": 2 * (M * mm + mm * kk + n * kk + M * n) + 4 * kk,
-          "flops": 2 * M * kk * (mm + n)}
-    add_err(sm, spectral_matmul(x, U, sv, V), spectral_matmul_ref(x, U, sv, V))
+    # one MLP's up (d_model -> d_ff) and down (d_ff -> d_model) projection
+    # in training, M = b * s rows
+    M, kk = b * s, cfg.sct.rank
+    at_train = []
+    for mm, n, what in ((cfg.d_model, cfg.d_ff, "up"), (cfg.d_ff, cfg.d_model, "down")):
+        x, U, sv, V = spectral_inputs(torch, M, mm, n, kk, dt, gen)
+        fac = {"U": U, "s": sv, "V": V}
+        sm = {"ms": time_cold(torch, lambda: spectral_matmul(x, U, sv, V)),
+              "plain_ms": time_cold(torch, lambda: spectral_matmul_ref(x, U, sv, V)),
+              "library_ms": time_cold(torch, lambda: spectral_apply(fac, x)),
+              "bytes": 2 * (M * mm + mm * kk + n * kk + M * n) + 4 * kk,
+              "flops": 2 * M * kk * (mm + n)}
+        add_err(sm, spectral_matmul(x, U, sv, V), spectral_matmul_ref(x, U, sv, V))
+        at_train.append(kernel_entry(
+            "spectral_matmul", "src/repro_torch/csrc/spectral_matmul_tc.cu",
+            "src/repro/kernels/spectral_matmul.py:57", sm, "bfloat16",
+            f"one {what} projection in training: ({M},{mm})->{n}, rank {kk}, bf16", launches,
+            errs))
+        del x, U, sv, V, fac
     shape = (f"one smollm2 layer in training: b={b} s={s} heads={h} kv_heads={g} d={d}, "
              f"causal, bf16")
     return [
@@ -827,10 +881,7 @@ def phase_train_timing(torch, cfg, launches, errs):
         kernel_entry("flash_attention_bwd", "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/nn/attention.py:136", bwd, "bfloat16",
                      shape + "; library: SDPA backward alone", launches, errs),
-    ], kernel_entry("spectral_matmul", "src/repro_torch/csrc/spectral_matmul.cu",
-                    "src/repro/kernels/spectral_matmul.py:57", sm, "bfloat16",
-                    f"one up projection in training: ({M},{mm})->{n}, rank {kk}, bf16",
-                    {}, {})
+    ], at_train
 
 
 def q8_inputs(torch, M, m, n, k, profile, dtype, gen):
@@ -2123,6 +2174,27 @@ def device_rows(torch, prof):
     return rows
 
 
+# kernel families of a training step's profile, matched on the kernel's
+# name in order; the rest is "other" (copies, elementwise, reductions)
+STEP_FAMILIES = (("flash backward", ("flash_bwd",)), ("flash forward", ("flash_fwd",)),
+                 ("spectral_matmul", ("spectral_tc", "spectral_matmul")),
+                 ("QR retraction", ("geqr", "orgqr", "org2r", "orm2r", "ormqr", "larf",
+                                    "householder")),
+                 ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")))
+
+
+def step_split(rows):
+    """{family: (device ms, launches)} of a profile's kernel rows."""
+    split = {name: [0.0, 0] for name, _ in STEP_FAMILIES}
+    split["other"] = [0.0, 0]
+    for ms, count, key in rows:
+        low = key.lower()
+        name = next((n for n, keys in STEP_FAMILIES if any(w in low for w in keys)), "other")
+        split[name][0] += ms
+        split[name][1] += count
+    return {name: tuple(v) for name, v in split.items()}
+
+
 def bound_of(t, peak_key):
     """The least time for the work: the larger of the bytes over HBM
     bandwidth and the operations over the peak rate."""
@@ -2276,9 +2348,10 @@ def main() -> int:
         traceback.print_exc()
         return fail("a phase failed")
     kernels[0]["launches_train"] = train["launches"]["spectral_matmul"]
-    kernels[0]["at_train_shape"] = {key: at_train[key] for key in (
-        "shape", "ms", "plain_ms", "library_ms", "max_abs_err", "max_scaled_err", "bound_ms",
-        "bound_by")}
+    for key, entry in zip(("at_train_shape", "at_train_down_shape"), at_train):
+        kernels[0][key] = {name: entry[name] for name in (
+            "shape", "ms", "plain_ms", "library_ms", "max_abs_err", "max_scaled_err",
+            "bound_ms", "bound_by")}
     kernels += flash
     kernels_int8[0]["launches_streaming"] = stream["launches"].get("spectral_matmul_q8", 0)
     kernels[0]["launches_xlstm"] = xlstm["launches"].get("spectral_matmul", 0)
@@ -2290,8 +2363,10 @@ def main() -> int:
         raw, scaled = errs.get(kern["name"], (0.0, 0.0))
         kern["max_err"] = max(kern["max_err"], raw)
         kern["max_scaled_err"] = max(kern["max_scaled_err"], scaled)
-    extra = [dict(at_train, name="spectral_matmul (training shape)",
-                  launches=train["launches"]["spectral_matmul"]),
+    extra = [dict(at_train[0], name="spectral_matmul (training up projection)"),
+             dict(at_train[1], name="spectral_matmul (training down projection)"),
+             dict(kernels[0]["at_prefill_chunk"], name="spectral_matmul (prefill chunk)",
+                  launches=kernels[0]["launches"]),
              dict(kernels_int8[0]["at_prefill_chunk"], name="spectral_matmul_q8 (prefill chunk)",
                   launches=kernels_int8[0]["launches"])]
     for kern in kernels + extra:

@@ -34,9 +34,31 @@
 // The backward is two kernels and needs no atomics: one block per query
 // tile computes delta and dQ, then one block per kv tile walks the query
 // tiles at or after it and sums dK and dV over the group's r heads.
+//
+// The bf16 backward (flash_bwd_dq_tc_kernel, flash_bwd_dkdv_tc_kernel) is
+// bound by operations too: 343 GFLOP at the training shape, 0.35 ms at 989
+// TFLOP/s; the two-kernel split recomputes S and dP in the dQ kernel, 480
+// GFLOP in all. What its design does about it: every tile product runs on
+// Hopper's warpgroup MMA (wgmma) with fp32 accumulators in registers, its
+// B operand read from shared memory once a warpgroup, and S, dP, P and dS
+// never leave registers: the dK/dV kernel computes S^T = K Q^T and
+// dP^T = V dO^T, whose accumulators are, packed to bf16, the A operands of
+// dV += P^T dO and dK += dS^T Q; the dQ kernel's S and dS feed dQ += dS K
+// the same way. dQ, dK and dV stay in registers across the tile loop; the
+// streamed tiles (K/V in the dQ kernel, Q/dO and the row statistics in the
+// dK/dV kernel) come through a cp.async ring two or three tiles ahead of
+// the one computed, and the blocks with the most tiles launch first. What
+// still holds it (2.4 ms at the training shape on an H100, PERF.md): a
+// warpgroup runs its products, its softmax-gradient pass and
+// its next products one after the other, so the tensor cores idle while it
+// computes p and ds (overlapping them needs warp-specialised producer and
+// consumer warpgroups); and the dQ kernel costs ~1.1 ms whenever it streams
+// K and V, whether or not it computes, for a reason not yet found
+// (PERF.md). The fp32 backward keeps the shared-memory kernels above.
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -537,6 +559,590 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// ---- the bf16 backward on the tensor cores ----
+//
+// The FlashAttention-2 register scheme on Hopper's warpgroup MMA (wgmma,
+// mma.cuh): A operands come from registers, B operands from shared memory
+// through a descriptor, so a warpgroup of four warps reads each B tile once
+// (mma.sync made every warp read it). Accumulators stay in registers, and
+// the accumulator layout of S, dP (or their transposes), packed to bf16, is
+// the A operand of the next product. Tiles are stored as 8 x 16-byte core
+// matrices, so one Q (or dO, K) tile is the K-major B operand of one product
+// and the MN-major B operand of another; they stream through a cp.async
+// ring. Two kernels and no atomics, as before: every sum runs in a fixed
+// order, so two calls give the same bits.
+namespace tc = sct::mma;
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The dQ kernel is one warpgroup a block (kWgThreads) against 64-row kv
+// tiles, so three blocks share an SM and overlap one another's phases; the
+// dK/dV kernel takes 128 kv rows in two warpgroups at d 64 (each Q/dO tile
+// it streams serves both), 64 in one at d 128 (registers). Tiles come
+// through a ring of kAhead + 1 buffers: the tile being read and the next
+// kAhead in flight (the dK/dV kernel is bound by the bytes it has in
+// flight; three ahead measure best for it, two for the dQ kernel).
+constexpr int kWgThreads = 128;
+constexpr int kDqAhead = 2, kDkvAhead = 3;
+template <int D>
+struct BwdTc {
+  static constexpr int kBN = 64;                    // kv rows per dQ kv tile
+  static constexpr int kBNK = D == 64 ? 128 : 64;   // kv rows per dK/dV block
+  static constexpr int kKD = D / 16;                // k16 steps over d
+  static constexpr int kKLead = (D / 8) * 128;      // bytes between core-matrix rows of 8
+  static constexpr int kTile = kRows * D * 2;       // bytes of a 64-row tile
+};
+
+// x rounded to bf16 (nearest, ties to even) and back, on the integer pipe:
+// the same bits as __float2bfloat16_rn for finite x, without a conversion
+// instruction (16 a clock an SM, shared with ex2)
+__device__ __forceinline__ float round_bf16(float x) {
+  uint32_t u = __float_as_uint(x);
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xFFFF0000u);
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Byte offset of row `row`, 16-byte chunk c8, in a tile of D-wide bf16 rows
+// stored as core matrices: core (row / 8, c8) at ((row / 8) D / 8 + c8) 128.
+template <int D>
+__device__ __forceinline__ int cm_off(int row, int c8) {
+  return (((row >> 3) * (D / 8) + c8) << 7) + ((row & 7) << 4);
+}
+
+// Chunk i of a core-matrix tile: consecutive i run down the 8 rows of a
+// core matrix, so eight lanes fill 128 contiguous bytes (no bank conflict);
+// the global side coalesces whatever the lane order.
+template <int D>
+__device__ __forceinline__ void cm_chunk(int i, int& row, int& c8) {
+  row = (i / (8 * (D / 8))) * 8 + (i & 7);
+  c8 = (i >> 3) % (D / 8);
+}
+
+// Start copying `rows` rows of D bf16 (global offsets from row_off, -1 for
+// a missing row, zero-filled) into a core-matrix tile; rows is a multiple
+// of 8.
+template <int D, typename RowOff>
+__device__ __forceinline__ void load_rows_cm(unsigned char* dst, const bf16* src, int rows,
+                                             RowOff row_off) {
+  for (int i = threadIdx.x; i < rows * (D / 8); i += blockDim.x) {
+    int row, c8;
+    cm_chunk<D>(i, row, c8);
+    const long long off = row_off(row);
+    tc::cp_async16(dst + cm_off<D>(row, c8), off >= 0 ? src + off + c8 * 8 : src, off >= 0);
+  }
+}
+
+// The chunks of a 64-row query tile a thread copies, mapped once a block:
+// chunk u is row `row` (position pr = row / r, head rr = row % r of the
+// group; ok if the tile has the row), 16-byte column c8, at shared offset
+// soff. A tile's global offsets then take a few multiply-adds, not two
+// divisions by r a chunk.
+template <int kN>
+struct QChunks {
+  int pr[kN], rr[kN], c8[kN], soff[kN];
+  bool ok[kN];
+  template <int D>
+  __device__ void init(int tid, int nthreads, int per, int r) {
+#pragma unroll
+    for (int u = 0; u < kN; ++u) {
+      int row;
+      cm_chunk<D>(tid + u * nthreads, row, c8[u]);
+      pr[u] = row / r;
+      rr[u] = row % r;
+      ok[u] = row < per * r;
+      soff[u] = cm_off<D>(row, c8[u]);
+    }
+  }
+};
+
+// Write `rows` rows of a core-matrix tile to the global rows row_off(row)
+// (skipped where -1), 16 bytes at a time.
+template <int D, typename RowOff>
+__device__ __forceinline__ void store_rows_cm(bf16* dst, const unsigned char* src, int rows,
+                                              RowOff row_off) {
+  for (int i = threadIdx.x; i < rows * (D / 8); i += blockDim.x) {
+    int row, c8;
+    cm_chunk<D>(i, row, c8);
+    const long long off = row_off(row);
+    if (off >= 0)
+      *reinterpret_cast<uint4*>(dst + off + c8 * 8) =
+          *reinterpret_cast<const uint4*>(src + cm_off<D>(row, c8));
+  }
+}
+
+// Two fp32 values rounded into a core-matrix tile at (row, col), col even.
+template <int D>
+__device__ __forceinline__ void put2(unsigned char* tile, int row, int col, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(tile + cm_off<D>(row, col >> 3) + (col & 7) * 2) =
+      tc::pack_bf16(lo, hi);
+}
+
+// A fragment (16 x 16) of a core-matrix tile at (r0, c0)
+template <int D>
+__device__ __forceinline__ void lda_cm(uint32_t* a, const unsigned char* tile, int r0, int c0) {
+  const int lane = threadIdx.x % 32;
+  tc::ldsm_x4(a, tile + cm_off<D>(r0 + (lane & 15), (c0 >> 3) + (lane >> 4)));
+}
+
+// Descriptors over a core-matrix tile: rows as N and d as K (K-major), from
+// row n0 at k-step kk; or rows as K and d as N (MN-major), from row k0.
+template <int D>
+__device__ __forceinline__ uint64_t desc_kmajor(const unsigned char* tile, int n0, int kk) {
+  return tc::wgmma_desc(tile + (n0 >> 3) * BwdTc<D>::kKLead + kk * 256, 128, BwdTc<D>::kKLead);
+}
+template <int D>
+__device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* tile, int k0) {
+  return tc::wgmma_desc(tile + (k0 >> 3) * BwdTc<D>::kKLead, BwdTc<D>::kKLead, 128);
+}
+
+// The A fragment of k-step kq from the accumulator's n8 tiles 2 kq, 2 kq + 1.
+__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c, int kq) {
+  a[0] = tc::pack_bf16(c[8 * kq + 0], c[8 * kq + 1]);
+  a[1] = tc::pack_bf16(c[8 * kq + 2], c[8 * kq + 3]);
+  a[2] = tc::pack_bf16(c[8 * kq + 4], c[8 * kq + 5]);
+  a[3] = tc::pack_bf16(c[8 * kq + 6], c[8 * kq + 7]);
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int D>
+struct DqTcSmem {
+  using B = BwdTc<D>;
+  static constexpr size_t kKV = (size_t)B::kBN * D * 2;   // one K or V tile
+  static constexpr size_t kBytes =
+      2 * (size_t)B::kTile + (kDqAhead + 1) * 2 * kKV + sizeof(float) * kRows;
+};
+
+// delta and dQ for one 64-row query tile: warp w takes query rows
+// 16 w .. + 16 against every kv tile. The row statistics the dK/dV kernel
+// needs go to `stats` (3 x rows fp32: delta, m log2(e), 1 / l); that
+// kernel runs after this one on the same stream.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 2)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ out,
+                       const bf16* __restrict__ dout, const float* __restrict__ m_in,
+                       const float* __restrict__ l_in, float* __restrict__ stats,
+                       bf16* __restrict__ dq, int sq, int skv, int G, int r, int causal,
+                       float scale) {
+  using B = BwdTc<D>;
+  using S = DqTcSmem<D>;
+  constexpr int kBN = B::kBN, kNS = kBN / 8;
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  unsigned char* qs = smem_tc;
+  unsigned char* dos = qs + B::kTile;
+  constexpr int kRing = kDqAhead + 1;
+  unsigned char* ring = dos + B::kTile;   // kRing x (K tile, V tile)
+  float* dsm = reinterpret_cast<float*>(ring + kRing * 2 * S::kKV);   // delta per row
+
+  const int per = kRows / r;
+  const int qt = static_cast<int>(gridDim.x - 1 - blockIdx.x);   // heaviest tiles first
+  const QTile t{static_cast<int>(blockIdx.y) / G, static_cast<int>(blockIdx.y) % G, qt * per,
+                per, r, sq, G};
+  const long long n_stat = static_cast<long long>(gridDim.y) * sq * r;   // b sq g r
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rg = warp;
+
+  auto q_row = [&](int rho) { return t.valid(rho) ? t.stat(rho) * D : -1LL; };
+  load_rows_cm<D>(qs, q, kRows, q_row);
+  load_rows_cm<D>(dos, dout, kRows, q_row);
+  tc::cp_async_commit();
+  const int last = min(sq - 1, t.q0 + per - 1);
+  const int kv_end = causal ? min(skv, last + 1) : skv;
+  const int ntiles = (kv_end + kBN - 1) / kBN;
+  // K and V rows of a kv tile share their offsets: one loop copies both
+  auto issue_kv = [&](int j) {
+    unsigned char* ks = ring + (j % kRing) * 2 * S::kKV;
+    const long long base = (static_cast<long long>(t.bi) * skv + j * kBN) * G + t.gi;
+#pragma unroll
+    for (int u = 0; u < kBN * (D / 8) / kWgThreads; ++u) {
+      int row, c8;
+      cm_chunk<D>(tid + u * kWgThreads, row, c8);
+      const bool ok = j * kBN + row < skv;
+      const long long off = (base + static_cast<long long>(row) * G) * D + c8 * 8;
+      tc::cp_async16(ks + cm_off<D>(row, c8), ok ? k + off : k, ok);
+      tc::cp_async16(ks + S::kKV + cm_off<D>(row, c8), ok ? v + off : v, ok);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kDqAhead; ++j) {
+    if (j < ntiles) issue_kv(j);
+    tc::cp_async_commit();
+  }
+
+  // delta = rowsum(dO * O) in fp32, two threads a row, while the tiles land
+  {
+    const int rho = tid >> 1, part = tid & 1;
+    float dsum = 0.f;
+    if (t.valid(rho)) {
+      const bf16* orow = out + t.stat(rho) * D + part * (D / 2);
+      const bf16* drow = dout + t.stat(rho) * D + part * (D / 2);
+#pragma unroll
+      for (int c = 0; c < D / 2; c += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+          dsum = fmaf(df.x, of.x, dsum);
+          dsum = fmaf(df.y, of.y, dsum);
+        }
+      }
+    }
+    dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+    if (part == 0) {
+      dsm[rho] = dsum;
+      if (t.valid(rho)) {
+        const long long i = t.stat(rho);
+        stats[i] = dsum;
+        stats[n_stat + i] = m_in[i] * kLog2e;
+        stats[2 * n_stat + i] = 1.f / fmaxf(l_in[i], 1e-30f);
+      }
+    }
+  }
+  // this thread's two fragment rows (16 rg + g, + 8): statistics in registers
+  float mlog[2], invl[2], dlt[2];
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = rg * 16 + g + 8 * h;
+    const bool ok = t.valid(row);
+    mlog[h] = ok ? m_in[t.stat(row)] * kLog2e : 0.f;
+    invl[h] = ok ? 1.f / fmaxf(l_in[t.stat(row)], 1e-30f) : 0.f;
+    qpos[h] = ok ? t.pos(row) : -1;
+  }
+  tc::cp_async_wait<kDqAhead>();   // Q and dO have landed
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) dlt[h] = dsm[rg * 16 + g + 8 * h];
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int j = 0; j < ntiles; ++j) {
+    tc::cp_async_wait<kDqAhead - 1>();   // tile j has landed
+    fence_async_smem();                  // for the tensor cores' reads
+    __syncthreads();                     // and every warp is done with tile j - 1
+    if (j + kDqAhead < ntiles) issue_kv(j + kDqAhead);   // into tile j - 1's buffer
+    tc::cp_async_commit();
+    const unsigned char* ks = ring + (j % kRing) * 2 * S::kKV;
+    const unsigned char* vs = ks + S::kKV;
+    // S = Q K^T and dP = dO V^T over the kv tile.
+    // A fragments are loaded for each batch and fenced after its wait: ones
+    // held in registers across tiles do not survive the loop.
+    uint32_t qa[B::kKD][4], da[B::kKD][4];
+#pragma unroll
+    for (int kk = 0; kk < B::kKD; ++kk) {
+      lda_cm<D>(qa[kk], qs, rg * 16, kk * 16);
+      lda_cm<D>(da[kk], dos, rg * 16, kk * 16);
+    }
+    float sc[kBN / 2], dp[kBN / 2];
+    tc::fence_regs<kBN / 2>(sc);
+    tc::fence_regs<kBN / 2>(dp);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < B::kKD; ++kk)
+      tc::wgmma_bf16<kBN, 0>(sc, qa[kk], desc_kmajor<D>(ks, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < B::kKD; ++kk)
+      tc::wgmma_bf16<kBN, 0>(dp, da[kk], desc_kmajor<D>(vs, 0, kk), kk > 0);
+    tc::wgmma_commit();
+    tc::wgmma_wait();
+    tc::fence_regs<kBN / 2>(sc);
+    tc::fence_regs<kBN / 2>(dp);
+    tc::fence_regs<B::kKD>(qa);
+    tc::fence_regs<B::kKD>(da);
+    // p = exp(round(S) scale - m) / l, ds = p (round(dP) - delta) scale
+    const int kbase = j * kBN;
+    const bool edge = kbase + kBN > skv || (causal && kbase + kBN - 1 > t.q0);
+#pragma unroll
+    for (int n = 0; n < kNS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int kp = kbase + n * 8 + 2 * tq + (e & 1);
+        float p = ex2(fmaf(round_bf16(sc[4 * n + e]), sl2, -mlog[h])) * invl[h];
+        if (edge && (kp >= skv || (causal && kp > qpos[h]))) p = 0.f;
+        dp[4 * n + e] = p * (round_bf16(dp[4 * n + e]) - dlt[h]) * scale;
+      }
+    // dQ += dS . K: K is the MN-major B operand (kv rows as K, d as N)
+    uint32_t as[kNS / 2][4];
+#pragma unroll
+    for (int kq = 0; kq < kNS / 2; ++kq) acc_to_a(as[kq], dp, kq);
+    tc::fence_regs<D / 2>(dqa);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kq = 0; kq < kNS / 2; ++kq)
+      tc::wgmma_bf16<D, 1>(dqa, as[kq], desc_mnmajor<D>(ks, kq * 16), 1);
+    tc::wgmma_commit();
+    tc::wgmma_wait();
+    tc::fence_regs<D / 2>(dqa);
+    tc::fence_regs<kNS / 2>(as);
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();   // every warp is done with Q: it stages dQ
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int row = rg * 16 + g, c = n * 8 + 2 * tq;
+    put2<D>(qs, row, c, dqa[4 * n], dqa[4 * n + 1]);
+    put2<D>(qs, row + 8, c, dqa[4 * n + 2], dqa[4 * n + 3]);
+  }
+  __syncthreads();
+  store_rows_cm<D>(dq, qs, kRows, q_row);
+}
+
+template <int D>
+struct DkvTcSmem {
+  using B = BwdTc<D>;
+  static constexpr size_t kKV = (size_t)B::kBNK * D * 2;                 // K or V tile
+  static constexpr size_t kStage = 2 * (size_t)B::kTile + sizeof(float) * 3 * kRows;
+  static constexpr size_t kBytes = 2 * kKV + (kDkvAhead + 1) * kStage;
+  static_assert(kStage % 128 == 0, "stages keep the tiles 128-byte aligned");
+};
+
+// dK and dV for one kv tile, summed over every query tile at or after it
+// and over the r heads of the group. Warp w takes kv rows 16 w .. + 16; its
+// warpgroup computes S^T = K Q^T and dP^T = V dO^T for its 64 rows, so that
+// P^T and dS^T come out of the accumulators as the A operands of
+// dV += P^T dO and dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(2 * BwdTc<D>::kBNK, 1)
+flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ stats, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int sq, int skv, int G, int r, int causal,
+                         float scale) {
+  using B = BwdTc<D>;
+  using S = DkvTcSmem<D>;
+  constexpr int kBN = B::kBNK, kNQ = kRows / 8, kRing = kDkvAhead + 1;
+  constexpr bool kOneBatch = D == 64;   // K and V fragments in registers together
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  unsigned char* ks = smem_tc;
+  unsigned char* vs = ks + S::kKV;
+  unsigned char* ring = vs + S::kKV;   // kRing x (Q, dO, delta, m log2 e, 1 / l)
+
+  const int bi = static_cast<int>(blockIdx.y) / G, gi = static_cast<int>(blockIdx.y) % G;
+  const int k0 = static_cast<int>(blockIdx.x) * kBN;   // tile 0, the heaviest, first
+  const long long n_stat = static_cast<long long>(gridDim.y) * sq * r;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  auto kv_row = [&](int j) {
+    const int kp = k0 + j;
+    return kp < skv ? ((static_cast<long long>(bi) * skv + kp) * G + gi) * D : -1LL;
+  };
+  load_rows_cm<D>(ks, k, kBN, kv_row);
+  load_rows_cm<D>(vs, v, kBN, kv_row);
+  tc::cp_async_commit();
+
+  const int per = kRows / r;
+  // causal: query positions before k0 see none of this tile
+  const int q_first = causal ? (k0 / per) * per : 0;
+  const int ntiles = q_first < sq ? (sq - q_first + per - 1) / per : 0;
+  // this thread's Q/dO chunks and its statistics (of 3 x 64), mapped once
+  constexpr int kThr = 2 * kBN, kQc = kRows * (D / 8) / kThr;
+  constexpr int kSc = (3 * kRows + kThr - 1) / kThr;
+  QChunks<kQc> qc;
+  qc.template init<D>(tid, kThr, per, r);
+  int st_pr[kSc], st_rr[kSc];
+  bool st_ok[kSc];
+#pragma unroll
+  for (int u = 0; u < kSc; ++u) {
+    const int i = tid + u * kThr, rho = i % kRows;
+    st_pr[u] = rho / r;
+    st_rr[u] = rho % r;
+    st_ok[u] = i < 3 * kRows && rho < per * r;
+  }
+  auto issue_q = [&](int j) {
+    unsigned char* st = ring + (j % kRing) * S::kStage;
+    const int q0 = q_first + j * per;
+    const long long head = static_cast<long long>(bi) * sq + q0;   // (bi, q0) position row
+#pragma unroll
+    for (int u = 0; u < kQc; ++u) {
+      const bool ok = qc.ok[u] && q0 + qc.pr[u] < sq;
+      const long long off = (((head + qc.pr[u]) * G + gi) * r + qc.rr[u]) * D + qc.c8[u] * 8;
+      tc::cp_async16(st + qc.soff[u], ok ? q + off : q, ok);
+      tc::cp_async16(st + B::kTile + qc.soff[u], ok ? dout + off : dout, ok);
+    }
+#pragma unroll
+    for (int u = 0; u < kSc; ++u) {
+      const int i = tid + u * kThr;
+      if (i < 3 * kRows) {
+        const bool ok = st_ok[u] && q0 + st_pr[u] < sq;
+        const long long at = ((head + st_pr[u]) * G + gi) * r + st_rr[u];
+        const float* src = stats + (i / kRows) * n_stat + (ok ? at : 0);
+        tc::cp_async4(reinterpret_cast<float*>(st + 2 * B::kTile) + i, src, ok);
+      }
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kDkvAhead; ++j) {
+    if (j < ntiles) issue_q(j);
+    tc::cp_async_commit();
+  }
+
+  const int w0 = warp * 16;        // this warp's kv rows in the tile
+  const int kp_lo = k0 + w0 + g;   // the kv positions of its fragment rows: kp_lo, kp_lo + 8
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int j = 0; j < ntiles; ++j) {
+    tc::cp_async_wait<kDkvAhead - 1>();   // tile j (and K, V) have landed
+    fence_async_smem();
+    __syncthreads();                      // every warp is done with tile j - 1
+    if (j + kDkvAhead < ntiles) issue_q(j + kDkvAhead);   // into tile j - 1's buffer
+    tc::cp_async_commit();
+    const unsigned char* qs = ring + (j % kRing) * S::kStage;
+    const unsigned char* dos = qs + B::kTile;
+    const float* sts = reinterpret_cast<const float*>(dos + B::kTile);
+    const int q0 = q_first + j * per;
+    // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 kv rows (the
+    // K and V fragments loaded for each batch, as in the dQ kernel)
+    float sc[kRows / 2], dp[kRows / 2];
+    tc::fence_regs<kRows / 2>(sc);
+    tc::fence_regs<kRows / 2>(dp);
+    uint32_t ka[B::kKD][4], va[kOneBatch ? B::kKD : 1][4];
+    if constexpr (kOneBatch) {
+#pragma unroll
+      for (int kk = 0; kk < B::kKD; ++kk) {
+        lda_cm<D>(ka[kk], ks, w0, kk * 16);
+        lda_cm<D>(va[kk], vs, w0, kk * 16);
+      }
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < B::kKD; ++kk)
+        tc::wgmma_bf16<kRows, 0>(sc, ka[kk], desc_kmajor<D>(qs, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < B::kKD; ++kk)
+        tc::wgmma_bf16<kRows, 0>(dp, va[kk], desc_kmajor<D>(dos, 0, kk), kk > 0);
+      tc::wgmma_commit();
+      tc::wgmma_wait();
+      tc::fence_regs<B::kKD>(ka);
+      tc::fence_regs<B::kKD>(va);
+    } else {   // one operand's fragments at a time (registers)
+#pragma unroll
+      for (int kk = 0; kk < B::kKD; ++kk) lda_cm<D>(ka[kk], ks, w0, kk * 16);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < B::kKD; ++kk)
+        tc::wgmma_bf16<kRows, 0>(sc, ka[kk], desc_kmajor<D>(qs, 0, kk), kk > 0);
+      tc::wgmma_commit();
+      tc::wgmma_wait();
+      tc::fence_regs<kRows / 2>(sc);
+      tc::fence_regs<B::kKD>(ka);
+#pragma unroll
+      for (int kk = 0; kk < B::kKD; ++kk) lda_cm<D>(ka[kk], vs, w0, kk * 16);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < B::kKD; ++kk)
+        tc::wgmma_bf16<kRows, 0>(dp, ka[kk], desc_kmajor<D>(dos, 0, kk), kk > 0);
+      tc::wgmma_commit();
+      tc::wgmma_wait();
+      tc::fence_regs<B::kKD>(ka);
+    }
+    tc::fence_regs<kRows / 2>(sc);
+    tc::fence_regs<kRows / 2>(dp);
+    // column c of the accumulators is query row c of the tile
+    const bool edge = (causal && k0 + kBN - 1 > q0) || q0 + per > sq || per * r < kRows;
+#pragma unroll
+    for (int n = 0; n < kNQ; ++n)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int c = n * 8 + 2 * tq + e2;
+        const float dlt = sts[c], mlog = sts[kRows + c], invl = sts[2 * kRows + c];
+        int pos = q0;
+        bool ok = true;
+        if (edge) {
+          pos = q0 + c / r;
+          ok = c < per * r && pos < sq;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 4 * n + 2 * h + e2;
+          float p = ex2(fmaf(round_bf16(sc[e]), sl2, -mlog)) * invl;
+          if (edge && (!ok || (causal && kp_lo + 8 * h > pos))) p = 0.f;
+          sc[e] = p;
+          dp[e] = p * (round_bf16(dp[e]) - dlt) * scale;
+        }
+      }
+    // dV += P^T dO and dK += dS^T Q: dO and Q are the MN-major B operands
+    uint32_t ap[kNQ / 2][4], ads[kNQ / 2][4];
+#pragma unroll
+    for (int kq = 0; kq < kNQ / 2; ++kq) {
+      acc_to_a(ap[kq], sc, kq);
+      acc_to_a(ads[kq], dp, kq);
+    }
+    tc::fence_regs<D / 2>(dva);
+    tc::fence_regs<D / 2>(dka);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kq = 0; kq < kNQ / 2; ++kq)
+      tc::wgmma_bf16<D, 1>(dva, ap[kq], desc_mnmajor<D>(dos, kq * 16), 1);
+#pragma unroll
+    for (int kq = 0; kq < kNQ / 2; ++kq)
+      tc::wgmma_bf16<D, 1>(dka, ads[kq], desc_mnmajor<D>(qs, kq * 16), 1);
+    tc::wgmma_commit();
+    tc::wgmma_wait();
+    tc::fence_regs<D / 2>(dva);
+    tc::fence_regs<D / 2>(dka);
+    tc::fence_regs<kNQ / 2>(ap);
+    tc::fence_regs<kNQ / 2>(ads);
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();   // K and V tiles are free: they stage dK and dV
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int row = w0 + g, c = n * 8 + 2 * tq;
+    put2<D>(ks, row, c, dka[4 * n], dka[4 * n + 1]);
+    put2<D>(ks, row + 8, c, dka[4 * n + 2], dka[4 * n + 3]);
+    put2<D>(vs, row, c, dva[4 * n], dva[4 * n + 1]);
+    put2<D>(vs, row + 8, c, dva[4 * n + 2], dva[4 * n + 3]);
+  }
+  __syncthreads();
+  store_rows_cm<D>(dk, ks, kBN, kv_row);
+  store_rows_cm<D>(dv, vs, kBN, kv_row);
+}
+
+// stats: scratch of 3 x (b, sq, g, r) fp32 from the wrapper.
+template <int D>
+cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const void* out,
+                          const void* dout, const void* m, const void* l, void* stats,
+                          void* dq, void* dk, void* dv, int b, int sq, int skv, int G, int r,
+                          int causal, float scale, cudaStream_t stream) {
+  auto dq_kernel = flash_bwd_dq_tc_kernel<D>;
+  auto dkdv_kernel = flash_bwd_dkdv_tc_kernel<D>;
+  cudaError_t err = sct::allow_smem(dq_kernel, DqTcSmem<D>::kBytes);
+  if (err != cudaSuccess) return err;
+  err = sct::allow_smem(dkdv_kernel, DkvTcSmem<D>::kBytes);
+  if (err != cudaSuccess) return err;
+  const int per = kRows / r;
+  const int kBN = BwdTc<D>::kBNK;
+  dq_kernel<<<dim3((sq + per - 1) / per, b * G), kWgThreads, DqTcSmem<D>::kBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+      static_cast<const float*>(m), static_cast<const float*>(l), static_cast<float*>(stats),
+      static_cast<bf16*>(dq), sq, skv, G, r, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkdv_kernel<<<dim3((skv + kBN - 1) / kBN, b * G), 2 * kBN, DkvTcSmem<D>::kBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(stats),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, skv, G, r, causal, scale);
+  return cudaGetLastError();
+}
+
 bool shape_ok(int b, int sq, int skv, int G, int r, int d) {
   return b > 0 && sq > 0 && skv > 0 && G > 0 && r > 0 && r <= kRows && (d == 64 || d == 128);
 }
@@ -567,7 +1173,8 @@ extern "C" int sct_flash_attention_fwd(const void* q, const void* k, const void*
   return cudaErrorInvalidValue;
 }
 
-// delta (b, sq, g, r) fp32 is scratch from the wrapper.
+// delta: scratch from the wrapper, 3 x (b, sq, g, r) fp32 (the fp32 kernels use
+// the first (b, sq, g, r): delta; the bf16 ones all three, kernels/flash_attention.py).
 extern "C" int sct_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* out, const void* dout, const void* m,
                                        const void* l, void* delta, void* dq, void* dk,
@@ -575,12 +1182,12 @@ extern "C" int sct_flash_attention_bwd(const void* q, const void* k, const void*
                                        int causal, int dtype, float scale, void* stream) {
   if (!shape_ok(b, sq, skv, G, r, d)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == sct::kBFloat16) {
+  if (dtype == sct::kBFloat16) {   // the tensor-core kernels
     if (d == 64)
-      return launch_bwd<__nv_bfloat16, 64, 64>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b,
-                                               sq, skv, G, r, causal, scale, st);
-    return launch_bwd<__nv_bfloat16, 128, 32>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b,
-                                              sq, skv, G, r, causal, scale, st);
+      return launch_bwd_tc<64>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b, sq, skv, G, r,
+                               causal, scale, st);
+    return launch_bwd_tc<128>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b, sq, skv, G, r,
+                              causal, scale, st);
   }
   if (dtype == sct::kFloat32) {
     if (d == 64)

@@ -1,16 +1,18 @@
-// Fused spectral matmul for Hopper, shared by the two factor storages:
+// Fused spectral matmul on the CUDA cores, shared by two factor storages:
 // y = ((x @ widen(U)) * g) @ widen(V)^T.
 //
-//   * spectral_matmul.cu    — U, V in the activation dtype T, g = s;
-//   * spectral_matmul_q8.cu — U, V int8 codes, g = u_scale * s * v_scale.
+//   * spectral_matmul.cu    — fp32 x, U and V, g = s (bf16 runs on the
+//                             tensor cores: spectral_matmul_tc.cu);
+//   * spectral_matmul_q8.cu — U, V int8 codes, x fp32 or bf16,
+//                             g = u_scale * s * v_scale.
 //
-// x (M, m) and y (M, n) in one activation dtype T (fp32 or bf16), U (m, k)
-// and V (n, k) in the factor storage TF (T or int8), g (k,) fp32. Numerics
-// follow kernels/ref.py: h = x @ widen(U) accumulated in fp32, scaled by g
-// in fp32, rounded once to T; y = h_g @ widen(V)^T accumulated in fp32 and
+// x (M, m) and y (M, n) in one activation dtype T, U (m, k) and V (n, k) in
+// the factor storage TF (fp32, or int8), g (k,) fp32. Numerics follow
+// kernels/ref.py: h = x @ widen(U) accumulated in fp32, scaled by g in
+// fp32, rounded once to T; y = h_g @ widen(V)^T accumulated in fp32 and
 // rounded at the output. Widening is exact (int8 codes |q| <= 127 are exact
-// in bf16 and in fp32), so the int8 kernel is the same function as the
-// bf16 one on factors that happen to be integers.
+// in bf16 and in fp32), so the int8 kernel is the plain spectral matmul's
+// function on factors that happen to be integers.
 //
 // What bounds it: at decode M is the number of serving slots (<= 8), so the
 // work is two skinny products whose bytes are the factors (sizeof(TF) * k *
@@ -326,9 +328,8 @@ cudaError_t launch(const void* x, const void* U, const void* s, const void* V, v
   return cudaGetLastError();
 }
 
-// The factor storage for activation dtype T: T itself, or int8 codes.
-template <typename T>
-struct FloatFactors { using type = T; };
+// The factor storage for activation dtype T of the int8 kernel (the fp32
+// kernel launches its fp32 instances directly, spectral_matmul.cu).
 template <typename T>
 struct Int8Factors { using type = int8_t; };
 

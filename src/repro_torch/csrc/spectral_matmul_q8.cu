@@ -15,11 +15,11 @@
 // is one code; each code is widened in a register as it is read (exact:
 // |q| <= 127), and the three per-k scale vectors were folded by the wrapper
 // into one fp32 gain applied once to the reduced h, before the h -> y pass.
-// Everything else is the bf16 kernel's cluster design, template for
+// Everything else is the fp32 kernel's cluster design, template for
 // template (spectral_matmul.cuh): the m-reduction split over a thread-block
 // cluster, partial h summed through DSMEM in rank order, U streamed through
 // a cp.async ring. Its sums run in an order fixed by (m, k, cluster size),
-// never by M: batch invariant, as the bf16 kernel is.
+// never by M: batch invariant, as the other spectral kernels are.
 #include "spectral_matmul.cuh"
 
 // gain (k,) fp32; U (m, k) and V (n, k) int8 with k a multiple of 16;

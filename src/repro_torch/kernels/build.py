@@ -32,8 +32,9 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("common.cu", "spectral_matmul.cu", "spectral_matmul_q8.cu", "paged_decode.cu",
-           "paged_mla_decode.cu", "flash_attention.cu", "mlstm_chunk.cu", "mamba_scan.cu")
+SOURCES = ("common.cu", "spectral_matmul.cu", "spectral_matmul_tc.cu", "spectral_matmul_q8.cu",
+           "paged_decode.cu", "paged_mla_decode.cu", "flash_attention.cu", "mlstm_chunk.cu",
+           "mamba_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -122,6 +123,8 @@ def library() -> ctypes.CDLL:
             lib.sct_error_string.restype = ctypes.c_char_p
             lib.sct_spectral_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
             lib.sct_spectral_matmul.restype = i
+            lib.sct_spectral_matmul_tc.argtypes = [p] * 5 + [i] * 8 + [p]
+            lib.sct_spectral_matmul_tc.restype = i
             lib.sct_spectral_matmul_q8.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
             lib.sct_spectral_matmul_q8.restype = i
             lib.sct_paged_gqa_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,

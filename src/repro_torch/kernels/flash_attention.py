@@ -69,7 +69,9 @@ def flash_attention_bwd_cuda(q, k, v, out, m, l, dout, causal: bool = True):
         raise ValueError("flash_attention_bwd: m and l must be (b, sq, g, r) fp32")
     code = build.dtype_code(q, "flash_attention_bwd")
     build.require_cuda("flash_attention_bwd", q, k, v, out, m, l, dout)
-    delta = torch.empty_like(m)
+    # the kernels' scratch: per query row delta (and, for the bf16 kernels,
+    # m log2(e) and 1 / l, computed once for the dK/dV kernel)
+    delta = torch.empty((3, *m.shape), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

@@ -1,6 +1,9 @@
-"""Launch of the fused spectral matmul CUDA kernel
-(``csrc/spectral_matmul.cu``), which replaces the JAX package's
-``kernels/spectral_matmul.py:spectral_matmul_pallas``.
+"""Launch of the fused spectral matmul CUDA kernels, which replace the JAX
+package's ``kernels/spectral_matmul.py:spectral_matmul_pallas``: bf16
+runs on the tensor cores (``csrc/spectral_matmul_tc.cu``), fp32 on the
+CUDA cores (``csrc/spectral_matmul.cu``, the template of
+``csrc/spectral_matmul.cuh``). The dtype picks the kernel; a call that
+the picked kernel cannot take raises.
 
 The wrapper the model calls is ``kernels/ops.py:spectral_matmul``.
 """
@@ -12,25 +15,53 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_RANK = 256          # the kernel's shared-memory budget
+MAX_RANK = 256          # the kernels' shared-memory budget
 MAX_CLUSTER = 8         # portable thread-block cluster size
 ROWS_PER_SLICE = 256    # m rows a cluster block reduces, at least
+TC_COL_ALIGN = 8        # the tensor-core kernel's bn: whole 16-byte stores of y
 
 
-def launch_geometry(M: int, m: int, n: int, sms: int) -> tuple:
-    """(cluster size, output columns per block).
-
-    The cluster size depends on m alone, so a row's summation order (and
-    with it every bit of its output) never depends on M: batch invariant.
-    Column blocks are sized so the grid covers every SM about once, with
-    at least 16 columns a block."""
+def cluster_size(m: int) -> int:
+    """Blocks that share one m-reduction: a function of m alone, so a
+    row's summation order (and with it every bit of its output) never
+    depends on M: batch invariant."""
     cl = 1
     while cl < MAX_CLUSTER and cl * ROWS_PER_SLICE < m:
         cl *= 2
-    row_blocks = -(-M // (8 if M <= 8 else 32))
-    col_groups = max(1, sms // (row_blocks * cl))
-    col_groups = max(1, min(col_groups, -(-n // (cl * 16))))
-    return cl, -(-n // (col_groups * cl))
+    return cl
+
+
+def row_tile(M: int, dtype: torch.dtype) -> int:
+    """Rows of x a block takes: bf16 (tensor cores) 16 at decode, else
+    64; fp32 (and the int8 kernel, same template) 8 at decode, else 32."""
+    if dtype == torch.bfloat16:
+        return 16 if M <= 16 else 64
+    return 8 if M <= 8 else 32
+
+
+def split_over_cluster(M: int, rows: int, sms: int) -> bool:
+    """Whether the tensor-core kernel runs a row tile's m slices on the
+    blocks of a cluster (True) or all in one block (False). One block
+    computes the same sum in the same order, so the choice changes no bit;
+    it is taken once the row tiles alone fill half the SMs."""
+    return rows == 16 or -(-M // rows) < sms // 2
+
+
+def launch_geometry(M: int, m: int, n: int, sms: int, rows: int,
+                    col_align: int = 1, split: bool = True) -> tuple:
+    """(cluster size, output columns per block) for row tiles of ``rows``.
+
+    The cluster size, the number of m slices, depends on m alone. Column
+    blocks are sized so the grid covers every SM about once, with at
+    least 16 columns a block, then rounded up to ``col_align``; ``split``
+    False runs a row tile's slices in one block instead of a cluster."""
+    cl = cluster_size(m)
+    width = cl if split else 1      # blocks that share a row tile's m-reduction
+    row_blocks = -(-M // rows)
+    col_groups = max(1, sms // (row_blocks * width))
+    col_groups = max(1, min(col_groups, -(-n // (width * 16))))
+    bn = -(-n // (col_groups * width))
+    return cl, -(-bn // col_align) * col_align
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,7 +74,7 @@ def spectral_matmul_cuda(x2: torch.Tensor, U: torch.Tensor, s: torch.Tensor,
     """x2 (M, m), U (m, k) and V (n, k) in x2.dtype, s (k,) fp32, all
     contiguous on one CUDA device -> y (M, n) in x2.dtype.
 
-    The kernel reads U and V in 16-byte vectors, so it takes a rank that
+    The kernels read U and V in 16-byte vectors, so they take a rank that
     fills whole vectors (a multiple of 8 in bf16, of 4 in fp32) and
     16-byte aligned factors; anything else raises ValueError."""
     M, m = x2.shape
@@ -64,10 +95,20 @@ def spectral_matmul_cuda(x2: torch.Tensor, U: torch.Tensor, s: torch.Tensor,
         raise ValueError("spectral_matmul: U and V must be 16-byte aligned")
     build.require_cuda("spectral_matmul", x2, U, s, V)
     y = torch.empty((M, n), dtype=x2.dtype, device=x2.device)
-    cl, bn = launch_geometry(M, m, n, _sm_count(x2.device.index))
-    err = build.library().sct_spectral_matmul(
-        x2.data_ptr(), U.data_ptr(), s.data_ptr(), V.data_ptr(), y.data_ptr(),
-        M, m, n, k, code, cl, bn, build.stream_of(x2))
+    sms = _sm_count(x2.device.index)
+    rows = row_tile(M, x2.dtype)
+    lib = build.library()
+    if x2.dtype == torch.bfloat16:
+        split = split_over_cluster(M, rows, sms)
+        cl, bn = launch_geometry(M, m, n, sms, rows, TC_COL_ALIGN, split)
+        err = lib.sct_spectral_matmul_tc(
+            x2.data_ptr(), U.data_ptr(), s.data_ptr(), V.data_ptr(), y.data_ptr(),
+            M, m, n, k, rows, cl, int(split), bn, build.stream_of(x2))
+    else:
+        cl, bn = launch_geometry(M, m, n, sms, rows)
+        err = lib.sct_spectral_matmul(
+            x2.data_ptr(), U.data_ptr(), s.data_ptr(), V.data_ptr(), y.data_ptr(),
+            M, m, n, k, code, cl, bn, build.stream_of(x2))
     build.check(err, "spectral_matmul")
     build.LAUNCHES["spectral_matmul"] += 1
     return y

@@ -2,8 +2,9 @@
 (``csrc/spectral_matmul_q8.cu``), which replaces the JAX package's
 ``kernels/spectral_matmul_q8.py:65`` ``spectral_matmul_q8_pallas``.
 
-The kernel is the bf16 kernel's cluster design over int8 factors
-(``csrc/spectral_matmul.cuh``), so it takes the same launch geometry.
+The kernel is the fp32 kernel's CUDA-core cluster design over int8
+factors (``csrc/spectral_matmul.cuh``), so it takes that kernel's row
+tiles and launch geometry.
 The wrapper the model calls is ``kernels/ops.py:spectral_matmul_q8``;
 its plain version is ``kernels/ref.py:spectral_matmul_q8_ref``.
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.spectral_matmul import MAX_RANK, _sm_count, launch_geometry
+from repro_torch.kernels.spectral_matmul import MAX_RANK, _sm_count, launch_geometry, row_tile
 
 
 def spectral_matmul_q8_cuda(x2: torch.Tensor, U_q8: torch.Tensor, gain: torch.Tensor,
@@ -41,7 +42,8 @@ def spectral_matmul_q8_cuda(x2: torch.Tensor, U_q8: torch.Tensor, gain: torch.Te
         raise ValueError("spectral_matmul_q8: U and V must be 16-byte aligned")
     build.require_cuda("spectral_matmul_q8", x2, U_q8, gain, V_q8)
     y = torch.empty((M, n), dtype=x2.dtype, device=x2.device)
-    cl, bn = launch_geometry(M, m, n, _sm_count(x2.device.index))
+    cl, bn = launch_geometry(M, m, n, _sm_count(x2.device.index),
+                             row_tile(M, torch.float32))
     err = build.library().sct_spectral_matmul_q8(
         x2.data_ptr(), U_q8.data_ptr(), gain.data_ptr(), V_q8.data_ptr(), y.data_ptr(),
         M, m, n, k, code, cl, bn, build.stream_of(x2))

@@ -111,6 +111,23 @@ def assert_scaled_close(y, yr, tol: Tol, err_msg: str = "") -> None:
                                err_msg=f"{err_msg} (outputs scaled by 1/{scale:g})")
 
 
+# (M, m, n, k) of the spectral matmul's checks: ragged shapes, one row to a
+# prefill-sized batch, ranks 8-256, and the main paths' projections
+SPECTRAL_SHAPES = [
+    (1, 64, 96, 16), (7, 130, 50, 8), (37, 300, 700, 64), (64, 128, 128, 128),
+    (8, 2048, 8192, 128), (37, 8192, 2048, 128), (160, 2048, 8192, 128),
+    (3, 512, 384, 256),
+    # xlstm-1.3b's projections at decode (4 slots) and a 160-token prefill:
+    # up 2048->8192, down 4096->2048, ff_up 2048->5460, ff_down 2730->2048
+    (4, 2048, 8192, 128), (160, 4096, 2048, 128), (4, 2048, 5460, 128),
+    (160, 2730, 2048, 128),
+    # jamba-v0.1-52b's MLPs at the kernels' largest rank: up/gate
+    # 4096->14336 and down 14336->4096 at decode and a 160-token prefill
+    (4, 4096, 14336, 256), (160, 4096, 14336, 256), (4, 14336, 4096, 256),
+    (160, 14336, 4096, 256),
+    # smollm2-1.7b's MLP in training (b 2 x s 4096 rows): up, down
+    (8192, 2048, 8192, 128), (8192, 8192, 2048, 128)]
+
 SCALE_PROFILES = ("unit", "extreme", "tiny", "huge", "alternating")
 
 

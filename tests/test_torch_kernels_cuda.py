@@ -54,6 +54,7 @@ from repro_torch.kernels.testing import (  # noqa: E402
     MAMBA_PROFILES,
     MLSTM_PROFILES,
     SCALE_PROFILES,
+    SPECTRAL_SHAPES,
     assert_kernel_matches,
     make_block_table,
     mamba_inputs,
@@ -66,19 +67,7 @@ from repro_torch.kernels.testing import (  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# (M, m, n, k): ragged shapes, one row to a prefill-sized batch, ranks 8-256
-SPECTRAL = [(1, 64, 96, 16), (7, 130, 50, 8), (37, 300, 700, 64), (64, 128, 128, 128),
-            (8, 2048, 8192, 128), (37, 8192, 2048, 128), (160, 2048, 8192, 128),
-            (3, 512, 384, 256),
-            # xlstm-1.3b's projections at decode (4 slots) and a 160-token
-            # prefill: up 2048->8192, down 4096->2048, ff_up 2048->5460,
-            # ff_down 2730->2048
-            (4, 2048, 8192, 128), (160, 4096, 2048, 128), (4, 2048, 5460, 128),
-            (160, 2730, 2048, 128),
-            # jamba-v0.1-52b's MLPs at the kernel's largest rank: up/gate
-            # 4096->14336 and down 14336->4096 at decode and a 160-token prefill
-            (4, 4096, 14336, 256), (160, 4096, 14336, 256), (4, 14336, 4096, 256),
-            (160, 14336, 4096, 256)]
+SPECTRAL = SPECTRAL_SHAPES
 # (M, m, n, k) of the int8 kernel: its rank is a multiple of 16
 SPECTRAL_Q8 = [(1, 64, 96, 16), (7, 130, 50, 16), (37, 300, 700, 64), (4, 2048, 8192, 128),
                (37, 8192, 2048, 128), (256, 2048, 8192, 128), (3, 512, 384, 256)]
@@ -130,13 +119,24 @@ def test_spectral_matmul_kernel_vs_plain(cuda, shape, dtype):
     assert LAUNCHES["spectral_matmul"] == before + 1
 
 
-def test_spectral_matmul_rows_are_batch_invariant(cuda):
-    """A row's output does not depend on the other rows: the engine's
-    batched decode and the batch-1 reference agree bit for bit."""
-    x, U, s, V = _spectral(8, 2048, 8192, 128, torch.bfloat16, cuda)
-    full = spectral_matmul(x, U, s, V)
-    for i in (0, 5):
-        assert torch.equal(spectral_matmul(x[i:i + 1], U, s, V)[0], full[i])
+# row counts of the bf16 batch-invariance check: decode (row tile 16),
+# ragged and prefill-sized batches, and the training M (row tile 128 or 64)
+INVARIANT_ROWS = (4, 8, 37, 64, 160, 256, 8192)
+
+
+@pytest.mark.parametrize("mnk", [(2048, 8192, 128), (8192, 2048, 128), (2048, 8192, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_spectral_matmul_rows_are_batch_invariant(cuda, mnk):
+    """A row's output does not depend on M or on the other rows: at every
+    M, its first, a middle and its last row equal the same row alone (M =
+    1), bit for bit, across the tensor-core kernel's row tiles. The
+    engine's batched steps and the batch-1 reference agree exactly."""
+    m, n, k = mnk
+    x, U, s, V = _spectral(max(INVARIANT_ROWS), m, n, k, torch.bfloat16, cuda)
+    for M in INVARIANT_ROWS:
+        full = spectral_matmul(x[:M], U, s, V)
+        for i in sorted({0, M // 2, M - 1}):
+            assert torch.equal(spectral_matmul(x[i:i + 1], U, s, V)[0], full[i]), (M, i)
 
 
 def test_spectral_matmul_raises_on_unsupported_dtype(cuda):
@@ -434,6 +434,20 @@ def test_flash_kernels_vs_plain(cuda, case, dtype):
                               label=f"flash_attention_bwd {name}")
     assert (LAUNCHES["flash_attention_fwd"], LAUNCHES["flash_attention_bwd"]) == (
         before[0] + 3, before[1] + 3)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", [(1, 4096, 8, 4, 64), (1, 1000, 4, 4, 64)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_backward_is_deterministic(cuda, case, dtype):
+    """Two backward calls on the same inputs give the same bits: no
+    atomics, every sum in a fixed order."""
+    q, k, v, do = _flash_inputs(*case, DTYPES[dtype], cuda)
+    out, m, l = flash_fwd_ref(q, k, v)
+    first = flash_attention_bwd(q, k, v, out, m, l, do)
+    second = flash_attention_bwd(q, k, v, out, m, l, do)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_flash_kernel_refuses_other_head_dims(cuda):
