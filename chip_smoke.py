@@ -41,12 +41,13 @@ Phases (any failure exits non-zero and prints no result line):
    to an uninterrupted run;
 8. time the flash kernels and the spectral kernel at the training
    shapes (the up and the down projection) against their plain versions,
-   SDPA and the three-GEMM chain; two flash-backward calls on the same
-   inputs give the same bits;
+   SDPA and the three-GEMM chain; two flash-forward and two
+   flash-backward calls on the same inputs give the same bits;
 9. hold the int8 kernels against their plain versions: the int8
-   spectral matmul at M in {1, 4, 37, 64, 256} on both MLP shapes under
-   every scale profile of the JAX package's tests, with every row of
-   M = 37 bit-identical to the row alone; the cold-aware paged decode at
+   spectral matmul (bf16 on the tensor cores, fp32 on the CUDA cores) at
+   M in {1, 4, 37, 64, 160, 256} on both MLP shapes under every scale
+   profile of the JAX package's tests, with every row of every such M
+   bit-identical to the row alone; the cold-aware paged decode at
    p_cold in {0, 0.5, 1} (shadows uncorrelated with the pools, ragged
    lengths, shuffled tables, a null-page slot), bit-identical to the hot
    kernel with no page flagged;
@@ -70,9 +71,10 @@ Phases (any failure exits non-zero and prints no result line):
     one layer's real pools snapshotted mid-session with cold pages
     flagged give the cold kernel's plain version's output;
 12. time both int8 kernels at the decode shapes (and the int8 matmul at
-    a 64-token prefill chunk) against their plain versions and a library
-    yardstick; profile a decode-heavy stretch of each new serving cell
-    as in phase 5;
+    a 64-token prefill chunk, with its gain computed beforehand, beside
+    the bf16 kernel on the dequantized factors) against their plain
+    versions and a library yardstick; profile a decode-heavy stretch of
+    each new serving cell as in phase 5;
 13. hold the chunkwise mLSTM kernel against its plain version (cut into
     the kernel's 64-token chunks) at head widths 32 and 1024, B = batch
     x heads 1 and 4, S in {1, 37, 64, 160, 256, 300, 1000}, two gate
@@ -182,8 +184,10 @@ SPIN_CYCLES = 1 << 21   # ~1 ms at the H100's 1.98 GHz: longer than queueing one
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm2-1.7b", 2, 4096, 8
 ORTHO_LIMIT = 1e-4
 # flash kernel checks: (b, s, g, r, d) at the training shape, a grouped
-# layout at the same length, and a ragged length
-FLASH_CHECKS = [(2, 4096, 32, 1, 64), (1, 4096, 8, 4, 64), (1, 1000, 4, 4, 64)]
+# layout at the same length, a ragged length, and the largest group (64
+# query heads a kv head: one position a query tile)
+FLASH_CHECKS = [(2, 4096, 32, 1, 64), (1, 4096, 8, 4, 64), (1, 1000, 4, 4, 64),
+                (1, 200, 1, 64, 64)]
 
 # the full-width trace: (prompt_len, max_new_tokens), four per arrival wave
 TRACE = [(32, 16), (160, 32), (75, 24), (118, 20), (47, 28), (140, 18), (96, 32), (60, 24)]
@@ -191,7 +195,7 @@ SLOTS, PAGE, NUM_PAGES, PAGES_PER_SEQ, ARRIVE_EVERY = 4, 16, 96, 16, 4
 REPLAYS = (0, 1)
 
 # int8 kernel checks: batch sizes and the JAX package's scale profiles
-Q8_ROWS = (1, 4, 37, 64, 256)
+Q8_ROWS = (1, 4, 37, 64, 160, 256)
 Q8_PREFILL_M = 64
 # bf16 spectral batch invariance: rows of these M against the row alone,
 # across the tensor-core kernel's row tiles (16 at decode, 64 above) and
@@ -811,6 +815,11 @@ def phase_train_timing(torch, cfg, launches, errs):
     r = h // g
     q, k, v, do = flash_inputs(torch, b, s, g, r, d, dt, gen)
     out, m, l = flash_attention_fwd(q, k, v)
+    # deterministic: every sum in a fixed order
+    for name, a, c in zip(("out", "m", "l"), (out, m, l), flash_attention_fwd(q, k, v)):
+        if not torch.equal(a, c):
+            raise AssertionError(f"flash_attention_fwd {name}: two calls on the same inputs "
+                                 "differ")
     ref = flash_fwd_ref(q, k, v)
     fwd = {"ms": time_cold(torch, lambda: flash_attention_fwd(q, k, v)),
            "plain_ms": time_cold(torch, lambda: flash_fwd_ref(q, k, v))}
@@ -825,7 +834,8 @@ def phase_train_timing(torch, cfg, launches, errs):
         if not torch.equal(a, c):
             raise AssertionError(f"flash_attention_bwd {name}: two calls on the same inputs "
                                  "differ")
-    print("[kernels] flash_attention_bwd at the training shape: two calls give the same bits")
+    print("[kernels] flash_attention_fwd and flash_attention_bwd at the training shape: two "
+          "calls give the same bits")
     del ref, first
 
     # library yardstick: SDPA in its (b, h, s, d) layout, causal; the
@@ -939,12 +949,13 @@ def phase_int8_kernels(torch, cfg):
                     note(errs, "spectral_matmul_q8", compare_kernel(
                         spectral_matmul_q8, q8_plain, args,
                         label=f"spectral_matmul_q8 {M}x{m}->{n} {profile} {dtype}"))
-            x, U, sv, V = q8_inputs(torch, 37, m, n, k, "extreme", dtype, gen)
-            full = spectral_matmul_q8(x, U, sv, V)
-            for i in range(37):
-                if not torch.equal(spectral_matmul_q8(x[i:i + 1], U, sv, V)[0], full[i]):
-                    raise AssertionError(f"spectral_matmul_q8 {m}->{n} {dtype}: row {i} of "
-                                         "M=37 differs from the row alone")
+            x, U, sv, V = q8_inputs(torch, max(Q8_ROWS), m, n, k, "extreme", dtype, gen)
+            for M in Q8_ROWS:
+                full = spectral_matmul_q8(x[:M], U, sv, V)
+                for i in range(M):
+                    if not torch.equal(spectral_matmul_q8(x[i:i + 1], U, sv, V)[0], full[i]):
+                        raise AssertionError(f"spectral_matmul_q8 {m}->{n} {dtype}: row {i} "
+                                             f"of M={M} differs from the row alone")
         n_pages = 12
         lens = ragged_seq_lens(8, PAGE * n_pages - 1, PAGE, seed=SEED).tolist()
         for p_cold in (0.0, 0.5, 1.0):
@@ -964,9 +975,9 @@ def phase_int8_kernels(torch, cfg):
                                          "flagged it differs from paged_gqa_decode")
         print(f"[kernels] {dtype}: spectral_matmul_q8 (M in {list(Q8_ROWS)}, both MLP "
               f"shapes, scale profiles {list(SCALE_PROFILES)}) matches and is batch "
-              f"invariant (M=37 rows == M=1); paged_gqa_decode_cold (p_cold 0/0.5/1, "
-              f"ragged lens {lens}, null slot) matches, bit-identical to paged_gqa_decode "
-              f"with no page flagged")
+              f"invariant (every row == the row alone); paged_gqa_decode_cold (p_cold "
+              f"0/0.5/1, ragged lens {lens}, null slot) matches, bit-identical to "
+              f"paged_gqa_decode with no page flagged")
     torch.cuda.synchronize()
     return errs
 
@@ -1224,10 +1235,15 @@ def phase_streaming(torch, cfg, device, masters):
 
 def phase_int8_timing(torch, cfg, q8_launches, cold_launches, errs):
     """Int8 kernel, plain and library times at the decode shapes (and the
-    int8 matmul at a 64-token prefill chunk), in device time only."""
+    int8 matmul at a 64-token prefill chunk), in device time only. The
+    int8 matmul is timed with its gain computed beforehand (``ms``; the
+    op the model calls also multiplies the three scale vectors: ``op_ms``),
+    beside the bf16 kernel on the dequantized factors (``bf16_kernel_ms``)."""
     import torch.nn.functional as F
     from repro_torch.core.spectral import spectral_apply
-    from repro_torch.kernels.ops import spectral_matmul_q8
+    from repro_torch.kernels.ops import spectral_matmul, spectral_matmul_q8
+    from repro_torch.kernels.ref import spectral_matmul_q8_ref
+    from repro_torch.kernels.spectral_matmul_q8 import spectral_matmul_q8_cuda
     from repro_torch.kernels.paged_decode import paged_gqa_decode_cold
     from repro_torch.kernels.paged_ref import paged_gqa_decode_cold_ref
     from repro_torch.serving.paged_cache import paged_gather
@@ -1239,16 +1255,22 @@ def phase_int8_timing(torch, cfg, q8_launches, cold_launches, errs):
     entries = []
     for M, what in ((SLOTS, "one decode layer's MLP"),
                     (Q8_PREFILL_M, "one 64-token prefill chunk's MLP")):
-        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0,
-             "err": 0.0}
+        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bf16_kernel_ms": 0.0,
+             "op_ms": 0.0, "bytes": 0, "flops": 0, "err": 0.0}
         for m, n in ((d, f), (d, f), (f, d)):
             x, U, s, V = q8_inputs(torch, M, m, n, k, "unit", dt, gen)
-            t["ms"] += time_cold(torch, lambda: spectral_matmul_q8(x, U, s, V))
-            t["plain_ms"] += time_cold(torch, lambda: q8_plain(x, U, s, V))
+            gain = U["scale"] * s * V["scale"]
+            t["ms"] += time_cold(torch, lambda: spectral_matmul_q8_cuda(x, U["q8"], gain,
+                                                                         V["q8"]))
+            t["op_ms"] += time_cold(torch, lambda: spectral_matmul_q8(x, U, s, V))
+            t["plain_ms"] += time_cold(
+                torch, lambda: spectral_matmul_q8_ref(x, U["q8"], gain, V["q8"]))
             # library yardstick: the three-GEMM chain over pre-dequantized
-            # bf16 factors (dequantization not timed)
+            # bf16 factors (dequantization not timed); the bf16 kernel on them
             fac = {"U": dequantize_int8(U, dt), "s": s, "V": dequantize_int8(V, dt)}
             t["library_ms"] += time_cold(torch, lambda: spectral_apply(fac, x))
+            t["bf16_kernel_ms"] += time_cold(
+                torch, lambda: spectral_matmul(x, fac["U"], s, fac["V"]))
             t["bytes"] += 2 * (M * m + M * n) + (m + n) * k + 3 * 4 * k
             t["flops"] += 2 * M * k * (m + n)
             add_err(t, spectral_matmul_q8(x, U, s, V), q8_plain(x, U, s, V))
@@ -1286,14 +1308,16 @@ def phase_int8_timing(torch, cfg, q8_launches, cold_launches, errs):
     add_err(cd, paged_gqa_decode_cold(*args), paged_gqa_decode_cold_ref(*args))
 
     (m1, what1, t1), (m2, what2, t2) = entries
-    q8 = kernel_entry("spectral_matmul_q8", "src/repro_torch/csrc/spectral_matmul_q8.cu",
+    q8 = kernel_entry("spectral_matmul_q8", "src/repro_torch/csrc/spectral_matmul_tc.cu",
                       "src/repro/kernels/spectral_matmul_q8.py:65", t1, "bfloat16",
                       f"{what1}: 2x({m1},{d})->{f} + ({m1},{f})->{d}, rank {k}, int8 "
-                      f"factors, bf16 activations; library: three-GEMM chain over "
-                      f"pre-dequantized bf16 factors", q8_launches, errs)
+                      f"factors, bf16 activations, gain computed beforehand; library: "
+                      f"three-GEMM chain over pre-dequantized bf16 factors", q8_launches, errs)
+    q8["bf16_kernel_ms"], q8["op_ms"] = t1["bf16_kernel_ms"], t1["op_ms"]
     q8["at_prefill_chunk"] = {
         "shape": f"{what2}: 2x({m2},{d})->{f} + ({m2},{f})->{d}",
         "ms": t2["ms"], "plain_ms": t2["plain_ms"], "library_ms": t2["library_ms"],
+        "bf16_kernel_ms": t2["bf16_kernel_ms"], "op_ms": t2["op_ms"],
         "max_abs_err": t2["err"], "max_scaled_err": t2["scaled"],
         **bound_of(t2, "bfloat16")}
     entries = [q8, kernel_entry(
@@ -2371,9 +2395,11 @@ def main() -> int:
                   launches=kernels_int8[0]["launches"])]
     for kern in kernels + extra:
         lib = "none" if kern["library_ms"] is None else f"{kern['library_ms']:.4f} ms"
+        beside = "".join(f", {key} {kern[key]:.4f}" for key in ("bf16_kernel_ms", "op_ms")
+                         if key in kern)
         print(f"[timing] {kern['name']}: {kern['ms']:.4f} ms kernel, "
               f"{kern['plain_ms']:.4f} ms plain, library {lib}, "
-              f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}), "
+              f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}){beside}, "
               f"{kern['launches']} launches on the main path ({kern['shape']})")
     print(f"[total] {time.time() - t_start:.1f} s: "
           + ", ".join(f"{name} {sec:.1f} s" for name, sec in clock.items()))

@@ -17,23 +17,47 @@
 //
 // What bounds it: operations. At the training shape (b 2, s 4096, 32 heads,
 // d 64) the forward does 2 * 2 * b * h * s^2 * d / 2 = 137 GFLOP against
-// 128 MB of q/k/v/out, ~1000 flops per byte; the backward 2.5 times the
-// forward's flops.
+// 128 MB of q/k/v/out, ~1000 flops per byte (0.139 ms at 989 TFLOP/s); the
+// backward 2.5 times the forward's flops. Beside the products, the forward
+// takes one exp per score: 537 M at that shape, 0.2 ms on the SFU pipe that
+// also converts p to bf16.
 //
-// Design. A block of 128 threads owns a tile of 64 query rows, where a row
-// is one (position, head of the group) pair: 64 / r positions times the r
-// heads that share a kv head, so every staged K/V tile serves the whole
-// group (the TPU kernel folds heads into its grid instead and reads K/V
-// once per head). The TPU kernel carries its online-softmax state across a
-// sequential grid axis in VMEM; here a loop inside the block walks the kv
-// tiles and the state lives in shared memory. Causal tiles past the
-// block's last position are skipped: they would add exactly zero. Each tile
-// product runs from shared memory: mma.sync m16n8k16 on the tensor cores
-// for bf16 (fp32 accumulate), plain fp32 FMAs for fp32, so the fp32
-// kernel computes the same sums as the plain version in another order.
-// The backward is two kernels and needs no atomics: one block per query
-// tile computes delta and dQ, then one block per kv tile walks the query
-// tiles at or after it and sums dK and dV over the group's r heads.
+// Layout. A tile row is one (position, head of the group) pair: a 64-row
+// query tile holds 64 / r positions times the r heads that share a kv head,
+// so every staged K/V tile serves the whole group (the TPU kernel folds
+// heads into its grid instead and reads K/V once per head). The TPU kernel
+// carries its online-softmax state across a sequential grid axis in VMEM;
+// here a loop inside the block walks the kv tiles. Causal tiles past the
+// block's last position are skipped: they would add exactly zero.
+//
+// The fp32 kernels (flash_fwd_kernel, flash_bwd_dq_kernel,
+// flash_bwd_dkdv_kernel; TF32 would miss the fp32 rung) keep that state in
+// shared memory and run each tile product there with plain FMAs, the same
+// sums as the plain version in another order. The backward is two kernels
+// and needs no atomics: one block per query tile computes delta and dQ,
+// then one block per kv tile walks the query tiles at or after it and sums
+// dK and dV over the group's r heads.
+//
+// The bf16 forward (flash_fwd_tc_kernel): what the design does about the
+// operations. Both products run on Hopper's warpgroup MMA (wgmma): each
+// warpgroup owns one 64-row query tile and computes S = Q K^T into fp32
+// registers (K read from shared memory as the K-major B operand), runs the
+// online softmax on the accumulators (a row's max and sum by two quad
+// shuffles, p = exp2 of the score with scale and log2(e) folded into one
+// FMA), packs p to bf16 as the A operand of O += P V (V the MN-major B
+// operand) and keeps O, m and l in registers across the kv loop. Four
+// warpgroups at head dim 64 (one at 128, registers) share each K/V tile,
+// which a cp.async ring copies two tiles ahead of the one computed; the
+// tile groups with the most kv tiles launch first. What still holds it
+// (0.80 ms at the training shape, H100 80GB HBM3 at 700 W, PERF.md): the
+// loop is bound by issue and latency, not by the tensor cores. Each tile
+// is a chain (barrier, S, its wait, the softmax's ~300 instructions a
+// thread, P V, its wait) that the 16 warps of an SM overlap only in part;
+// with S, P V and the copies all taken out, the loop still costs 0.33 ms.
+// Overlapping the softmax with the products needs warp-specialised
+// producer and consumer warpgroups (FlashAttention-3's ping-pong):
+// software-pipelining P V behind the next tile's S inside one warpgroup
+// took the registers of a second block an SM and measured slower.
 //
 // The bf16 backward (flash_bwd_dq_tc_kernel, flash_bwd_dkdv_tc_kernel) is
 // bound by operations too: 343 GFLOP at the training shape, 0.35 ms at 989
@@ -82,81 +106,11 @@ __host__ __device__ constexpr int ld_of(int cols) {
 }
 __host__ __device__ constexpr int ldf_of(int cols) { return cols + 4; }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // C[M x N] (fp32, shared, row stride ldc) = (acc ? C : 0) + sum_k A(m,k) B(k,n)
-// with A(m,k) = A[m*am + k*ak] and B(k,n) = B[k*bk + n*bn] in shared memory.
-// bf16: the 4 warps take 16-row strips of C (and, for N > 64, 64-column
-// groups) and run mma.sync on fragments gathered with the given strides.
-template <int M, int N, int K>
-__device__ __forceinline__ void tile_gemm(float* C, int ldc, const __nv_bfloat16* A, int am,
-                                          int ak, const __nv_bfloat16* B, int bk, int bn,
-                                          bool acc) {
-  static_assert(M % 16 == 0 && N % 8 == 0 && K % 16 == 0, "mma tile shape");
-  constexpr int kNT = N / 8;
-  constexpr int kPerUnit = kNT < 8 ? kNT : 8;
-  constexpr int kGroups = kNT / kPerUnit;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane >> 2, tq = lane & 3;
-  for (int u = warp; u < (M / 16) * kGroups; u += kWarps) {
-    const int r0 = (u / kGroups) * 16;
-    const int n0 = (u % kGroups) * kPerUnit * 8;
-    float c[kPerUnit][4];
-#pragma unroll
-    for (int j = 0; j < kPerUnit; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-    const __nv_bfloat16* a_lo = A + (r0 + gq) * am;
-    const __nv_bfloat16* a_hi = a_lo + 8 * am;
-#pragma unroll 2
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      const int ka = k0 + 2 * tq;
-      uint32_t a[4];
-      a[0] = pack_bf16(a_lo[ka * ak], a_lo[(ka + 1) * ak]);
-      a[1] = pack_bf16(a_hi[ka * ak], a_hi[(ka + 1) * ak]);
-      a[2] = pack_bf16(a_lo[(ka + 8) * ak], a_lo[(ka + 9) * ak]);
-      a[3] = pack_bf16(a_hi[(ka + 8) * ak], a_hi[(ka + 9) * ak]);
-#pragma unroll
-      for (int j = 0; j < kPerUnit; ++j) {
-        const __nv_bfloat16* bcol = B + (n0 + j * 8 + gq) * bn;
-        uint32_t b[2];
-        b[0] = pack_bf16(bcol[ka * bk], bcol[(ka + 1) * bk]);
-        b[1] = pack_bf16(bcol[(ka + 8) * bk], bcol[(ka + 9) * bk]);
-        mma_bf16(c[j], a, b);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPerUnit; ++j) {
-      float* c_lo = C + (r0 + gq) * ldc + n0 + j * 8 + 2 * tq;
-      float* c_hi = c_lo + 8 * ldc;
-      if (acc) {
-        c_lo[0] += c[j][0];
-        c_lo[1] += c[j][1];
-        c_hi[0] += c[j][2];
-        c_hi[1] += c[j][3];
-      } else {
-        c_lo[0] = c[j][0];
-        c_lo[1] = c[j][1];
-        c_hi[0] = c[j][2];
-        c_hi[1] = c[j][3];
-      }
-    }
-  }
-}
-
-// fp32: each thread owns a (M/16) x (N/8) micro-tile, rows tr + 16 i and
-// columns tc + 8 j, and sums over k in order with FMAs.
+// with A(m,k) = A[m*am + k*ak] and B(k,n) = B[k*bk + n*bn] in shared memory
+// (the fp32 kernels; bf16 runs on the wgmma kernels below): each thread owns
+// a (M/16) x (N/8) micro-tile, rows tr + 16 i and columns tc + 8 j, and sums
+// over k in order with FMAs.
 template <int M, int N, int K>
 __device__ __forceinline__ void tile_gemm(float* C, int ldc, const float* A, int am, int ak,
                                           const float* B, int bk, int bn, bool acc) {
@@ -585,7 +539,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWgThreads = 128;
 constexpr int kDqAhead = 2, kDkvAhead = 3;
 template <int D>
-struct BwdTc {
+struct TcTile {
   static constexpr int kBN = 64;                    // kv rows per dQ kv tile
   static constexpr int kBNK = D == 64 ? 128 : 64;   // kv rows per dK/dV block
   static constexpr int kKD = D / 16;                // k16 steps over d
@@ -693,11 +647,11 @@ __device__ __forceinline__ void lda_cm(uint32_t* a, const unsigned char* tile, i
 // row n0 at k-step kk; or rows as K and d as N (MN-major), from row k0.
 template <int D>
 __device__ __forceinline__ uint64_t desc_kmajor(const unsigned char* tile, int n0, int kk) {
-  return tc::wgmma_desc(tile + (n0 >> 3) * BwdTc<D>::kKLead + kk * 256, 128, BwdTc<D>::kKLead);
+  return tc::wgmma_desc(tile + (n0 >> 3) * TcTile<D>::kKLead + kk * 256, 128, TcTile<D>::kKLead);
 }
 template <int D>
 __device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* tile, int k0) {
-  return tc::wgmma_desc(tile + (k0 >> 3) * BwdTc<D>::kKLead, BwdTc<D>::kKLead, 128);
+  return tc::wgmma_desc(tile + (k0 >> 3) * TcTile<D>::kKLead, TcTile<D>::kKLead, 128);
 }
 
 // The A fragment of k-step kq from the accumulator's n8 tiles 2 kq, 2 kq + 1.
@@ -712,9 +666,244 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ---- the bf16 forward ----
+//
+// kWG warpgroups a block, each owning one 64-row query tile (the block's
+// tiles are consecutive, so the positions run on); every K/V tile staged in
+// shared memory serves all of them. Per kv tile a warpgroup computes
+// S = Q K^T into registers (K the K-major B operand), runs the online
+// softmax on the accumulators (thread (g, t) of warp w holds rows
+// 16 w + g and + 8, so a row's max and sum take two quad shuffles), packs
+// p to bf16 as the A operand and adds P V into O (V the MN-major B
+// operand); O, m and l stay in registers across the kv loop.
+constexpr int kFwdAhead = 2;   // K/V tiles in flight ahead of the one computed
+template <int D, int kWG>
+struct FwdTc {
+  static constexpr int kBN = 64;                                // kv rows a tile
+  static constexpr int kThreads = kWG * kWgThreads;
+  static constexpr size_t kKV = (size_t)kBN * D * 2;            // one K or V tile
+  static constexpr size_t kBytes = kWG * (size_t)TcTile<D>::kTile + (kFwdAhead + 1) * 2 * kKV;
+  // registers: O (D / 2 a thread), S (kBN / 2) and the A fragments
+  static constexpr int kMinBlocks = D == 64 ? 4 / kWG : 2 / kWG;
+  static_assert(kBN * (D / 8) % kThreads == 0, "whole K/V chunks a thread");
+};
+
+// out, m and l for kWG consecutive 64-row query tiles of one (batch, kv
+// head). Blocks are numbered heaviest first: block i takes the (b, g) pair
+// i % (b G) of tile group n - 1 - i / (b G), so the groups with the most kv
+// tiles start first and the light ones fill the tail.
+template <int D, int kWG>
+__global__ void __launch_bounds__(FwdTc<D, kWG>::kThreads, FwdTc<D, kWG>::kMinBlocks)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out,
+                    float* __restrict__ m_out, float* __restrict__ l_out, int sq, int skv,
+                    int G, int r, int causal, float scale, int n_pairs, int n_groups) {
+  using B = TcTile<D>;
+  using F = FwdTc<D, kWG>;
+  constexpr int kBN = F::kBN, kNS = kBN / 8, kRing = kFwdAhead + 1;
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  unsigned char* ring = smem_tc + kWG * B::kTile;   // kRing x (K tile, V tile)
+
+  const int pair = static_cast<int>(blockIdx.x % n_pairs);
+  const int group = n_groups - 1 - static_cast<int>(blockIdx.x / n_pairs);
+  const int per = kRows / r;
+  const int tid = threadIdx.x, wg = tid / kWgThreads, wtid = tid % kWgThreads;
+  const int warp = wtid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const QTile t{pair / G, pair % G, (group * kWG + wg) * per, per, r, sq, G};
+  unsigned char* qs = smem_tc + wg * B::kTile;   // this warpgroup's query tile
+
+  for (int i = wtid; i < kRows * (D / 8); i += kWgThreads) {
+    int row, c8;
+    cm_chunk<D>(i, row, c8);
+    const bool ok = t.valid(row);
+    tc::cp_async16(qs + cm_off<D>(row, c8), ok ? q + t.stat(row) * D + c8 * 8 : q, ok);
+  }
+  tc::cp_async_commit();
+  // the block walks the kv tiles its last query row sees; a warpgroup
+  // computes those its own rows see
+  auto kv_extent = [&](int first_pos, int n_pos) {
+    if (first_pos >= sq) return 0;
+    const int end = causal ? min(skv, min(sq - 1, first_pos + n_pos - 1) + 1) : skv;
+    return (end + kBN - 1) / kBN;
+  };
+  const int ntiles = kv_extent(group * kWG * per, kWG * per);
+  const int my_tiles = kv_extent(t.q0, per);
+  auto issue_kv = [&](int j) {
+    unsigned char* ks = ring + (j % kRing) * 2 * F::kKV;
+    const long long base = (static_cast<long long>(t.bi) * skv + j * kBN) * G + t.gi;
+#pragma unroll
+    for (int u = 0; u < kBN * (D / 8) / F::kThreads; ++u) {
+      int row, c8;
+      cm_chunk<D>(tid + u * F::kThreads, row, c8);
+      const bool ok = j * kBN + row < skv;
+      const long long off = (base + static_cast<long long>(row) * G) * D + c8 * 8;
+      tc::cp_async16(ks + cm_off<D>(row, c8), ok ? k + off : k, ok);
+      tc::cp_async16(ks + F::kKV + cm_off<D>(row, c8), ok ? v + off : v, ok);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kFwdAhead; ++j) {
+    if (j < ntiles) issue_kv(j);
+    tc::cp_async_commit();
+  }
+
+  // this thread's two fragment rows (16 warp + g, + 8): running max of the
+  // rounded scores (unscaled), running sum, position (-1: no such row)
+  float mraw[2], lsum[2];
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = warp * 16 + g + 8 * h;
+    mraw[h] = kNegInf;
+    lsum[h] = 0.f;
+    qpos[h] = t.valid(row) ? t.pos(row) : -1;
+  }
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int j = 0; j < ntiles; ++j) {
+    tc::cp_async_wait<kFwdAhead - 1>();   // tile j (and Q) have landed
+    fence_async_smem();                   // for the tensor cores' reads
+    __syncthreads();                      // and every warp is done with tile j - 1
+    if (j + kFwdAhead < ntiles) issue_kv(j + kFwdAhead);   // into tile j - 1's buffer
+    tc::cp_async_commit();
+    if (j >= my_tiles) continue;          // past this warpgroup's last row
+    const unsigned char* ks = ring + (j % kRing) * 2 * F::kKV;
+    const unsigned char* vs = ks + F::kKV;
+    // S = Q K^T. Q's fragments are loaded for each tile and fenced after
+    // the wait (fragments held in registers across tiles did not survive
+    // the backward's loop).
+    uint32_t qa[B::kKD][4];
+#pragma unroll
+    for (int kk = 0; kk < B::kKD; ++kk) lda_cm<D>(qa[kk], qs, warp * 16, kk * 16);
+    float sc[kBN / 2];
+    tc::fence_regs<kBN / 2>(sc);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < B::kKD; ++kk)
+      tc::wgmma_bf16<kBN, 0>(sc, qa[kk], desc_kmajor<D>(ks, 0, kk), kk > 0);
+    tc::wgmma_commit();
+    tc::wgmma_wait();
+    tc::fence_regs<kBN / 2>(sc);
+    tc::fence_regs<B::kKD>(qa);
+    // online softmax: s = round(S) (its scale folded into the exponent),
+    // masked to -1e30 where the tile crosses the diagonal or skv; a
+    // masked p is ex2 of about -1e29, zero, once a row has seen key 0
+    const int kbase = j * kBN;
+    const bool edge = kbase + kBN > skv || (causal && kbase + kBN - 1 > t.q0);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < kNS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float s = round_bf16(sc[4 * n + e]);
+        if (edge) {
+          const int kp = kbase + n * 8 + 2 * tq + (e & 1);
+          if (kp >= skv || (causal && kp > qpos[h])) s = kNegInf;
+        }
+        sc[4 * n + e] = s;
+        mx[h] = fmaxf(mx[h], s);
+      }
+    float alpha[2], nm[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(mraw[h], mx[h]);
+      alpha[h] = ex2((mraw[h] - m_new) * sl2);
+      mraw[h] = m_new;
+      nm[h] = -m_new * sl2;
+    }
+#pragma unroll
+    for (int n = 0; n < kNS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(sc[4 * n + e], sl2, nm[e >> 1]));
+        sc[4 * n + e] = p;
+        ps[e >> 1] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
+      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
+      lsum[h] = lsum[h] * alpha[h] + ps[h];
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[4 * n] *= alpha[0];
+      o[4 * n + 1] *= alpha[0];
+      o[4 * n + 2] *= alpha[1];
+      o[4 * n + 3] *= alpha[1];
+    }
+    // O += P V: p rounded to bf16 is the A operand, V the MN-major B operand
+    uint32_t ap[kNS / 2][4];
+#pragma unroll
+    for (int kq = 0; kq < kNS / 2; ++kq) acc_to_a(ap[kq], sc, kq);
+    tc::fence_regs<D / 2>(o);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kq = 0; kq < kNS / 2; ++kq)
+      tc::wgmma_bf16<D, 1>(o, ap[kq], desc_mnmajor<D>(vs, kq * 16), 1);
+    tc::wgmma_commit();
+    tc::wgmma_wait();
+    tc::fence_regs<D / 2>(o);
+    tc::fence_regs<kNS / 2>(ap);
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();   // every warp is done with Q: its tile stages out
+  const float l_lo = fmaxf(lsum[0], 1e-30f), l_hi = fmaxf(lsum[1], 1e-30f);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int row = warp * 16 + g, c = n * 8 + 2 * tq;
+    put2<D>(qs, row, c, o[4 * n] / l_lo, o[4 * n + 1] / l_lo);
+    put2<D>(qs, row + 8, c, o[4 * n + 2] / l_hi, o[4 * n + 3] / l_hi);
+  }
+  if (tq == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = warp * 16 + g + 8 * h;
+      if (t.valid(row)) {
+        m_out[t.stat(row)] = mraw[h] * scale;
+        l_out[t.stat(row)] = lsum[h];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = wtid; i < kRows * (D / 8); i += kWgThreads) {
+    int row, c8;
+    cm_chunk<D>(i, row, c8);
+    if (t.valid(row))
+      *reinterpret_cast<uint4*>(out + t.stat(row) * D + c8 * 8) =
+          *reinterpret_cast<const uint4*>(qs + cm_off<D>(row, c8));
+  }
+}
+
+template <int D, int kWG>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* out, void* m,
+                          void* l, int b, int sq, int skv, int G, int r, int causal,
+                          float scale, cudaStream_t stream) {
+  using F = FwdTc<D, kWG>;
+  auto kernel = flash_fwd_tc_kernel<D, kWG>;
+  cudaError_t err = sct::allow_smem(kernel, F::kBytes);
+  if (err != cudaSuccess) return err;
+  const int per = kRows / r;
+  const int n_groups = ((sq + per - 1) / per + kWG - 1) / kWG;
+  const long long blocks = static_cast<long long>(n_groups) * b * G;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), F::kThreads, F::kBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), static_cast<float*>(m), static_cast<float*>(l), sq, skv, G, r,
+      causal, scale, b * G, n_groups);
+  return cudaGetLastError();
+}
+
 template <int D>
 struct DqTcSmem {
-  using B = BwdTc<D>;
+  using B = TcTile<D>;
   static constexpr size_t kKV = (size_t)B::kBN * D * 2;   // one K or V tile
   static constexpr size_t kBytes =
       2 * (size_t)B::kTile + (kDqAhead + 1) * 2 * kKV + sizeof(float) * kRows;
@@ -732,7 +921,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const float* __restrict__ l_in, float* __restrict__ stats,
                        bf16* __restrict__ dq, int sq, int skv, int G, int r, int causal,
                        float scale) {
-  using B = BwdTc<D>;
+  using B = TcTile<D>;
   using S = DqTcSmem<D>;
   constexpr int kBN = B::kBN, kNS = kBN / 8;
   extern __shared__ __align__(128) unsigned char smem_tc[];
@@ -904,7 +1093,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 struct DkvTcSmem {
-  using B = BwdTc<D>;
+  using B = TcTile<D>;
   static constexpr size_t kKV = (size_t)B::kBNK * D * 2;                 // K or V tile
   static constexpr size_t kStage = 2 * (size_t)B::kTile + sizeof(float) * 3 * kRows;
   static constexpr size_t kBytes = 2 * kKV + (kDkvAhead + 1) * kStage;
@@ -917,13 +1106,13 @@ struct DkvTcSmem {
 // P^T and dS^T come out of the accumulators as the A operands of
 // dV += P^T dO and dK += dS^T Q.
 template <int D>
-__global__ void __launch_bounds__(2 * BwdTc<D>::kBNK, 1)
+__global__ void __launch_bounds__(2 * TcTile<D>::kBNK, 1)
 flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
                          const float* __restrict__ stats, bf16* __restrict__ dk,
                          bf16* __restrict__ dv, int sq, int skv, int G, int r, int causal,
                          float scale) {
-  using B = BwdTc<D>;
+  using B = TcTile<D>;
   using S = DkvTcSmem<D>;
   constexpr int kBN = B::kBNK, kNQ = kRows / 8, kRing = kDkvAhead + 1;
   constexpr bool kOneBatch = D == 64;   // K and V fragments in registers together
@@ -1128,7 +1317,7 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const voi
   err = sct::allow_smem(dkdv_kernel, DkvTcSmem<D>::kBytes);
   if (err != cudaSuccess) return err;
   const int per = kRows / r;
-  const int kBN = BwdTc<D>::kBNK;
+  const int kBN = TcTile<D>::kBNK;
   dq_kernel<<<dim3((sq + per - 1) / per, b * G), kWgThreads, DqTcSmem<D>::kBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
@@ -1149,19 +1338,18 @@ bool shape_ok(int b, int sq, int skv, int G, int r, int d) {
 
 }  // namespace
 
-// Head dim 64 runs 64-row kv tiles, 128 runs 32-row kv tiles (shared memory).
+// fp32: head dim 64 runs 64-row kv tiles, 128 runs 32-row kv tiles (shared
+// memory); bf16: four 64-row query tiles a block at head dim 64, one at 128.
 extern "C" int sct_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                        void* m, void* l, int b, int sq, int skv, int G, int r,
                                        int d, int causal, int dtype, float scale,
                                        void* stream) {
   if (!shape_ok(b, sq, skv, G, r, d)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == sct::kBFloat16) {
+  if (dtype == sct::kBFloat16) {   // the tensor-core kernel
     if (d == 64)
-      return launch_fwd<__nv_bfloat16, 64, 64>(q, k, v, out, m, l, b, sq, skv, G, r, causal,
-                                               scale, st);
-    return launch_fwd<__nv_bfloat16, 128, 32>(q, k, v, out, m, l, b, sq, skv, G, r, causal,
-                                              scale, st);
+      return launch_fwd_tc<64, 4>(q, k, v, out, m, l, b, sq, skv, G, r, causal, scale, st);
+    return launch_fwd_tc<128, 1>(q, k, v, out, m, l, b, sq, skv, G, r, causal, scale, st);
   }
   if (dtype == sct::kFloat32) {
     if (d == 64)

@@ -1,13 +1,14 @@
-// Fused spectral matmul on the CUDA cores, shared by two factor storages:
-// y = ((x @ widen(U)) * g) @ widen(V)^T.
+// Fused spectral matmul on the CUDA cores, fp32 activations, shared by two
+// factor storages: y = ((x @ widen(U)) * g) @ widen(V)^T.
 //
-//   * spectral_matmul.cu    — fp32 x, U and V, g = s (bf16 runs on the
-//                             tensor cores: spectral_matmul_tc.cu);
-//   * spectral_matmul_q8.cu — U, V int8 codes, x fp32 or bf16,
-//                             g = u_scale * s * v_scale.
+//   * spectral_matmul.cu    — fp32 U and V, g = s;
+//   * spectral_matmul_q8.cu — U, V int8 codes, g = u_scale * s * v_scale.
 //
-// x (M, m) and y (M, n) in one activation dtype T, U (m, k) and V (n, k) in
-// the factor storage TF (fp32, or int8), g (k,) fp32. Numerics follow
+// bf16 activations run on the tensor cores instead, both storages
+// (spectral_matmul_tc.cu): a TF32 product would miss the fp32 rung.
+//
+// x (M, m) and y (M, n) in the activation dtype T (fp32), U (m, k) and V
+// (n, k) in the factor storage TF (fp32, or int8), g (k,) fp32. Numerics follow
 // kernels/ref.py: h = x @ widen(U) accumulated in fp32, scaled by g in
 // fp32, rounded once to T; y = h_g @ widen(V)^T accumulated in fp32 and
 // rounded at the output. Widening is exact (int8 codes |q| <= 127 are exact
@@ -16,8 +17,8 @@
 //
 // What bounds it: at decode M is the number of serving slots (<= 8), so the
 // work is two skinny products whose bytes are the factors (sizeof(TF) * k *
-// (m + n) bytes: ~2.5 MB at llama3.2-1b's MLP shapes in bf16, half that in
-// int8): memory-bound.
+// (m + n) bytes: ~5 MB at llama3.2-1b's MLP shapes in fp32, a quarter of
+// that in int8): memory-bound.
 //
 // Design. The rank-k activation h never reaches device memory. The TPU
 // kernels carry h across a sequential grid axis; Hopper blocks run in
@@ -33,7 +34,7 @@
 //   * after a cluster barrier every block sums the CL partials through
 //     distributed shared memory, in rank order, scales by g and rounds to T;
 //   * each block then emits its own bn output columns, staging V in
-//     64-column tiles (bf16/fp32 factors widened to fp32 as they are staged;
+//     64-column tiles (fp32 factors as they are;
 //     int8 factors staged raw, with a 4-byte row pad against bank conflicts,
 //     and widened four codes at a time in registers): one thread per
 //     (column, row group), a k-long dot from shared memory, coalesced stores.
@@ -79,16 +80,6 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void widen16(const float* src, float* dst) {
   const float4 v = *reinterpret_cast<const float4*>(src);
   dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-}
-__device__ __forceinline__ void widen16(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(p[e]);
-    dst[2 * e] = f.x;
-    dst[2 * e + 1] = f.y;
-  }
 }
 
 // Stage `rows` rows of k elements (row stride k) from src into dst as fp32
@@ -326,34 +317,6 @@ cudaError_t launch(const void* x, const void* U, const void* s, const void* V, v
                            mslice, cr);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
-}
-
-// The factor storage for activation dtype T of the int8 kernel (the fp32
-// kernel launches its fp32 instances directly, spectral_matmul.cu).
-template <typename T>
-struct Int8Factors { using type = int8_t; };
-
-// Dispatch on the activation dtype and the row-block height (8 rows at
-// decode, 32 above).
-template <template <typename> class Factor>
-int launch_dtype(const void* x, const void* U, const void* s, const void* V, void* y, int M,
-                 int m, int n, int k, int dtype, int cl, int bn, void* stream) {
-  if (M <= 0 || n <= 0) return cudaSuccess;
-  if (m <= 0 || k <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool small = M <= 8;
-  if (dtype == sct::kBFloat16) {
-    using T = __nv_bfloat16;
-    using TF = typename Factor<T>::type;
-    return small ? launch<T, TF, 8>(x, U, s, V, y, M, m, n, k, cl, bn, st)
-                 : launch<T, TF, 32>(x, U, s, V, y, M, m, n, k, cl, bn, st);
-  }
-  if (dtype == sct::kFloat32) {
-    using TF = typename Factor<float>::type;
-    return small ? launch<float, TF, 8>(x, U, s, V, y, M, m, n, k, cl, bn, st)
-                 : launch<float, TF, 32>(x, U, s, V, y, M, m, n, k, cl, bn, st);
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -1,14 +1,15 @@
-// Fused spectral matmul over int8 factors:
+// Fused spectral matmul over int8 factors, fp32 activations:
 // y = ((x @ widen(U_q8)) * gain) @ widen(V_q8)^T, gain = u_scale * s * v_scale.
 //
 // Replaces the TPU kernel kernels/spectral_matmul_q8.py:
 // spectral_matmul_q8_pallas of the JAX package (wrapper
-// kernels/ops.py:spectral_matmul_q8).
+// kernels/ops.py:spectral_matmul_q8) for fp32 activations; bf16 activations
+// run on the tensor cores (spectral_matmul_tc.cu, sct_spectral_matmul_q8_tc),
+// since a TF32 product would miss the fp32 rung here.
 //
 // What bounds it: bytes. At decode (M = serving slots) the work is the int8
-// factors, k * (m + n) bytes a projection: one llama3.2-1b layer's three
-// MLP projections hold 3 x (2048 + 8192) x 128 B = 3.9 MB, half the bf16
-// kernel's, ~1.2 us at 3.35 TB/s.
+// factors, k * (m + n) bytes a projection: one llama3.2-1b layer's three MLP
+// projections hold 3 x (2048 + 8192) x 128 B = 3.9 MB, ~1.2 us at 3.35 TB/s.
 //
 // What the design does about it: the codes stay int8 in device memory and
 // in shared memory (the U ring and the staged V tile), so every byte moved
@@ -27,6 +28,10 @@
 extern "C" int sct_spectral_matmul_q8(const void* x, const void* U_q8, const void* gain,
                                       const void* V_q8, void* y, int M, int m, int n, int k,
                                       int dtype, int cl, int bn, void* stream) {
-  return launch_dtype<Int8Factors>(x, U_q8, gain, V_q8, y, M, m, n, k, dtype, cl, bn,
-                                   stream);
+  if (dtype != sct::kFloat32) return cudaErrorInvalidValue;
+  if (M <= 0 || n <= 0) return cudaSuccess;
+  if (m <= 0 || k <= 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return M <= 8 ? launch<float, int8_t, 8>(x, U_q8, gain, V_q8, y, M, m, n, k, cl, bn, st)
+                : launch<float, int8_t, 32>(x, U_q8, gain, V_q8, y, M, m, n, k, cl, bn, st);
 }

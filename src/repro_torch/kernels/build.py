@@ -127,6 +127,8 @@ def library() -> ctypes.CDLL:
             lib.sct_spectral_matmul_tc.restype = i
             lib.sct_spectral_matmul_q8.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
             lib.sct_spectral_matmul_q8.restype = i
+            lib.sct_spectral_matmul_q8_tc.argtypes = [p] * 5 + [i] * 8 + [p]
+            lib.sct_spectral_matmul_q8_tc.restype = i
             lib.sct_paged_gqa_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                                  i, f, p]
             lib.sct_paged_gqa_decode.restype = i

@@ -32,8 +32,8 @@ def cluster_size(m: int) -> int:
 
 
 def row_tile(M: int, dtype: torch.dtype) -> int:
-    """Rows of x a block takes: bf16 (tensor cores) 16 at decode, else
-    64; fp32 (and the int8 kernel, same template) 8 at decode, else 32."""
+    """Rows of x a block takes: bf16 (tensor cores, bf16 or int8 factors)
+    16 at decode, else 64; fp32 (CUDA cores) 8 at decode, else 32."""
     if dtype == torch.bfloat16:
         return 16 if M <= 16 else 64
     return 8 if M <= 8 else 32
@@ -62,6 +62,18 @@ def launch_geometry(M: int, m: int, n: int, sms: int, rows: int,
     col_groups = max(1, min(col_groups, -(-n // (width * 16))))
     bn = -(-n // (col_groups * width))
     return cl, -(-bn // col_align) * col_align
+
+
+def kernel_geometry(M: int, m: int, n: int, dtype: torch.dtype, sms: int) -> tuple:
+    """(row tile, split over a cluster, cluster size, output columns per
+    block) of a launch, bf16 or int8 factors alike: bf16 activations take
+    the tensor-core kernel's geometry, fp32 the CUDA-core kernel's, which
+    always runs its slices on a cluster."""
+    rows = row_tile(M, dtype)
+    if dtype == torch.bfloat16:
+        split = split_over_cluster(M, rows, sms)
+        return (rows, split) + launch_geometry(M, m, n, sms, rows, TC_COL_ALIGN, split)
+    return (rows, True) + launch_geometry(M, m, n, sms, rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,17 +107,13 @@ def spectral_matmul_cuda(x2: torch.Tensor, U: torch.Tensor, s: torch.Tensor,
         raise ValueError("spectral_matmul: U and V must be 16-byte aligned")
     build.require_cuda("spectral_matmul", x2, U, s, V)
     y = torch.empty((M, n), dtype=x2.dtype, device=x2.device)
-    sms = _sm_count(x2.device.index)
-    rows = row_tile(M, x2.dtype)
+    rows, split, cl, bn = kernel_geometry(M, m, n, x2.dtype, _sm_count(x2.device.index))
     lib = build.library()
     if x2.dtype == torch.bfloat16:
-        split = split_over_cluster(M, rows, sms)
-        cl, bn = launch_geometry(M, m, n, sms, rows, TC_COL_ALIGN, split)
         err = lib.sct_spectral_matmul_tc(
             x2.data_ptr(), U.data_ptr(), s.data_ptr(), V.data_ptr(), y.data_ptr(),
             M, m, n, k, rows, cl, int(split), bn, build.stream_of(x2))
     else:
-        cl, bn = launch_geometry(M, m, n, sms, rows)
         err = lib.sct_spectral_matmul(
             x2.data_ptr(), U.data_ptr(), s.data_ptr(), V.data_ptr(), y.data_ptr(),
             M, m, n, k, code, cl, bn, build.stream_of(x2))

@@ -1,10 +1,17 @@
-"""Launch of the fused int8 spectral matmul CUDA kernel
-(``csrc/spectral_matmul_q8.cu``), which replaces the JAX package's
-``kernels/spectral_matmul_q8.py:65`` ``spectral_matmul_q8_pallas``.
+"""Launch of the fused int8 spectral matmul CUDA kernels, which replace
+the JAX package's ``kernels/spectral_matmul_q8.py:65``
+``spectral_matmul_q8_pallas``. The activation dtype picks the kernel:
 
-The kernel is the fp32 kernel's CUDA-core cluster design over int8
-factors (``csrc/spectral_matmul.cuh``), so it takes that kernel's row
-tiles and launch geometry.
+* bf16 runs on the tensor cores (``csrc/spectral_matmul_tc.cu``, entry
+  ``sct_spectral_matmul_q8_tc``): the bf16 spectral kernel's template
+  over int8 codes, which stay int8 in device and shared memory and are
+  widened exactly to bf16 in registers as the fragments are gathered. It
+  takes that kernel's row tiles, cluster choice and launch geometry, so
+  its rows are batch invariant the same way;
+* fp32 keeps the CUDA-core cluster design (``csrc/spectral_matmul_q8.cu``
+  over ``csrc/spectral_matmul.cuh``): a TF32 product would miss the fp32
+  rung.
+
 The wrapper the model calls is ``kernels/ops.py:spectral_matmul_q8``;
 its plain version is ``kernels/ref.py:spectral_matmul_q8_ref``.
 """
@@ -13,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.spectral_matmul import MAX_RANK, _sm_count, launch_geometry, row_tile
+from repro_torch.kernels.spectral_matmul import MAX_RANK, _sm_count, kernel_geometry
 
 
 def spectral_matmul_q8_cuda(x2: torch.Tensor, U_q8: torch.Tensor, gain: torch.Tensor,
@@ -42,11 +49,16 @@ def spectral_matmul_q8_cuda(x2: torch.Tensor, U_q8: torch.Tensor, gain: torch.Te
         raise ValueError("spectral_matmul_q8: U and V must be 16-byte aligned")
     build.require_cuda("spectral_matmul_q8", x2, U_q8, gain, V_q8)
     y = torch.empty((M, n), dtype=x2.dtype, device=x2.device)
-    cl, bn = launch_geometry(M, m, n, _sm_count(x2.device.index),
-                             row_tile(M, torch.float32))
-    err = build.library().sct_spectral_matmul_q8(
-        x2.data_ptr(), U_q8.data_ptr(), gain.data_ptr(), V_q8.data_ptr(), y.data_ptr(),
-        M, m, n, k, code, cl, bn, build.stream_of(x2))
+    rows, split, cl, bn = kernel_geometry(M, m, n, x2.dtype, _sm_count(x2.device.index))
+    lib = build.library()
+    if x2.dtype == torch.bfloat16:
+        err = lib.sct_spectral_matmul_q8_tc(
+            x2.data_ptr(), U_q8.data_ptr(), gain.data_ptr(), V_q8.data_ptr(), y.data_ptr(),
+            M, m, n, k, rows, cl, int(split), bn, build.stream_of(x2))
+    else:
+        err = lib.sct_spectral_matmul_q8(
+            x2.data_ptr(), U_q8.data_ptr(), gain.data_ptr(), V_q8.data_ptr(), y.data_ptr(),
+            M, m, n, k, code, cl, bn, build.stream_of(x2))
     build.check(err, "spectral_matmul_q8")
     build.LAUNCHES["spectral_matmul_q8"] += 1
     return y

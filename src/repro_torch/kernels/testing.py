@@ -128,6 +128,13 @@ SPECTRAL_SHAPES = [
     # smollm2-1.7b's MLP in training (b 2 x s 4096 rows): up, down
     (8192, 2048, 8192, 128), (8192, 8192, 2048, 128)]
 
+# (M, m, n, k) of the int8 spectral matmul's checks (its rank is a multiple
+# of 16): ragged shapes, and the int8 serving cells' MLP (llama3.2-1b's
+# 2048 <-> 8192, rank 128) at decode, a prefill chunk and a larger batch
+SPECTRAL_Q8_SHAPES = [
+    (1, 64, 96, 16), (7, 130, 50, 16), (37, 300, 700, 64), (4, 2048, 8192, 128),
+    (37, 8192, 2048, 128), (256, 2048, 8192, 128), (3, 512, 384, 256)]
+
 SCALE_PROFILES = ("unit", "extreme", "tiny", "huge", "alternating")
 
 

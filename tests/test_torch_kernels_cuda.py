@@ -54,6 +54,7 @@ from repro_torch.kernels.testing import (  # noqa: E402
     MAMBA_PROFILES,
     MLSTM_PROFILES,
     SCALE_PROFILES,
+    SPECTRAL_Q8_SHAPES,
     SPECTRAL_SHAPES,
     assert_kernel_matches,
     make_block_table,
@@ -68,9 +69,7 @@ pytestmark = pytest.mark.cuda
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SPECTRAL = SPECTRAL_SHAPES
-# (M, m, n, k) of the int8 kernel: its rank is a multiple of 16
-SPECTRAL_Q8 = [(1, 64, 96, 16), (7, 130, 50, 16), (37, 300, 700, 64), (4, 2048, 8192, 128),
-               (37, 8192, 2048, 128), (256, 2048, 8192, 128), (3, 512, 384, 256)]
+SPECTRAL_Q8 = SPECTRAL_Q8_SHAPES
 # b, kvh, rep, hd, page, n_pages_per_seq
 PAGED = [(5, 2, 3, 64, 4, 6), (4, 1, 4, 20, 3, 5), (4, 4, 1, 48, 8, 4), (8, 8, 4, 64, 16, 12),
          (4, 8, 4, 128, 16, 12)]     # jamba's attention layers: head dim 128
@@ -88,9 +87,11 @@ MLSTM = ([(B, S, 32) for B in (1, 4) for S in (1, 37, 64, 300)]
 MAMBA = [(1, 1, 128, 16), (2, 37, 200, 16), (1, 160, 8192, 16), (2, 300, 96, 4),
          (1, 64, 130, 64), (2, 1000, 256, 8), (1, 33, 64, 32)]
 # (b, s, g, r, d): rep 1 and 4 at s 256, 1000 (ragged tiles) and 4096, plus
-# head dim 128 and a group size that does not divide the 64-row tile
+# head dim 128, a group size that does not divide the 64-row tile, and the
+# largest group (64 heads a kv head: one position a query tile)
 FLASH = ([(1, s, g, r, 64) for s in (256, 1000, 4096) for g, r in ((4, 1), (2, 4))]
-         + [(2, 256, 2, 2, 128), (1, 300, 1, 3, 64)])
+         + [(2, 256, 2, 2, 128), (1, 300, 1, 3, 64), (1, 200, 1, 64, 64),
+            (1, 130, 2, 64, 128)])
 
 
 @pytest.fixture
@@ -175,16 +176,21 @@ def test_spectral_matmul_q8_kernel_vs_plain(cuda, shape, dtype, profile):
     assert LAUNCHES["spectral_matmul_q8"] == before + 1
 
 
+@pytest.mark.parametrize("profile", SCALE_PROFILES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_spectral_matmul_q8_rows_are_batch_invariant(cuda, dtype):
-    """Every row of an M=37 call equals the same row alone, bit for bit,
-    on both MLP shapes: the int8 engine's batched steps and its batch-1
-    static reference agree exactly."""
+def test_spectral_matmul_q8_rows_are_batch_invariant(cuda, dtype, profile):
+    """Every row of an M = 1, 4, 37, 64, 160 or 256 call equals the same
+    row alone, bit for bit, on both MLP shapes and under every scale
+    profile: the int8 engine's batched steps and its batch-1 static
+    reference agree exactly (M 16 and below runs 16-row tiles in bf16, 64
+    above)."""
     for m, n in ((2048, 8192), (8192, 2048)):
-        x, U, s, V = _q8(37, m, n, 128, "unit", DTYPES[dtype], cuda)
-        full = spectral_matmul_q8(x, U, s, V)
-        for i in range(37):
-            assert torch.equal(spectral_matmul_q8(x[i:i + 1], U, s, V)[0], full[i]), (m, i)
+        x, U, s, V = _q8(256, m, n, 128, profile, DTYPES[dtype], cuda)
+        for M in (1, 4, 37, 64, 160, 256):
+            full = spectral_matmul_q8(x[:M], U, s, V)
+            for i in range(M):
+                assert torch.equal(spectral_matmul_q8(x[i:i + 1], U, s, V)[0], full[i]), (
+                    m, M, i)
 
 
 def test_spectral_matmul_q8_refuses_other_ranks(cuda):
@@ -448,6 +454,36 @@ def test_flash_backward_is_deterministic(cuda, case, dtype):
     second = flash_attention_bwd(q, k, v, out, m, l, do)
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", FLASH, ids=lambda c: "-".join(map(str, c)))
+def test_flash_forward_is_deterministic(cuda, case, dtype, causal):
+    """Two forward calls on the same inputs give the same bits, and match
+    the plain version with and without the causal mask."""
+    q, k, v, _ = _flash_inputs(*case, DTYPES[dtype], cuda)
+    first = flash_attention_fwd(q, k, v, causal)
+    second = flash_attention_fwd(q, k, v, causal)
+    ref = flash_fwd_ref(q, k, v, causal)
+    for name, a, b, r in zip(("out", "m", "l"), first, second, ref):
+        assert torch.equal(a, b), name
+        assert_kernel_matches(lambda: a, lambda: r, (), dtype=DTYPES[dtype],
+                              label=f"flash_attention_fwd {name} causal={causal}")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", FLASH, ids=lambda c: "-".join(map(str, c)))
+def test_flash_backward_runs_from_the_kernel_forward(cuda, case, dtype):
+    """The backward from the kernel forward's own (out, m, l), against the
+    plain backward on the same inputs: the statistics the forward writes
+    are the ones the backward reads (natural-log m, unclamped l)."""
+    q, k, v, do = _flash_inputs(*case, DTYPES[dtype], cuda)
+    out, m, l = flash_attention_fwd(q, k, v)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        assert_kernel_matches(lambda *a, i=i: flash_attention_bwd(*a)[i],
+                              lambda *a, i=i: flash_bwd_ref(*a)[i], (q, k, v, out, m, l, do),
+                              label=f"flash_attention_bwd {name} from the kernel forward")
 
 
 def test_flash_kernel_refuses_other_head_dims(cuda):

@@ -3,7 +3,9 @@ a pure-Python function that the CPU suite can hold to what the CUDA
 kernels need: the m-reduction's cluster size (the number of m slices,
 which fixes every row's summation order) depends on m alone, the decode
 grid covers the SMs, and every checked shape gets a geometry the kernels
-accept."""
+accept. The int8 kernels (``kernels/spectral_matmul_q8.py``) launch with
+the same geometry (bf16 activations on the tensor-core kernel, fp32 on
+the CUDA-core one) and get the same checks at their shapes."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -13,11 +15,12 @@ from repro_torch.kernels.spectral_matmul import (  # noqa: E402
     MAX_RANK,
     TC_COL_ALIGN,
     cluster_size,
+    kernel_geometry,
     launch_geometry,
     row_tile,
     split_over_cluster,
 )
-from repro_torch.kernels.testing import SPECTRAL_SHAPES  # noqa: E402
+from repro_torch.kernels.testing import SPECTRAL_Q8_SHAPES, SPECTRAL_SHAPES  # noqa: E402
 
 SMS = (132, 114, 78)     # H100 SXM, H100 PCIe, a part with fewer SMs
 ROWS = (1, 4, 8, 16, 17, 37, 64, 160, 256, 1000, 4096, 8192, 16384)
@@ -28,6 +31,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 DECODE = [(2048, 8192, 128), (8192, 2048, 128), (4096, 2048, 128), (2048, 5460, 128),
           (2730, 2048, 128), (4096, 14336, 256), (14336, 4096, 256), (7168, 18432, 128),
           (18432, 7168, 128), (7168, 1536, 128)]
+# the int8 serving cells' spectral projections: llama3.2-1b's MLP, rank 128
+INT8_MLP = [(2048, 8192, 128), (8192, 2048, 128)]
 
 
 def grid_blocks(M, n, rows, width, bn):
@@ -36,56 +41,65 @@ def grid_blocks(M, n, rows, width, bn):
     return -(-M // rows) * (-(-(-(-n // bn)) // width) * width)
 
 
-def _geometry(M, m, n, dtype, sms):
-    """(rows, split, cl, bn) as ``spectral_matmul_cuda`` computes them."""
-    rows = row_tile(M, dtype)
-    if dtype == torch.bfloat16:
-        split = split_over_cluster(M, rows, sms)
-        cl, bn = launch_geometry(M, m, n, sms, rows, TC_COL_ALIGN, split)
-    else:
-        split = True
-        cl, bn = launch_geometry(M, m, n, sms, rows)
-    return rows, split, cl, bn
+def _ids(shape):
+    return "x".join(map(str, shape))
 
 
-@pytest.mark.parametrize("shape", SPECTRAL_SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_cluster_size_depends_on_m_alone(shape):
-    """Whatever M, the SM count, the dtype's row tile or the choice to run
-    the slices on a cluster or in one block, the number of m slices is
-    cluster_size(m): a row's sums run in one order at every M."""
-    _, m, n, _ = shape
+def _cluster_depends_on_m_alone(m, n):
     for dtype in DTYPES.values():
-        got = {_geometry(M, m, n, dtype, sms)[2] for M in ROWS for sms in SMS}
+        got = {kernel_geometry(M, m, n, dtype, sms)[2] for M in ROWS for sms in SMS}
         assert got == {cluster_size(m)}, (dtype, got)
     assert cluster_size(m) in (1, 2, 4, 8) and cluster_size(m) <= MAX_CLUSTER
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("mnk", DECODE, ids=lambda s: "x".join(map(str, s)))
-def test_decode_grid_covers_the_sms(mnk, dtype):
-    """At decode (M = 4) the work is the factors, spread over the card:
-    the grid runs at most one block an SM, and at least three quarters of
-    the SMs' count in blocks, or every 16-column block of a narrower n."""
-    m, n, _ = mnk
+def _decode_grid_covers_the_sms(m, n, dtype):
     for sms in SMS:
-        rows, split, cl, bn = _geometry(4, m, n, DTYPES[dtype], sms)
+        rows, split, cl, bn = kernel_geometry(4, m, n, dtype, sms)
         assert split
         blocks = grid_blocks(4, n, rows, cl, bn)
         assert min(0.75 * sms, n // 16 // cl * cl) <= blocks <= sms, (sms, blocks, cl, bn)
 
 
+@pytest.mark.parametrize("shape", SPECTRAL_SHAPES, ids=_ids)
+def test_cluster_size_depends_on_m_alone(shape):
+    """Whatever M, the SM count, the dtype's row tile or the choice to run
+    the slices on a cluster or in one block, the number of m slices is
+    cluster_size(m): a row's sums run in one order at every M."""
+    _cluster_depends_on_m_alone(shape[1], shape[2])
+
+
+@pytest.mark.parametrize("shape", SPECTRAL_Q8_SHAPES, ids=_ids)
+def test_int8_cluster_size_depends_on_m_alone(shape):
+    """The same for the int8 kernels' checked shapes: batch invariance of
+    the int8 serving cells' rows rests on it."""
+    _cluster_depends_on_m_alone(shape[1], shape[2])
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape", SPECTRAL_SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_every_checked_shape_gets_a_valid_geometry(shape, dtype):
-    """What the kernels' launchers accept (csrc/spectral_matmul_tc.cu,
-    csrc/spectral_matmul.cuh): a row tile they are built for that the
-    cluster divides, whole 16-byte column blocks of y in bf16, column
-    blocks that cover n exactly once, m slices that cover m, a grid within
-    CUDA's limits."""
-    M, m, n, k = shape
-    dt = DTYPES[dtype]
-    assert k <= MAX_RANK and k * dt.itemsize % 16 == 0
-    rows, split, cl, bn = _geometry(M, m, n, dt, 132)
+@pytest.mark.parametrize("mnk", DECODE, ids=_ids)
+def test_decode_grid_covers_the_sms(mnk, dtype):
+    """At decode (M = 4) the work is the factors, spread over the card:
+    the grid runs at most one block an SM, and at least three quarters of
+    the SMs' count in blocks, or every 16-column block of a narrower n."""
+    _decode_grid_covers_the_sms(mnk[0], mnk[1], DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("mnk", INT8_MLP, ids=_ids)
+def test_int8_decode_grid_covers_the_sms(mnk, dtype):
+    """The same for the int8 serving cells' projections."""
+    _decode_grid_covers_the_sms(mnk[0], mnk[1], DTYPES[dtype])
+
+
+def _valid_geometry(M, m, n, k, dt, vec):
+    """What the launchers accept (csrc/spectral_matmul_tc.cu,
+    csrc/spectral_matmul.cuh, csrc/spectral_matmul_q8.cu): a rank of whole
+    16-byte factor rows (``vec`` elements), a row tile they are built for
+    that the cluster divides, whole 16-byte column blocks of y in bf16,
+    column blocks that cover n exactly once, m slices that cover m, a grid
+    within CUDA's limits."""
+    assert k <= MAX_RANK and k % vec == 0
+    rows, split, cl, bn = kernel_geometry(M, m, n, dt, 132)
     assert rows in ((16, 64) if dt == torch.bfloat16 else (8, 32))
     assert rows % cl == 0
     assert cl in (1, 2, 4, 8) and bn >= 1
@@ -95,8 +109,29 @@ def test_every_checked_shape_gets_a_valid_geometry(shape, dtype):
     assert (col_blocks - 1) * bn < n <= col_blocks * bn
     width = cl if split else 1
     assert -(-col_blocks // width) * width <= 65535
-    mslice = -(-(-(-m // cl)) // 64) * 64     # the bf16 kernel's slice: whole 64-wide stages
+    mslice = -(-(-(-m // cl)) // 64) * 64     # the tensor-core slice: whole 64-wide stages
     assert cl * mslice >= m
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SPECTRAL_SHAPES, ids=_ids)
+def test_every_checked_shape_gets_a_valid_geometry(shape, dtype):
+    """Every checked shape of the bf16 and fp32 kernels: their rank fills
+    whole 16-byte rows of the dtype."""
+    M, m, n, k = shape
+    dt = DTYPES[dtype]
+    _valid_geometry(M, m, n, k, dt, 16 // dt.itemsize)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("mnk", INT8_MLP + [s[1:] for s in SPECTRAL_Q8_SHAPES], ids=_ids)
+def test_every_int8_shape_gets_a_valid_geometry(mnk, dtype):
+    """Every M of ``ROWS`` on the int8 serving cells' projections and on
+    the int8 kernels' checked shapes: int8 rows of 16 codes, and the
+    geometry the launchers accept."""
+    m, n, k = mnk
+    for M in ROWS:
+        _valid_geometry(M, m, n, k, DTYPES[dtype], 16)
 
 
 @pytest.mark.parametrize("M,expect", [(1, True), (16, True), (17, True), (160, True),

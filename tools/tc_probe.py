@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Check and time the port's two tensor-core kernels on one GPU: the bf16
-spectral matmul (``csrc/spectral_matmul_tc.cu``) and the bf16 flash
-backward (``csrc/flash_attention.cu``, the ``*_tc_kernel``s).
+"""Check and time the port's tensor-core kernels on one GPU: the bf16
+spectral matmul and the int8 one on bf16 activations
+(``csrc/spectral_matmul_tc.cu``), and the bf16 flash forward and backward
+(``csrc/flash_attention.cu``, the ``*_tc_kernel``s).
 
-    PYTHONPATH=src python3 tools/tc_probe.py [--quick | --split]
+    PYTHONPATH=src python3 tools/tc_probe.py [--fwd] [--q8] [--quick | --split]
+                                             [--time-only] [--src DIR]
 
-Builds the kernels, prints each kernel's registers and spills, holds both
+With no mode flag: the bf16 spectral kernel and the flash backward. It
+builds the kernels, prints each kernel's registers and spills, holds both
 against their plain versions at the main paths' shapes, checks the
 spectral kernel's batch invariance (rows of M = 1/4/37/64/160/8192 against
 the row alone) and the backward's determinism, then times, with
@@ -13,27 +16,207 @@ the row alone) and the backward's determinism, then times, with
 layer's MLP (3 launches, M 4), the 64-row prefill chunk, both training
 projections (M 8192), against the plain version and the three-GEMM
 chain; the flash backward at smollm2-1.7b's training shape against SDPA's
-backward. ``--quick`` skips the timing; ``--split`` adds each backward
-kernel's device time (``torch.profiler``) and the spectral kernel at
-shapes that leave one phase (a 256-wide m or n). Needs no JAX.
+backward. ``--split`` adds each backward kernel's device time
+(``torch.profiler``) and the spectral kernel at shapes that leave one
+phase (a 256-wide m or n).
+
+``--fwd``: the flash forward's (out, m, l) against its plain version (r 1,
+4 and 64, head dims 64 and 128, ragged lengths, causal and not), two calls
+bit-identical, the backward run from the kernel forward's (out, m, l)
+against the plain pair; the kv tiles the training shape's query tiles
+walk; its time there against SDPA and the bound. ``--q8``: the int8
+kernel in bf16 against its plain version on every check shape and scale
+profile, every row of M = 1/4/37/64/160/256 equal to the row alone on
+both MLP shapes, its launch geometry; its time at one decode layer (3
+launches, M 4) and a 64-row prefill chunk, its gain computed beforehand,
+against the plain version, the three-GEMM chain over pre-dequantized
+factors and the bf16 kernel on those factors. ``--quick`` skips the
+timing, ``--time-only`` the checks. ``--src DIR`` imports the port from
+another checkout's ``src`` (its kernels build there), so that two trees
+can be timed in one call. Needs no JAX.
 """
 from __future__ import annotations
 
 import argparse
+import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-sys.path.insert(0, str(ROOT / "src"))
+
+MLP_SHAPES = ((2048, 8192), (8192, 2048))   # llama3.2-1b's MLP: up/gate, down
+RANK = 128
+
+
+def demangle(name: str) -> str:
+    """A kernel's C++ name (c++filt where the host has it), without its
+    anonymous namespace and argument list."""
+    try:
+        name = subprocess.run(["c++filt"], input=name, capture_output=True, text=True,
+                              timeout=10).stdout.strip() or name
+    except (OSError, subprocess.SubprocessError):
+        return name
+    return name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+
+
+def print_ptxas(build, sources, only=None):
+    """Registers, shared memory and spills of each kernel of ``sources``
+    (ptxas -v), under the kernel's name; ``only``: a substring the name
+    must hold."""
+    for src, report in build.BUILD_LOG.get("ptxas", {}).items():
+        if src not in sources:
+            continue
+        func = "?"
+        for line in report.splitlines():
+            if "Compiling entry function" in line:
+                func = demangle(line.split("'")[1] if "'" in line else line)
+            elif ("registers" in line or "spill" in line) and (only is None or only in func):
+                print(f"[build] {src} {func}: {line.split(':', 1)[-1].strip()}")
+
+
+def fwd_mode(torch, cs, gen, args):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flash_ref import flash_bwd_ref, flash_fwd_ref
+    from repro_torch.kernels.testing import compare_kernel
+
+    bf = torch.bfloat16
+    if not args.time_only:
+        for case, causal in (((1, 256, 4, 1, 64), True), ((1, 1000, 2, 4, 64), True),
+                             ((1, 4096, 2, 4, 64), True), ((2, 4096, 32, 1, 64), True),
+                             ((1, 200, 1, 64, 64), True), ((1, 130, 2, 64, 128), True),
+                             ((2, 256, 2, 2, 128), True), ((1, 300, 1, 3, 64), True),
+                             ((1, 1000, 2, 4, 64), False), ((1, 300, 1, 3, 128), False)):
+            q, kk, v, do = cs.flash_inputs(torch, *case, bf, gen)
+            got = flash_attention_fwd(q, kk, v, causal)
+            ref = flash_fwd_ref(q, kk, v, causal)
+            again = flash_attention_fwd(q, kk, v, causal)
+            for name, g1, g2, r1 in zip(("out", "m", "l"), got, again, ref):
+                e = compare_kernel(lambda: g1, lambda: r1, (), dtype=bf,
+                                   label=f"flash fwd {name} {case} causal={causal}")
+                if not torch.equal(g1, g2):
+                    raise AssertionError(f"flash fwd {name} {case}: two calls differ")
+                print(f"[flash_fwd] {case} causal={causal} {name}: max abs {e.max_abs:.3e}, "
+                      f"scaled {e.max_scaled:.3e}, deterministic")
+            # the backward run from the kernel forward's (out, m, l), against
+            # its plain version on the same inputs
+            grads = flash_attention_bwd(q, kk, v, *got, do, causal)
+            ref_grads = flash_bwd_ref(q, kk, v, *got, do, causal)
+            for name, g1, r1 in zip(("dq", "dk", "dv"), grads, ref_grads):
+                e = compare_kernel(lambda: g1, lambda: r1, (), label=f"bwd after fwd {name}")
+                print(f"[flash_fwd] {case} causal={causal} backward {name} from the kernel's "
+                      f"(out, m, l): max abs {e.max_abs:.3e}, scaled {e.max_scaled:.3e}")
+            del q, kk, v, do, got, ref, again, grads, ref_grads
+        torch.cuda.synchronize()
+    b, s_, h, d = 2, 4096, 32, 64
+    # trip counts at the training shape: each 64-row query tile (64
+    # positions at r 1) walks the 64-row kv tiles up to its last position
+    walks = [min(s_, 64 * (i + 1)) // 64 for i in range(s_ // 64)]
+    print(f"[flash_fwd] training shape: {b * h * len(walks)} query tiles, kv tiles a query "
+          f"tile walks min {min(walks)} mean {sum(walks) / len(walks):.1f} max {max(walks)}; "
+          f"{b * h * sum(walks)} tile products of each kind")
+    if args.quick:
+        return
+    q, kk, v, _ = cs.flash_inputs(torch, b, s_, h, 1, d, bf, gen)
+    ms = cs.time_cold(torch, lambda: flash_attention_fwd(q, kk, v))
+
+    def heads(t):
+        return t.reshape(b, s_, h, d).transpose(1, 2).contiguous()
+
+    qh, kh, vh = heads(q), heads(kk[:, :, :, None]), heads(v[:, :, :, None])
+    lib = cs.time_cold(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                    is_causal=True))
+    flops = 2 * 2 * b * h * s_ * s_ * d / 2
+    print(f"[time] flash_attention_fwd ({b}, {s_}, {h} heads, d {d}): kernel {ms:.4f} ms, "
+          f"SDPA {lib:.4f}, bound {flops / cs.PEAK_FLOPS['bfloat16'] * 1e3:.4f} "
+          f"(operations), {flops / ms / 1e9:.1f} TFLOP/s")
+
+
+def q8_checks(torch, cs, gen, spectral_matmul_q8):
+    """The int8 kernel's launch geometry, its outputs against the plain
+    version and the batch invariance of its rows, in bf16."""
+    from repro_torch.kernels.spectral_matmul import _sm_count, kernel_geometry
+    from repro_torch.kernels.testing import SCALE_PROFILES, SPECTRAL_Q8_SHAPES, compare_kernel
+
+    bf = torch.bfloat16
+    sms = _sm_count(0)
+    for M in (4, 64, 256, 8192):
+        for m, n in MLP_SHAPES:
+            rows, split, cl, bn = kernel_geometry(M, m, n, bf, sms)
+            width = cl if split else 1
+            cols = -(-n // bn)
+            blocks = -(-M // rows) * (-(-cols // width) * width)
+            mslice = -(-(-(-m // cl)) // 64) * 64
+            stages = (mslice if split else cl * mslice) // 64
+            print(f"[q8] geometry ({M}, {m}->{n}): rows {rows}, cluster {cl} "
+                  f"({'split' if split else 'one block'}), bn {bn}, {blocks} blocks, "
+                  f"{stages} x-U stages and {-(-bn // 64)} V tiles a block")
+    for shape in SPECTRAL_Q8_SHAPES:
+        for profile in SCALE_PROFILES:
+            a = cs.q8_inputs(torch, *shape, profile, bf, gen)
+            e = compare_kernel(spectral_matmul_q8, cs.q8_plain, a,
+                               label=f"q8 {shape} {profile}")
+        print(f"[q8] {shape}: matches over {list(SCALE_PROFILES)} (last: max abs "
+              f"{e.max_abs:.3e}, scaled {e.max_scaled:.3e})")
+    for m, n in MLP_SHAPES:
+        for profile in SCALE_PROFILES:
+            x, U, s, V = cs.q8_inputs(torch, 256, m, n, RANK, profile, bf, gen)
+            for M in (1, 4, 37, 64, 160, 256):
+                full = spectral_matmul_q8(x[:M], U, s, V)
+                for i in range(M):
+                    if not torch.equal(spectral_matmul_q8(x[i:i + 1], U, s, V)[0], full[i]):
+                        raise AssertionError(f"q8 {m}->{n} {profile}: row {i} of M={M} "
+                                             "differs from the row alone")
+        print(f"[q8] {m}->{n}: every row of M in 1/4/37/64/160/256 == alone, "
+              f"every scale profile")
+    torch.cuda.synchronize()
+
+
+def q8_mode(torch, cs, gen, args):
+    from repro_torch.core.spectral import spectral_apply
+    from repro_torch.kernels.ops import spectral_matmul, spectral_matmul_q8
+    from repro_torch.kernels.ref import spectral_matmul_q8_ref
+    from repro_torch.kernels.spectral_matmul_q8 import spectral_matmul_q8_cuda
+    from repro_torch.serving.quantize import dequantize_int8
+
+    bf = torch.bfloat16
+    if not args.time_only:
+        q8_checks(torch, cs, gen, spectral_matmul_q8)
+    if args.quick:
+        return
+    for M, what in ((4, "decode layer (3 launches, M 4)"),
+                    (64, "prefill chunk's layer (3 launches, M 64)")):
+        tot = [0.0] * 5
+        for m, n in (MLP_SHAPES[0], MLP_SHAPES[0], MLP_SHAPES[1]):
+            x, U, s, V = cs.q8_inputs(torch, M, m, n, RANK, "unit", bf, gen)
+            Ub, Vb = dequantize_int8(U, bf), dequantize_int8(V, bf)
+            fac = {"U": Ub, "s": s, "V": Vb}
+            gain = U["scale"] * s * V["scale"]
+            t = (cs.time_cold(torch, lambda: spectral_matmul_q8_cuda(x, U["q8"], gain, V["q8"])),
+                 cs.time_cold(torch, lambda: spectral_matmul_q8_ref(x, U["q8"], gain, V["q8"])),
+                 cs.time_cold(torch, lambda: spectral_apply(fac, x)),
+                 cs.time_cold(torch, lambda: spectral_matmul(x, Ub, s, Vb)),
+                 (2 * M * (m + n) + RANK * (m + n) + 12 * RANK) / cs.HBM_BYTES_PER_S * 1e3)
+            tot = [a + c for a, c in zip(tot, t)]
+            print(f"[time] spectral_matmul_q8 ({M}, {m}->{n}): kernel {t[0]:.4f} ms, "
+                  f"bf16 kernel {t[3]:.4f}, chain {t[2]:.4f}")
+        print(f"[time] spectral_matmul_q8 {what}: kernel {tot[0]:.4f} ms, plain {tot[1]:.4f}, "
+              f"chain {tot[2]:.4f}, bf16 kernel {tot[3]:.4f}, bound {tot[4]:.4f} (bytes)")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--fwd", action="store_true", help="the flash forward")
+    ap.add_argument("--q8", action="store_true", help="the int8 spectral matmul in bf16")
+    ap.add_argument("--quick", action="store_true", help="checks only")
+    ap.add_argument("--time-only", action="store_true", help="timing only")
     ap.add_argument("--split", action="store_true",
                     help="also time phase-isolating shapes and each backward kernel")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src directory whose port is probed")
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     import torch.nn.functional as F
 
@@ -48,26 +231,32 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.nvidia_smi())
+    print(f"[probe] port from {Path(build.__file__).resolve().parents[2]}")
     build.library()
-    for src, report in build.BUILD_LOG.get("ptxas", {}).items():
-        for line in report.splitlines():
-            if ("registers" in line or "spill" in line) and src in (
-                    "spectral_matmul_tc.cu", "flash_attention.cu"):
-                print(f"[build] {src}: {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
+    if args.fwd or args.q8:
+        if args.fwd:
+            print_ptxas(build, ("flash_attention.cu",), only="flash_fwd")
+            fwd_mode(torch, cs, gen, args)
+        if args.q8:
+            print_ptxas(build, ("spectral_matmul_tc.cu",))
+            q8_mode(torch, cs, gen, args)
+        return 0
+    print_ptxas(build, ("spectral_matmul_tc.cu", "flash_attention.cu"))
 
     # ---- spectral: correctness, invariance ----
     shapes = [(4, 2048, 8192, 128), (4, 8192, 2048, 128), (64, 2048, 8192, 128),
               (160, 2730, 2048, 128), (4, 4096, 14336, 256), (160, 14336, 4096, 256),
               (8192, 2048, 8192, 128), (8192, 8192, 2048, 128), (37, 300, 700, 64)]
-    for M, m, n, k in shapes:
+    for M, m, n, k in shapes if not args.time_only else ():
         a = cs.spectral_inputs(torch, M, m, n, k, bf, gen)
         e = compare_kernel(spectral_matmul, spectral_matmul_ref, a,
                            label=f"spectral {M}x{m}->{n} r{k}")
         print(f"[spectral] {M}x{m}->{n} rank {k}: max abs {e.max_abs:.3e}, "
               f"scaled {e.max_scaled:.3e}")
-    for m, n, k in ((2048, 8192, 128), (8192, 2048, 128), (2048, 8192, 256)):
+    for m, n, k in ((2048, 8192, 128), (8192, 2048, 128), (2048, 8192, 256)) \
+            if not args.time_only else ():
         x, U, s, V = cs.spectral_inputs(torch, 8192, m, n, k, bf, gen)
         for M in (1, 4, 37, 64, 160, 8192):
             full = spectral_matmul(x[:M], U, s, V)
@@ -79,7 +268,7 @@ def main() -> int:
 
     # ---- flash backward: correctness, determinism ----
     for case in ((1, 4096, 8, 4, 64), (1, 1000, 4, 4, 64), (2, 4096, 32, 1, 64),
-                 (2, 256, 2, 2, 128), (1, 300, 1, 3, 64)):
+                 (2, 256, 2, 2, 128), (1, 300, 1, 3, 64)) if not args.time_only else ():
         q, kk, v, do = cs.flash_inputs(torch, *case, bf, gen)
         out, mm, ll = flash_fwd_ref(q, kk, v)
         got = flash_attention_bwd(q, kk, v, out, mm, ll, do)
@@ -132,8 +321,9 @@ def main() -> int:
     oh = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     lib = cs.time_cold(torch, lambda: torch.autograd.grad(oh, (qg, kg, vg), heads(do),
                                                            retain_graph=True))
+    flops = 2.5 * 2 * 2 * b * h * s_ * s_ * d / 2
     print(f"[time] flash_attention_bwd (2, 4096, 32 heads, d 64): kernel {ms:.4f} ms, "
-          f"SDPA backward {lib:.4f}, bound {2.5 * 137.4e9 / 989e12 * 1e3:.4f}")
+          f"SDPA backward {lib:.4f}, bound {flops / cs.PEAK_FLOPS['bfloat16'] * 1e3:.4f}")
     if args.split:
         from torch.profiler import ProfilerActivity, profile
 
