@@ -76,8 +76,9 @@ Phases (any failure exits non-zero and prints no result line):
     versions and a library yardstick; profile a decode-heavy stretch of
     each new serving cell as in phase 5;
 13. hold the chunkwise mLSTM kernel against its plain version (cut into
-    the kernel's 64-token chunks) at head widths 32 and 1024, B = batch
-    x heads 1 and 4, S in {1, 37, 64, 160, 256, 300, 1000}, two gate
+    the kernel's chunks: 256 tokens, the last one ragged) at head widths
+    32 and 1024, B = batch x heads 1 and 4, S in {1, 37, 64, 160, 256,
+    300, 1000}, two gate
     profiles (unit, and one that drives the stabiliser: i in [-20, 20],
     f at either saturation), with and without an initial state: y, C, n
     and m at the fp32 rung; and the spectral kernel at xlstm's four
@@ -158,6 +159,9 @@ and, as its own entry, the flash backward. Every entry carries
 ``max_scaled_err``: the
 largest error of its checks divided by the reference's RMS, the figure
 the ladder's rung bounds (``max_abs_err`` and ``max_err`` are unscaled).
+The MLA decodes and the mLSTM, which split fp32 operands into parts for
+the tensor cores, add ``bound_tc_ms``: the least time at the rate of the
+passes they make (``bound_ms`` counts their work at the fp32 rate).
 
 The last line is ``{"ok": true, "device": {...}}``. The script needs
 the repository around it: alone, or without a CUDA device, it fails.
@@ -176,7 +180,7 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM: HBM3 bandwidth and dense peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 SEED = 0
 SPIN_CYCLES = 1 << 21   # ~1 ms at the H100's 1.98 GHz: longer than queueing one call
 
@@ -214,8 +218,8 @@ SNAPSHOT_STEP = 150
 # the xlstm cell: xlstm-1.3b at full width on slice 1's trace and geometry
 XLSTM_ARCH = "xlstm-1.3b"
 # mLSTM kernel checks: head widths (the reduced config's 32, xlstm-1.3b's
-# 1024), folded batch * heads, prompt lengths (ragged 64-token chunks, one
-# token, the cell's longest prompt, two chunks of the reference's 256)
+# 1024), folded batch * heads, prompt lengths (one token, ragged chunks,
+# the cell's longest prompt, one and two chunks of 256, four)
 MLSTM_DH, MLSTM_B, MLSTM_S = (32, 1024), (1, 4), (1, 37, 64, 160, 256, 300, 1000)
 MLSTM_PREFILL_S = 160           # the cell's longest prompt: the timed shape
 
@@ -1531,6 +1535,12 @@ def phase_xlstm_timing(torch, cfg, launches, errs):
     pairs = S * (S + 1) // 2
     t["flops"] = 2 * B * (2 * pairs * dh + S * dh * dh + S * dh)
     t["bytes"] = 4 * B * (3 * S * dh + 2 * S + S * dh + dh * dh + dh + 1)
+    # the bound at the rate of the passes the kernel makes: the state update
+    # and (w.S) @ v as three tf32 products each (3xTF32), the scores and n
+    # in fp32 beside them
+    t["bound_tc_ms"] = max(3 * 2 * B * (S * dh * dh + pairs * dh) / PEAK_FLOPS["tf32"],
+                           2 * B * (pairs * dh + S * dh) / PEAK_FLOPS["float32"],
+                           t["bytes"] / HBM_BYTES_PER_S) * 1e3
     return kernel_entry("mlstm_chunk", "src/repro_torch/csrc/mlstm_chunk.cu",
                         "src/repro/kernels/mlstm_chunk.py:82", t, "float32",
                         f"one {S}-token prompt's mLSTM layer: B={B} (1 request x {B} heads), "
@@ -2166,6 +2176,10 @@ def phase_deepseek_timing(torch, cfg, hot_launches, cold_launches, errs):
                       + 4 * cold_pages * (lat + rope) + 4 * bt.numel() + 4 * sl.numel()
                       + (4 * sum(n // PAGE + 1 for n in lens) if p_cold is not None else 0))
         t["flops"] = 2 * h * live * (2 * lat + rope)
+        # the bound at the rate of the passes the kernel makes: both products
+        # as three bf16 products on the tensor cores
+        t["bound_tc_ms"] = max(3 * t["flops"] / PEAK_FLOPS["bfloat16"],
+                               t["bytes"] / HBM_BYTES_PER_S) * 1e3
         lib_gap = float((lib - plain(*args, scale=scale)).abs().max())
         what = ("one decode layer" if p_cold is None else
                 "one streaming decode layer, one cold page a slot (int8 shadows)")
@@ -2264,8 +2278,9 @@ def kernel_entry(name, source, replaces, t, peak_key, shape, launches, errs):
         **bound_of(t, peak_key),
         "library_ms": t["library_ms"], "shape": shape,
     }
-    if "library_fwd_bwd_ms" in t:
-        entry["library_fwd_bwd_ms"] = t["library_fwd_bwd_ms"]
+    for key in ("library_fwd_bwd_ms", "bound_tc_ms"):
+        if key in t:
+            entry[key] = t[key]
     return entry
 
 
@@ -2395,8 +2410,8 @@ def main() -> int:
                   launches=kernels_int8[0]["launches"])]
     for kern in kernels + extra:
         lib = "none" if kern["library_ms"] is None else f"{kern['library_ms']:.4f} ms"
-        beside = "".join(f", {key} {kern[key]:.4f}" for key in ("bf16_kernel_ms", "op_ms")
-                         if key in kern)
+        beside = "".join(f", {key} {kern[key]:.4f}"
+                         for key in ("bf16_kernel_ms", "op_ms", "bound_tc_ms") if key in kern)
         print(f"[timing] {kern['name']}: {kern['ms']:.4f} ms kernel, "
               f"{kern['plain_ms']:.4f} ms plain, library {lib}, "
               f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}){beside}, "

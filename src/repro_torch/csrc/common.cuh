@@ -38,4 +38,35 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Programmatic dependent launch (Hopper). A kernel started by
+// launch_dependent() may begin while the kernel before it on the stream
+// still runs, once every block of that kernel has called allow_dependents()
+// or exited; it calls grid_dependency_wait() before it reads anything that
+// kernel writes (the wait returns when the earlier grid has completed and
+// its writes are visible). Every block of a dependent kernel waits before
+// it exits, so that its own completion still implies the earlier grid's.
+// Without the launch attribute both calls do nothing.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void allow_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+template <typename... KArgs, typename... Args>
+inline cudaError_t launch_dependent(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,
+                                    cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = block;
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, static_cast<KArgs>(args)...);
+}
+
 }  // namespace sct

@@ -13,375 +13,623 @@
 // reference's stabiliser: per chunk of T tokens, log-forget prefix sums b,
 // intra-chunk weights w_tj = exp(b_t - b_j + i_j - m_t) for j <= t, the
 // carried state decayed by exp(b_t + m0 - m_t), den = max(|q.n|, exp(-m_t)).
-// The chunk length is this kernel's choice (kT = 64, a ragged last chunk
-// masked): the function does not depend on it in exact arithmetic, since m
-// is a running max, so the kernel is held to its plain version (which
-// chunks as the reference does) at the fp32 rung, not to its bits.
+// The chunk length is this kernel's choice: T = min(256, S), the
+// reference's, with a ragged last chunk past 256 (the reference takes one
+// chunk of S when 256 does not divide S). The function does not depend on it
+// in exact arithmetic, since m is a running max; the kernel is held to its
+// plain version cut into the same chunks at the fp32 rung. A prompt of up to
+// 256 tokens from the empty state (the engine's prefill) is one chunk with
+// no carried state: no q @ C0 product runs.
 //
 // What bounds it: operations. Per head and chunk, the scores q k^T
-// (T^2 dh / 2 multiply-adds that count), w.S @ v (the same) and the two
-// products with the carried state, q @ C0 and the update C += (wa k)^T v
-// (T dh^2 each); at the xlstm-1.3b prefill (dh = 1024, S <= 160, B = 4) the
-// dh^2 terms dominate and the bytes (q, k, v, y, C) are a few MB.
+// (T^2 dh / 2 multiply-adds that count), w.S @ v (the same) and the state
+// update C += (wa k)^T v (T dh^2); with a carried state also q @ C0 (T dh^2).
+// At the xlstm-1.3b prefill (dh = 1024, S <= 160, B = 4) the update
+// dominates and the bytes (q, k, v, y, C) are a few MB: in fp32 at 67
+// TFLOP/s, 23 us; with the update as three tf32 products at 495 TFLOP/s
+// (as this kernel runs it) and the rest in fp32, ~10 us.
 //
-// Design. The TPU kernel keeps C (dh x dh) in one core's VMEM across a
-// sequential chunk grid. At dh = 1024 C is 4 MB a head, far past a Hopper
-// SM's 227 KB, and blocks run in parallel with nothing carried between
-// them. So two launches:
-//   * scores: the chunk's causal T x T q k^T in fp32 into a scratch
-//     tensor, one 16 x 16 tile of the lower triangle a block (smem tiles of
-//     64 dims); it depends on no state, so every chunk runs at once;
-//   * state: C is split by value columns. One block per (head, 32-column
-//     slice) owns C[:, slice] in shared memory (dh x 32 fp32, 128 KB at
-//     dh = 1024) and walks the chunks in order: it rebuilds the chunk's
-//     gate statistics and w.S from the scores (cheap, T^2), computes its
-//     slice of y = (w.S @ v + e q @ C0) / den, then updates its slice of C,
-//     dims in tiles of 64 staged in shared memory. Every block keeps the
-//     whole of n (dh floats) because den reads all of it; block 0 writes
-//     n and m. Register tiles of 4 rows x 2 columns per thread, float4 and
-//     float2 shared-memory reads; q, k, v and C move as float4, and the next
-//     tile of q and k is loaded into registers while the current one
-//     computes.
-// The chunk's log-forget prefix sums are accumulated in fp64 and rounded
-// once (the plain version does the same): exact or within an fp64 ulp in
-// any order, so kernel and plain version start from the same fp32 values
-// even where a strongly forgetting gate makes the sums large. Accurate
+// Design: three launches, each spread over the card; the second and third
+// are programmatic dependent launches, so the state pass runs beside the
+// scores pass and the output pass starts its statistics while they finish.
+//   * scores: S = q k^T of every chunk's lower triangle, 64 x 64 tiles with
+//     4 x 4 outputs a thread, the dh reduction cut into slices of 128 that
+//     run as blocks of their own (partial tiles to scratch, summed in slice
+//     order by the output pass);
+//   * state: C tiled over (128 dh rows x 128 value columns): one block a tile
+//     and head (64 blocks a head at dh = 1024), which walks the chunks in
+//     order holding its tile in registers and stages its k and v slices once
+//     a chunk (32-token cp.async stages, two in flight; k scaled by wa once a
+//     stage) for C = decay0 C + (wa k)^T v on the tensor cores: mma.sync
+//     m16n8k8 in tf32, each fp32 operand split into a tf32 high and low part
+//     and three products summed in fp32 (3xTF32, products to ~2^-21). With a carried state it first
+//     takes q @ C over its tile (the tile through shared memory) and writes
+//     that partial product of y, and q . n, to scratch, one slice per row
+//     tile of C; the output pass sums the slices in order. The blocks of the
+//     first column tile keep n, the block of the first tile writes m;
+//   * output: y for 16 rows x 256 value columns a block: the chunk's
+//     statistics, the rows' stabiliser m_t (16 lanes a row), the gated scores
+//     w.S (the slices summed in order) and their row sums, then (w.S) @ v on
+//     the tensor cores (3xTF32, as the state), and
+//     y = (w.S @ v + e q @ C0) / den.
+// Each block rebuilds the chunk's gate statistics itself: the log-forget
+// prefix sums by a block scan in fp64, rounded once (the plain version sums
+// in fp64 too: the fp64 partial sums of fp32 values are exact or within an
+// fp64 ulp in any order, so both start from the same fp32 values), and the
+// running maxima by block and lane reductions, which are exact. Accurate
 // expf / log1pf (no fast-math flags in kernels/build.py).
 #include "common.cuh"
+#include "mma.cuh"
+
+using namespace sct::mma;
 
 namespace {
 
-constexpr int kT = 64;          // chunk length
-constexpr int kThreads = 256;
-constexpr int kDv = 32;         // value columns of C a state block owns
-constexpr int kDK = 64;         // dims staged per tile in the state pass
-constexpr int kSK = 64;         // dims staged per tile in the scores pass
-constexpr int kTP = kT + 4;     // padded row stride of the (., T) tiles
+constexpr int kT = 256;         // chunk length
+constexpr int kThreads = 256;   // one token of a chunk a thread in the statistics
+constexpr int kCT = 128;        // C tile: dh rows and value columns
+constexpr int kJS = 32;         // tokens a state stage holds
+constexpr int kSD = 128;        // dims of a score slice
+constexpr int kMaxSlices = 1024 / kSD;
+constexpr int kST = 64;         // score tile
+constexpr int kSK = 32;         // dims a score stage holds
+constexpr int kYR = 16;         // output rows a block
+constexpr int kYC = 256;        // output columns a block
+constexpr int kYJ = 32;         // tokens of v an output stage holds
 constexpr float kNegInit = -1e30f;
-static_assert(kThreads == 4 * kT && kDK == kT, "the four-way partial sums");
 
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
 
-// scores[b][c][t][j] = q[b, c*kT + t] . k[b, c*kT + j] for the lower
-// triangle of 16 x 16 tiles of each chunk (tiles above the diagonal are
-// never read; rows past the chunk's length come out zero). grid
-// (chunks * kTiles, B): one tile a block, one output a thread, so a short
-// prompt's few chunks still spread over many SMs.
-constexpr int kTile = 16;
-constexpr int kTiles = (kT / kTile) * (kT / kTile + 1) / 2;   // 10
+// Chunk statistics, every thread of the block: b[j] (fp64 prefix sums of
+// log sigmoid(f), rounded once) and ii[j] for the tc tokens of the chunk at
+// row0; dsc is scratch of kThreads / 32 doubles. Returns b[tc - 1].
+__device__ float chunk_stats(const float* __restrict__ i_pre, const float* __restrict__ f_pre,
+                             size_t row0, int tc, float* b, float* ii, double* dsc) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  double x = tid < tc ? static_cast<double>(log_sigmoid(f_pre[row0 + tid])) : 0.0;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double v = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += v;
+  }
+  if (lane == 31) dsc[warp] = x;
+  __syncthreads();
+  double base = 0.0;
+  for (int w = 0; w < warp; ++w) base += dsc[w];
+  if (tid < tc) {
+    b[tid] = static_cast<float>(base + x);
+    ii[tid] = i_pre[row0 + tid];
+  }
+  __syncthreads();
+  return b[tc - 1];
+}
 
+// max over the block of v (every thread passes one value); fsc: 8 floats
+__device__ float block_max(float v, float* fsc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (lane == 0) fsc[warp] = v;
+  __syncthreads();
+  float m = fsc[0];
+  for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, fsc[w]);
+  __syncthreads();
+  return m;
+}
+
+// ---------------------------------------------------------------- scores --
+// part[b][s][c][t][j] = sum over dims of slice s of q[t] . k[j], chunk c, for
+// the 64 x 64 tiles (ti >= tj) of the chunk's lower triangle. grid
+// (chunks * 10, slices, B); a block past its chunk's tiles returns. Rows of
+// q and k stream through two cp.async stages of 32 dims; thread (tx, ty)
+// takes rows ty + 16 r and columns tx + 16 s (r, s < 4), so the k rows a
+// warp reads fall on distinct banks.
 __global__ void __launch_bounds__(kThreads)
 mlstm_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    float* __restrict__ scores, int S, int dh) {
-  __shared__ float qs[kTile][kSK + 1];
-  __shared__ float ks[kTile][kSK + 1];
-  const int c = blockIdx.x / kTiles, b = blockIdx.y, tid = threadIdx.x;
-  int ti = 0, rest = blockIdx.x % kTiles;      // lower-triangle tile (ti, tj), tj <= ti
+                    float* __restrict__ part, int S, int dh, int nc) {
+  __shared__ __align__(16) float qs[2][kST][kSK + 4];
+  __shared__ __align__(16) float ks[2][kST][kSK + 4];
+  const int c = blockIdx.x / 10, sl = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  sct::allow_dependents();                     // the state pass runs beside this one
+  int ti = 0, rest = blockIdx.x % 10;          // lower-triangle tile (ti, tj), tj <= ti
   while (rest > ti) rest -= ++ti;
   const int tj = rest;
-  const int t0 = c * kT;
-  const int tc = min(kT, S - t0);
-  const int tx = tid % kTile, ty = tid / kTile;
-  const int rq = ti * kTile, rk = tj * kTile;  // first row of each tile in the chunk
-  const float* qb = q + ((size_t)b * S + t0 + rq) * dh;
-  const float* kb = k + ((size_t)b * S + t0 + rk) * dh;
-  float acc = 0.f;
-  for (int d0 = 0; d0 < dh; d0 += kSK) {
+  const int t0 = c * kT, tc = min(kT, S - t0);
+  if (ti * kST >= tc) return;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int rq = ti * kST, rk = tj * kST;
+  const int d_lo = sl * kSD, d_hi = min(dh, d_lo + kSD);
+  auto stage = [&](int d0, int buf) {
+    for (int e = tid; e < 2 * kST * kSK / 4; e += kThreads) {
+      const bool is_k = e >= kST * kSK / 4;
+      const int f = is_k ? e - kST * kSK / 4 : e;
+      const int r = f / (kSK / 4), d4 = 4 * (f % (kSK / 4));
+      const int row = (is_k ? rk : rq) + r;
+      const bool ok = row < tc;
+      const float* src = (is_k ? k : q) + (ok ? ((size_t)b * S + t0 + row) * dh + d0 + d4 : 0);
+      cp_async16(is_k ? &ks[buf][r][d4] : &qs[buf][r][d4], src, ok);
+    }
+  };
+  float acc[4][4] = {};
+  const int nst = (d_hi - d_lo) / kSK;         // dh is a multiple of 32
+  stage(d_lo, 0);
+  cp_async_commit();
+  for (int st = 0; st < nst; ++st) {
+    const int buf = st & 1;
+    if (st + 1 < nst) stage(d_lo + (st + 1) * kSK, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    for (int e = tid; e < kTile * kSK; e += kThreads) {
-      const int r = e / kSK, dd = e % kSK;
-      const bool in_d = d0 + dd < dh;            // dh is a multiple of 32, not of kSK
-      qs[r][dd] = in_d && rq + r < tc ? qb[(size_t)r * dh + d0 + dd] : 0.f;
-      ks[r][dd] = in_d && rk + r < tc ? kb[(size_t)r * dh + d0 + dd] : 0.f;
+#pragma unroll
+    for (int dd = 0; dd < kSK; dd += 4) {
+      float4 a[4], bb[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        a[r] = *reinterpret_cast<const float4*>(&qs[buf][ty + 16 * r][dd]);
+        bb[r] = *reinterpret_cast<const float4*>(&ks[buf][tx + 16 * r][dd]);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          acc[r][s] = fmaf(a[r].x, bb[s].x, acc[r][s]);
+          acc[r][s] = fmaf(a[r].y, bb[s].y, acc[r][s]);
+          acc[r][s] = fmaf(a[r].z, bb[s].z, acc[r][s]);
+          acc[r][s] = fmaf(a[r].w, bb[s].w, acc[r][s]);
+        }
     }
     __syncthreads();
-#pragma unroll 8
-    for (int dd = 0; dd < kSK; ++dd) acc = fmaf(qs[ty][dd], ks[tx][dd], acc);
   }
-  scores[(((size_t)b * (gridDim.x / kTiles) + c) * kT + rq + ty) * kT + rk + tx] = acc;
+  const int slices = gridDim.y;
+  float* out = part + (((size_t)b * slices + sl) * nc + c) * kT * kT;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      out[(size_t)(rq + ty + 16 * r) * kT + rk + tx + 16 * s] = acc[r][s];
 }
 
-// A tile of q and k for the state pass: rows < kT of dims [d0, d0 + dk), read
-// as float4 (dh a multiple of 32 and 16-byte aligned tensors keep every row
-// aligned; the wrapper checks both), kVecs vectors of each a thread. Held in
-// registers, so the next tile's loads are in flight while this one computes.
-constexpr int kVecs = kT * kDK / 4 / kThreads;   // 4
-struct TileRegs {
-  float4 q[kVecs], k[kVecs];
+// ----------------------------------------------------------------- state --
+// grid (column tiles, row tiles, B): block (et, dt, b) owns
+// C[b][dt*128 .. +128, et*128 .. +128]. Thread (tx, ty) holds rows
+// {4ty..4ty+3, 64+4ty..}, columns {4tx.., 64+4tx..}: 8 x 8 in registers.
+struct alignas(16) StateSmem {
+  float ks[2][kJS][kCT + 8];      // k rows of the stage, this tile's dims (then wa k)
+  float vs[2][kJS][kCT + 8];      // v rows, this tile's columns
+  float wa[kT];
+  float bcum[kT];
+  float ii[kT];
+  float ns[kCT];
+  float npart[2][kCT];
+  double dsc[kThreads / 32];
+  float fsc[kThreads / 32];
+};
+// the carried-state product q @ C: the tile and a 64-row block of q^T
+struct alignas(16) CarrySmem {
+  float cs[kCT][kCT + 4];
+  float qT[kCT][64 + 4];
 };
 
-__device__ __forceinline__ void load_tile(TileRegs& r, const float* __restrict__ q,
-                                          const float* __restrict__ k, size_t row0, int tc,
-                                          int dh, int d0, int dk) {
-#pragma unroll
-  for (int u = 0; u < kVecs; ++u) {
-    const int e = threadIdx.x + u * kThreads;
-    const int t = e / (kDK / 4), c4 = e % (kDK / 4);
-    const bool ok = t < tc && 4 * c4 < dk;
-    const size_t g = (row0 + t) * dh + d0 + 4 * c4;
-    r.q[u] = ok ? *reinterpret_cast<const float4*>(q + g) : make_float4(0.f, 0.f, 0.f, 0.f);
-    r.k[u] = ok ? *reinterpret_cast<const float4*>(k + g) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+// x = big + small, both tf32 (10 explicit significand bits each): 22 of
+// x's 24 bits; the three products big.big + big.small + small.big then
+// carry every product to ~2^-21, summed in fp32 (3xTF32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  const float r = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(r));
 }
 
-// q tile transposed into qT (dims x rows), k tile scaled by wa_j into kt.
-__device__ __forceinline__ void store_tile(const TileRegs& r, float* qT, float* kt,
-                                           const float* wa) {
-#pragma unroll
-  for (int u = 0; u < kVecs; ++u) {
-    const int e = threadIdx.x + u * kThreads;
-    const int t = e / (kDK / 4), c4 = e % (kDK / 4);
-    qT[(4 * c4 + 0) * kTP + t] = r.q[u].x;
-    qT[(4 * c4 + 1) * kTP + t] = r.q[u].y;
-    qT[(4 * c4 + 2) * kTP + t] = r.q[u].z;
-    qT[(4 * c4 + 3) * kTP + t] = r.q[u].w;
-    const float w = wa[t];
-    *reinterpret_cast<float4*>(kt + t * kTP + 4 * c4) =
-        make_float4(w * r.k[u].x, w * r.k[u].y, w * r.k[u].z, w * r.k[u].w);
-  }
+// c (16 x 8 fp32) += a (16 x 8 tf32, row) . b (8 x 8 tf32, col)
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// grid (dh / kDv, B): block (cb, b) owns C[b][:, cb*kDv : (cb+1)*kDv].
-__global__ void __launch_bounds__(kThreads, 1)
+// grid (column tiles, row tiles, B): block (et, dt, b) owns
+// C[b][dt*128 .. +128, et*128 .. +128]; warp (wm, wn) holds rows
+// 32 wm .. + 32 and columns 64 wn .. + 64 as 2 x 8 mma.m16n8k8 accumulator
+// tiles (fragment e of tile (mi, nt) is row 32 wm + 16 mi + g + 8 (e / 2),
+// column 64 wn + 8 nt + 2 t + e % 2, for lane 4 g + t).
+__global__ void __launch_bounds__(kThreads, 2)
 mlstm_state_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ i_pre,
                    const float* __restrict__ f_pre, const float* __restrict__ C0,
                    const float* __restrict__ n0, const float* __restrict__ m0_in,
-                   const float* __restrict__ scores, float* __restrict__ y,
+                   float* __restrict__ yq, float* __restrict__ qn, float* __restrict__ mprev,
                    float* __restrict__ C_out, float* __restrict__ n_out,
                    float* __restrict__ m_out, int S, int dh) {
-  extern __shared__ float4 smem4[];
-  float* Cs = reinterpret_cast<float*>(smem4);   // (dh, kDv)
-  float* ns = Cs + (size_t)dh * kDv;             // (dh,)
-  float* qT = ns + dh;                           // (kDK, kTP): q tile, transposed
-  float* kt = qT + kDK * kTP;                    // (kT, kTP): wa_j * k tile
-  float* vs = kt + kT * kTP;                     // (kT, kDv): v, this block's columns
-  float* wsT = vs + kT * kDv;                    // (kT, kTP): (w * scores)^T
-  float* bcum = wsT + kT * kTP;                  // (kT,) each
-  float* ii = bcum + kT;
-  float* wa = ii + kT;
-  float* mloc = wa + kT;
-  float* isc = mloc + kT;
-  float* deni = isc + kT;
-  float* qnp = deni + kT;                        // (4, kT): partial q . n0
-  float* npart = qnp + 4 * kT;                   // (4, kDK): partial sums of wa_j k_j
-  float* scal = npart + 4 * kDK;                 // m_new, decay0
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  StateSmem& sm = *reinterpret_cast<StateSmem*>(smem_raw);
+  CarrySmem& cm = *reinterpret_cast<CarrySmem*>(smem_raw + sizeof(StateSmem));
+  const int et = blockIdx.x, dt = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int d0 = dt * kCT, e0 = et * kCT;
+  const int nd = gridDim.y, nc = (S + kT - 1) / kT;
+  const bool carry = C0 != nullptr || nc > 1;
+  const bool keeps_n = et == 0;
+  sct::allow_dependents();                     // the output pass may launch and wait
 
-  const int cb = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int col0 = cb * kDv;
-  const int px = tid % 16, ty = tid / 16;        // columns 2px, 2px+1; rows 4ty..4ty+3
-  const int nc = (S + kT - 1) / kT;
-
-#pragma unroll 8
-  for (int e = tid; e < dh * kDv / 4; e += kThreads) {
-    const int d = e / (kDv / 4), c4 = e % (kDv / 4);
-    reinterpret_cast<float4*>(Cs)[e] =
-        C0 ? *reinterpret_cast<const float4*>(C0 + ((size_t)b * dh + d) * dh + col0 + 4 * c4)
-           : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  for (int d = tid; d < dh; d += kThreads) ns[d] = n0 ? n0[(size_t)b * dh + d] : 0.f;
+  auto row_of = [&](int mi, int e) { return 32 * wm + 16 * mi + g + 8 * (e >> 1); };
+  auto col_of = [&](int nt, int e) { return 64 * wn + 8 * nt + 2 * t4 + (e & 1); };
+  float creg[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = d0 + row_of(mi, e), col = e0 + col_of(nt, e);
+        creg[mi][nt][e] = C0 && d < dh && col < dh ? C0[((size_t)b * dh + d) * dh + col] : 0.f;
+      }
+  if (keeps_n && tid < kCT)
+    sm.ns[tid] = n0 && d0 + tid < dh ? n0[(size_t)b * dh + d0 + tid] : 0.f;
   float m0 = m0_in ? m0_in[b] : kNegInit;
-  // q . n0 and sum_j wa_j k_j split four ways over all threads: (row or
-  // dim) = tid % 64, part = tid / 64 takes every fourth term; the parts
-  // add in a fixed order
-  const int lane64 = tid % kT, part = tid / kT;
 
   for (int c = 0; c < nc; ++c) {
-    const int t0 = c * kT;
-    const int tc = min(kT, S - t0);
+    const int t0 = c * kT, tc = min(kT, S - t0);
     const size_t row0 = (size_t)b * S + t0;
-    TileRegs regs;                               // the first tile's loads start now
-    load_tile(regs, q, k, row0, tc, dh, 0, min(kDK, dh));
-    __syncthreads();
-    // ---- gate statistics of the chunk ----
-    if (tid < kT) {
-      bcum[tid] = tid < tc ? log_sigmoid(f_pre[row0 + tid]) : 0.f;
-      ii[tid] = tid < tc ? i_pre[row0 + tid] : 0.f;
-    }
-    __syncthreads();
-    if (tid == 0) {                              // prefix sums in fp64, one rounding
-      double acc = 0.0;
-      for (int j = 0; j < tc; ++j) {
-        acc += static_cast<double>(bcum[j]);
-        bcum[j] = static_cast<float>(acc);
+    if (dt == 0 && et == 0 && tid == 0) mprev[(size_t)b * nc + c] = m0;
+    // the chunk's first k / v stage is in flight while its statistics build
+    const int nst = (tc + kJS - 1) / kJS;
+    auto stage = [&](int st, int buf) {
+      for (int e = tid; e < 2 * kJS * kCT / 4; e += kThreads) {
+        const bool is_v = e >= kJS * kCT / 4;
+        const int f = is_v ? e - kJS * kCT / 4 : e;
+        const int j = f / (kCT / 4), c4 = 4 * (f % (kCT / 4));
+        const int t = st * kJS + j, col = (is_v ? e0 : d0) + c4;
+        const bool ok = t < tc && col < dh;
+        const float* src = (is_v ? v : k) + (ok ? (row0 + t) * dh + col : 0);
+        cp_async16(is_v ? &sm.vs[buf][j][c4] : &sm.ks[buf][j][c4], src, ok);
       }
-    }
-    __syncthreads();
-    const float btot = bcum[tc - 1];
-    if (tid < tc) {
-      const int t = tid;
-      float mx = ii[t];                          // j = t: b_t - b_t + i_t
-      for (int j = 0; j < t; ++j) mx = fmaxf(mx, bcum[t] - bcum[j] + ii[j]);
-      const float inter = bcum[t] + m0;
-      mloc[t] = fmaxf(inter, mx);
-      isc[t] = expf(inter - mloc[t]);
-      wa[t] = btot - bcum[t] + ii[t];            // a_j, exponentiated below
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float mn = btot + m0;
-      for (int j = 0; j < tc; ++j) mn = fmaxf(mn, wa[j]);
-      scal[0] = mn;
-      scal[1] = expf(btot + m0 - mn);
-    }
-    __syncthreads();
-    const float m_new = scal[0], decay0 = scal[1];
-    if (tid < kT) wa[tid] = tid < tc ? expf(wa[tid] - m_new) : 0.f;
-    // ---- w * scores (transposed), v slice ----
-    const float* sc = scores + ((size_t)b * nc + c) * kT * kT;
-    constexpr int kPer = kT * kT / kThreads;      // scores a thread
-    float scv[kPer];
+    };
+    stage(0, 0);
+    cp_async_commit();
+    const float btot = chunk_stats(i_pre, f_pre, row0, tc, sm.bcum, sm.ii, sm.dsc);
+    const float a_j = tid < tc ? (btot - sm.bcum[tid]) + sm.ii[tid] : kNegInit;
+    const float m_new = fmaxf(btot + m0, block_max(a_j, sm.fsc));
+    const float decay0 = expf((btot + m0) - m_new);
+    sm.wa[tid] = tid < tc ? expf(a_j - m_new) : 0.f;
+
+    // ---- the carried state's share of y: q @ C and q . n over this tile ----
+    if (carry && (c > 0 || C0 != nullptr)) {
 #pragma unroll
-    for (int u = 0; u < kPer; ++u) scv[u] = sc[tid + u * kThreads];
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int u = 0; u < kT * kDv / 4 / kThreads; ++u) {
-      const int e = tid + u * kThreads;
-      const int j = e / (kDv / 4), c4 = e % (kDv / 4);
-      reinterpret_cast<float4*>(vs)[e] =
-          j < tc ? *reinterpret_cast<const float4*>(v + (row0 + j) * dh + col0 + 4 * c4)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+        for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int e = tid + u * kThreads;
-      const int t = e / kT, j = e % kT;
-      wsT[j * kTP + t] = t < tc && j <= t
-          ? expf(bcum[t] - bcum[j] + ii[j] - mloc[t]) * scv[u] : 0.f;
-    }
-    __syncthreads();
-    if (tid < kT) {
-      float s = 0.f;
-      for (int j = 0; j < tc; ++j) s += wsT[j * kTP + tid];
-      deni[tid] = s;
-    }
-    // ---- intra-chunk numerator: (w * scores) @ v ----
-    float yi[4][2] = {}, yq[4][2] = {};
-    for (int j = 0; j < tc; ++j) {
-      const float4 w4 = *reinterpret_cast<const float4*>(wsT + j * kTP + 4 * ty);
-      const float2 v2 = *reinterpret_cast<const float2*>(vs + j * kDv + 2 * px);
-      const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+          for (int e = 0; e < 4; ++e) cm.cs[row_of(mi, e)][col_of(nt, e)] = creg[mi][nt][e];
+      for (int rb = 0; rb < tc; rb += 64) {
+        __syncthreads();                   // the tile written; the previous q block read
+        for (int e = tid; e < 64 * kCT / 4; e += kThreads) {
+          const int r = e / (kCT / 4), d4 = 4 * (e % (kCT / 4));
+          float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (rb + r < tc && d0 + d4 < dh)
+            a = *reinterpret_cast<const float4*>(q + (row0 + rb + r) * dh + d0 + d4);
+          cm.qT[d4][r] = a.x; cm.qT[d4 + 1][r] = a.y; cm.qT[d4 + 2][r] = a.z;
+          cm.qT[d4 + 3][r] = a.w;
+        }
+        __syncthreads();
+        // rows 4 (tid / 32) .. + 3 and 32 + the same, columns 4 (tid % 32) .. + 3
+        const int rr = 4 * (tid >> 5), cc = 4 * (tid & 31);
+        float o[8][4] = {};
+        for (int d = 0; d < kCT; ++d) {
+          const float4 qa = *reinterpret_cast<const float4*>(&cm.qT[d][rr]);
+          const float4 qb = *reinterpret_cast<const float4*>(&cm.qT[d][32 + rr]);
+          const float4 cv = *reinterpret_cast<const float4*>(&cm.cs[d][cc]);
+          const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+          const float cw[4] = {cv.x, cv.y, cv.z, cv.w};
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        yi[a][0] = fmaf(w[a], v2.x, yi[a][0]);
-        yi[a][1] = fmaf(w[a], v2.y, yi[a][1]);
-      }
-    }
-    // ---- the carried state, a tile of dims at a time ----
-    float qn_part = 0.f;
-    for (int d0 = 0; d0 < dh; d0 += kDK) {
-      const int dk = min(kDK, dh - d0);
-      __syncthreads();                           // previous tile consumed
-      store_tile(regs, qT, kt, wa);
-      __syncthreads();
-      if (d0 + kDK < dh) load_tile(regs, q, k, row0, tc, dh, d0 + kDK, min(kDK, dh - d0 - kDK));
-      // y's inter term q @ C0 and den's q . n0, with the state before this chunk
-      for (int dd = 0; dd < dk; ++dd) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qT + dd * kTP + 4 * ty);
-        const float2 c2 = *reinterpret_cast<const float2*>(Cs + (size_t)(d0 + dd) * kDv + 2 * px);
-        const float qq[4] = {q4.x, q4.y, q4.z, q4.w};
+          for (int r = 0; r < 8; ++r)
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          yq[a][0] = fmaf(qq[a], c2.x, yq[a][0]);
-          yq[a][1] = fmaf(qq[a], c2.y, yq[a][1]);
+            for (int s = 0; s < 4; ++s) o[r][s] = fmaf(qv[r], cw[s], o[r][s]);
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int t = rb + (r < 4 ? rr + r : 32 + rr + r - 4);
+          if (t < tc && e0 + cc < dh)
+            *reinterpret_cast<float4*>(yq + (((size_t)b * nd + dt) * S + t0 + t) * dh + e0 + cc) =
+                make_float4(o[r][0], o[r][1], o[r][2], o[r][3]);
+        }
+        if (keeps_n && tid < 64 && rb + tid < tc) {
+          float s = 0.f;
+          for (int d = 0; d < kCT; ++d) s = fmaf(cm.qT[d][tid], sm.ns[d], s);
+          qn[((size_t)b * nd + dt) * S + t0 + rb + tid] = s;
         }
       }
-      for (int dd = part; dd < dk; dd += 4)
-        qn_part = fmaf(qT[dd * kTP + lane64], ns[d0 + dd], qn_part);
-      __syncthreads();                           // old C and n of this tile read
-      // C[d, :] = decay0 * C[d, :] + sum_j (wa_j k_j[d]) v_j[:]
-      if (4 * ty < dk) {
-        float cu[4][2] = {};
-        for (int j = 0; j < tc; ++j) {
-          const float4 k4 = *reinterpret_cast<const float4*>(kt + j * kTP + 4 * ty);
-          const float2 v2 = *reinterpret_cast<const float2*>(vs + j * kDv + 2 * px);
-          const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
 #pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            cu[a][0] = fmaf(kk[a], v2.x, cu[a][0]);
-            cu[a][1] = fmaf(kk[a], v2.y, cu[a][1]);
+      for (int mi = 0; mi < 2; ++mi)       // the tile back (not held across the product)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) creg[mi][nt][e] = cm.cs[row_of(mi, e)][col_of(nt, e)];
+    }
+
+    // ---- C = decay0 C + (wa k)^T v over the chunk's tokens, 3xTF32 ----
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) creg[mi][nt][e] *= decay0;
+    float nacc = 0.f;
+    __syncthreads();                       // wa visible
+    for (int st = 0; st < nst; ++st) {
+      const int buf = st & 1;
+      if (st + 1 < nst) stage(st + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      for (int e = tid; e < kJS * kCT / 4; e += kThreads) {   // wa_j k_j, once a stage
+        const int j = e / (kCT / 4), c4 = 4 * (e % (kCT / 4));
+        float4* x = reinterpret_cast<float4*>(&sm.ks[buf][j][c4]);
+        const float w = sm.wa[st * kJS + j];
+        *x = make_float4(w * x->x, w * x->y, w * x->z, w * x->w);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kJS; kk += 8) {
+        uint32_t ab[2][4], as[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const int r = 32 * wm + 16 * mi + g;
+          split_tf32(sm.ks[buf][kk + t4][r], ab[mi][0], as[mi][0]);
+          split_tf32(sm.ks[buf][kk + t4][r + 8], ab[mi][1], as[mi][1]);
+          split_tf32(sm.ks[buf][kk + t4 + 4][r], ab[mi][2], as[mi][2]);
+          split_tf32(sm.ks[buf][kk + t4 + 4][r + 8], ab[mi][3], as[mi][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int cb = 64 * wn + 8 * nt + g;
+          uint32_t bb0, bs0, bb1, bs1;
+          split_tf32(sm.vs[buf][kk + t4][cb], bb0, bs0);
+          split_tf32(sm.vs[buf][kk + t4 + 4][cb], bb1, bs1);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma_tf32(creg[mi][nt], as[mi], bb0, bb1);
+            mma_tf32(creg[mi][nt], ab[mi], bs0, bs1);
+            mma_tf32(creg[mi][nt], ab[mi], bb0, bb1);
           }
         }
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          float* cr = Cs + (size_t)(d0 + 4 * ty + a) * kDv + 2 * px;
-          cr[0] = decay0 * cr[0] + cu[a][0];
-          cr[1] = decay0 * cr[1] + cu[a][1];
-        }
       }
-      {
-        float s = 0.f;
-        if (lane64 < dk)
-          for (int j = part; j < tc; j += 4) s += kt[j * kTP + lane64];
-        npart[part * kDK + lane64] = s;
+      if (keeps_n) {                       // n's sum: two threads a dim, 16 tokens each
+        const int dd = tid & (kCT - 1), hf = tid >> 7;
+        for (int jj = hf * (kJS / 2); jj < (hf + 1) * (kJS / 2); ++jj)
+          nacc += sm.ks[buf][jj][dd];
       }
-      __syncthreads();
-      if (tid < dk)
-        ns[d0 + tid] = decay0 * ns[d0 + tid] +
-                       ((npart[tid] + npart[kDK + tid]) + (npart[2 * kDK + tid] + npart[3 * kDK + tid]));
+      __syncthreads();                     // the stage is free again
     }
-    qnp[part * kT + lane64] = qn_part;
-    __syncthreads();
-    // ---- outputs of the chunk ----
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int t = 4 * ty + a;
-      if (t < tc) {
-        const float qn = (qnp[t] + qnp[kT + t]) + (qnp[2 * kT + t] + qnp[3 * kT + t]);
-        const float den = fmaxf(fabsf(deni[t] + isc[t] * qn), expf(-mloc[t]));
-        float* yr = y + (row0 + t) * dh + col0 + 2 * px;
-        yr[0] = (yi[a][0] + isc[t] * yq[a][0]) / den;
-        yr[1] = (yi[a][1] + isc[t] * yq[a][1]) / den;
-      }
+    if (keeps_n) {
+      sm.npart[tid >> 7][tid & (kCT - 1)] = nacc;
+      __syncthreads();
+      if (tid < kCT) sm.ns[tid] = decay0 * sm.ns[tid] + (sm.npart[0][tid] + sm.npart[1][tid]);
+      __syncthreads();
     }
     m0 = m_new;
   }
 
-  __syncthreads();
-  for (int e = tid; e < dh * kDv / 4; e += kThreads) {
-    const int d = e / (kDv / 4), c4 = e % (kDv / 4);
-    *reinterpret_cast<float4*>(C_out + ((size_t)b * dh + d) * dh + col0 + 4 * c4) =
-        reinterpret_cast<const float4*>(Cs)[e];
-  }
-  if (cb == 0) {
-    for (int d = tid; d < dh; d += kThreads) n_out[(size_t)b * dh + d] = ns[d];
-    if (tid == 0) m_out[b] = m0;
-  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int d = d0 + row_of(mi, e), col = e0 + col_of(nt, e);
+        if (d < dh && col < dh)
+          *reinterpret_cast<float2*>(C_out + ((size_t)b * dh + d) * dh + col) =
+              make_float2(creg[mi][nt][e], creg[mi][nt][e + 1]);
+      }
+  if (keeps_n && tid < kCT && d0 + tid < dh) n_out[(size_t)b * dh + d0 + tid] = sm.ns[tid];
+  if (et == 0 && dt == 0 && tid == 0) m_out[b] = m0;
+  sct::grid_dependency_wait();                 // complete only after the scores pass
 }
 
-size_t state_smem_bytes(int dh) {
-  return sizeof(float) * ((size_t)dh * kDv + dh + kDK * kTP + 2 * kT * kTP + kT * kDv +
-                          10 * kT + 4 * kDK + 4);
+// ---------------------------------------------------------------- output --
+// grid (chunks * 16 row tiles, column tiles, B): y for 16 rows of a chunk x
+// 256 value columns; a block past its chunk's rows returns.
+struct alignas(16) OutSmem {
+  float bcum[kT];
+  float ii[kT];
+  float wT[kT][kYR + 8];          // (w * S)^T: tokens x rows
+  float vs[2][kYJ][kYC + 8];
+  float mloc[kYR], isc[kYR], den[kYR];
+  double dsc[kThreads / 32];
+};
+
+__global__ void __launch_bounds__(kThreads)
+mlstm_out_kernel(const float* __restrict__ v, const float* __restrict__ i_pre,
+                 const float* __restrict__ f_pre, const float* __restrict__ m0_in,
+                 const float* part, const float* yq, const float* qn, const float* mprev,
+                 float* __restrict__ y, int S, int dh, int slices, int nd, int has_state) {
+  // part, yq, qn and mprev come from the grids this one may overlap: read
+  // through L2 (__ldcg), after grid_dependency_wait
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  OutSmem& sm = *reinterpret_cast<OutSmem*>(smem_raw);
+  const int c = blockIdx.x / (kT / kYR), rt = blockIdx.x % (kT / kYR);
+  const int ct = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int nc = (S + kT - 1) / kT;
+  const int t0 = c * kT, tc = min(kT, S - t0);
+  const int r_lo = rt * kYR;
+  if (r_lo >= tc) {
+    sct::grid_dependency_wait();
+    return;
+  }
+  const int nr = min(kYR, tc - r_lo);
+  const int jmax = r_lo + nr;                // tokens j <= the tile's last row
+  const int jpad = (jmax + 7) / 8 * 8;
+  const size_t row0 = (size_t)b * S + t0;
+  // v's first stage is in flight while the statistics and w * S are built
+  const int e0 = ct * kYC;
+  const int nst = (jmax + kYJ - 1) / kYJ;
+  auto stage = [&](int st, int buf) {
+    for (int e = tid; e < kYJ * kYC / 4; e += kThreads) {
+      const int j = e / (kYC / 4), c4 = 4 * (e % (kYC / 4));
+      const int t = st * kYJ + j, col = e0 + c4;
+      const bool ok = t < jmax && col < dh;
+      cp_async16(&sm.vs[buf][j][c4], v + (ok ? (row0 + t) * dh + col : 0), ok);
+    }
+  };
+  stage(0, 0);
+  cp_async_commit();
+  chunk_stats(i_pre, f_pre, row0, tc, sm.bcum, sm.ii, sm.dsc);
+  sct::grid_dependency_wait();               // the scores and the state pass are done
+  const float m0 = c == 0 ? (m0_in ? m0_in[b] : kNegInit) : __ldcg(mprev + (size_t)b * nc + c);
+
+  // the rows' stabiliser: 16 lanes a row, an exact max
+  {
+    const int r = tid >> 4, l16 = tid & 15, t = r_lo + r;
+    float mx = kNegInit;
+    if (r < nr)
+      for (int j = l16; j <= t; j += 16) mx = fmaxf(mx, (sm.bcum[t] - sm.bcum[j]) + sm.ii[j]);
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (l16 == 0 && r < nr) {
+      const float inter = sm.bcum[t] + m0;
+      const float ml = fmaxf(inter, mx);
+      sm.mloc[r] = ml;
+      sm.isc[r] = expf(inter - ml);
+    }
+  }
+  __syncthreads();
+  // w * S, transposed, and its row sums: 16 lanes a row, every slice's load
+  // of a score in flight together, the slices summed in order
+  {
+    const size_t cstride = (size_t)kT * kT;
+    const int r = tid >> 4, l16 = tid & 15, t = r_lo + r;
+    const float* prow = part + ((size_t)b * slices * nc + c) * cstride + (size_t)t * kT;
+    float dsum = 0.f;
+#pragma unroll 4
+    for (int j = l16; j < jpad; j += 16) {       // zeros past jmax: whole 8-token steps
+      float w = 0.f;
+      if (r < nr && j <= t) {
+        float sv[kMaxSlices];
+#pragma unroll
+        for (int sl = 0; sl < kMaxSlices; ++sl)
+          sv[sl] = sl < slices ? __ldcg(prow + (size_t)sl * nc * cstride + j) : 0.f;
+        float s = sv[0];
+#pragma unroll
+        for (int sl = 1; sl < kMaxSlices; ++sl)
+          if (sl < slices) s += sv[sl];
+        w = expf(((sm.bcum[t] - sm.bcum[j]) + sm.ii[j]) - sm.mloc[r]) * s;
+      }
+      sm.wT[j][r] = w;
+      dsum += w;
+    }
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
+    if (l16 == 0) sm.den[r] = dsum;
+  }
+  __syncthreads();
+
+  // (w * S) @ v on the tensor cores, 3xTF32: the 16 rows are one m16 tile;
+  // warp w takes columns 32 w .. + 32 of the block's 256 (4 n8 tiles)
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  float acc[4][4] = {};
+  for (int st = 0; st < nst; ++st) {
+    const int buf = st & 1;
+    if (st + 1 < nst) stage(st + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int jn = min(kYJ, jmax - st * kYJ);
+    for (int kk = 0; kk < jn; kk += 8) {
+      const int j = st * kYJ + kk;
+      uint32_t ab[4], as[4];
+      split_tf32(sm.wT[j + t4][g], ab[0], as[0]);
+      split_tf32(sm.wT[j + t4][g + 8], ab[1], as[1]);
+      split_tf32(sm.wT[j + t4 + 4][g], ab[2], as[2]);
+      split_tf32(sm.wT[j + t4 + 4][g + 8], ab[3], as[3]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int cb = 32 * warp + 8 * nt + g;
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(sm.vs[buf][kk + t4][cb], bb0, bs0);
+        split_tf32(sm.vs[buf][kk + t4 + 4][cb], bb1, bs1);
+        mma_tf32(acc[nt], as, bb0, bb1);
+        mma_tf32(acc[nt], ab, bs0, bs1);
+        mma_tf32(acc[nt], ab, bb0, bb1);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int rr = g + 8 * hf;
+    if (rr >= nr) continue;
+    const int t = r_lo + rr;
+    const float isc = sm.isc[rr];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = e0 + 32 * warp + 8 * nt + 2 * t4;
+      if (col >= dh) continue;
+      float2 inter = make_float2(0.f, 0.f);
+      float qnv = 0.f;
+      if (has_state || c > 0) {              // the carried state's slices, in order
+        for (int s = 0; s < nd; ++s) {
+          const float2 p = __ldcg(reinterpret_cast<const float2*>(
+              yq + (((size_t)b * nd + s) * S + t0 + t) * dh + col));
+          inter.x += p.x;
+          inter.y += p.y;
+          qnv += __ldcg(qn + ((size_t)b * nd + s) * S + t0 + t);
+        }
+      }
+      const float den = fmaxf(fabsf(sm.den[rr] + isc * qnv), expf(-sm.mloc[rr]));
+      *reinterpret_cast<float2*>(y + (row0 + t) * dh + col) =
+          make_float2((acc[nt][2 * hf] + isc * inter.x) / den,
+                      (acc[nt][2 * hf + 1] + isc * inter.y) / den);
+    }
+  }
 }
 
 }  // namespace
 
-// dh a multiple of kDv and at most 1024 (C's slice must fit shared memory),
-// q, k, v, C0 and C 16-byte aligned; the wrapper checks all three.
-// scores: scratch of B * ceil(S / 64) * 64 * 64 floats.
+// dh a multiple of 32 and at most 1024; q, k, v, C0 and C 16-byte aligned
+// (the wrapper checks all three). Scratch: part B * ceil(dh / 128) *
+// ceil(S / 256) * 256 * 256 floats; with a carried state (C0 given or S >
+// 256) yq B * ceil(dh / 128) * S * dh floats and qn B * ceil(dh / 128) * S
+// floats (else unused); mprev B * ceil(S / 256) floats.
 extern "C" int sct_mlstm_chunk(const void* q, const void* k, const void* v, const void* i_pre,
                                const void* f_pre, const void* C0, const void* n0,
-                               const void* m0, void* scores, void* y, void* C, void* n,
-                               void* m, int B, int S, int dh, void* stream) {
+                               const void* m0, void* part, void* yq, void* qn, void* mprev,
+                               void* y, void* C, void* n, void* m, int B, int S, int dh,
+                               void* stream) {
   if (B <= 0) return cudaSuccess;
-  if (S <= 0 || dh <= 0 || dh % kDv != 0 || dh > 1024) return cudaErrorInvalidValue;
+  if (S <= 0 || dh <= 0 || dh % 32 != 0 || dh > 1024) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nc = (S + kT - 1) / kT;
-  mlstm_scores_kernel<<<dim3(nc * kTiles, B), kThreads, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<float*>(scores), S, dh);
+  const int nc = (S + kT - 1) / kT, nd = (dh + kCT - 1) / kCT, slices = (dh + kSD - 1) / kSD;
+  const bool carry = C0 != nullptr || nc > 1;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* ip = static_cast<const float*>(i_pre);
+  const float* fp = static_cast<const float*>(f_pre);
+  mlstm_scores_kernel<<<dim3(nc * 10, slices, B), kThreads, 0, st>>>(
+      qf, kf, static_cast<float*>(part), S, dh, nc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = state_smem_bytes(dh);
-  err = sct::allow_smem(mlstm_state_kernel, smem);
+  const size_t state_smem = sizeof(StateSmem) + (carry ? sizeof(CarrySmem) : 0);
+  err = sct::allow_smem(mlstm_state_kernel, state_smem);
   if (err != cudaSuccess) return err;
-  mlstm_state_kernel<<<dim3(dh / kDv, B), kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(i_pre), static_cast<const float*>(f_pre),
+  err = sct::launch_dependent(
+      mlstm_state_kernel, dim3(nd, nd, B), dim3(kThreads), state_smem, st, qf, kf, vf, ip, fp,
       static_cast<const float*>(C0), static_cast<const float*>(n0),
-      static_cast<const float*>(m0), static_cast<const float*>(scores),
-      static_cast<float*>(y), static_cast<float*>(C), static_cast<float*>(n),
+      static_cast<const float*>(m0), static_cast<float*>(yq), static_cast<float*>(qn),
+      static_cast<float*>(mprev), static_cast<float*>(C), static_cast<float*>(n),
       static_cast<float*>(m), S, dh);
+  if (err != cudaSuccess) return err;
+  err = sct::allow_smem(mlstm_out_kernel, sizeof(OutSmem));
+  if (err != cudaSuccess) return err;
+  err = sct::launch_dependent(
+      mlstm_out_kernel, dim3(nc * (kT / kYR), (dh + kYC - 1) / kYC, B), dim3(kThreads),
+      sizeof(OutSmem), st, vf, ip, fp, static_cast<const float*>(m0),
+      static_cast<const float*>(part), static_cast<const float*>(yq),
+      static_cast<const float*>(qn), static_cast<const float*>(mprev), static_cast<float*>(y),
+      S, dh, slices, nd, C0 != nullptr ? 1 : 0);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -16,9 +16,17 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.mlstm_ref import mlstm_chunk_ref
 
-CHUNK = 64            # the kernel's chunk length (csrc/mlstm_chunk.cu kT)
-COLS = 32             # value columns of C per state block (kDv)
-MAX_DH = 1024         # C's column slice must fit one block's shared memory
+CHUNK = 256           # the kernel's chunk length (csrc/mlstm_chunk.cu kT): the reference's
+COLS = 32             # dh is a multiple of this
+MAX_DH = 1024         # the widest head the kernel takes
+TILE = 128            # C's tiles (kCT) and the score slices (kSD)
+
+
+def chunk_lengths(S: int) -> list:
+    """The kernel's chunks of an S-token call: T = min(256, S), the
+    reference's, with a ragged last chunk past 256 (the reference takes one
+    chunk of S when 256 does not divide S)."""
+    return [min(CHUNK, S - c0) for c0 in range(0, S, CHUNK)]
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -27,8 +35,8 @@ def mlstm_chunk_cuda(q, k, v, i_pre, f_pre, state: Optional[State] = None):
     """The kernel launch: q/k/v (B, S, dh), i_pre/f_pre (B, S) and the
     optional state (C (B, dh, dh), n (B, dh), m (B,)), all fp32 and
     contiguous on one CUDA device; dh a multiple of 32, at most 1024.
-    Returns (y, (C, n, m)). One call is two launches (scores, then the
-    state walk) and counts once."""
+    Returns (y, (C, n, m)). One call is three launches (the scores, the
+    state's tiles, the outputs) and counts once."""
     B, S, dh = q.shape
     if k.shape != q.shape or v.shape != q.shape or i_pre.shape != (B, S) \
             or f_pre.shape != (B, S):
@@ -53,17 +61,22 @@ def mlstm_chunk_cuda(q, k, v, i_pre, f_pre, state: Optional[State] = None):
         raise ValueError("mlstm_chunk: q, k, v and C0 must be 16-byte aligned (the kernel "
                          "reads their rows as float4)")
     dev = q.device
-    nc = -(-S // CHUNK)
-    scores = torch.empty((B, nc, CHUNK, CHUNK), dtype=torch.float32, device=dev)
+    nc, nd = len(chunk_lengths(S)), -(-dh // TILE)
+    f32 = dict(dtype=torch.float32, device=dev)
+    part = torch.empty((B, nd, nc, CHUNK, CHUNK), **f32)     # score slices
+    carry = state is not None or nc > 1                       # a q @ C0 product runs
+    yq = torch.empty((B, nd, S, dh) if carry else (1,), **f32)
+    qn = torch.empty((B, nd, S) if carry else (1,), **f32)
+    mprev = torch.empty((B, nc), **f32)
     y = torch.empty_like(q)
-    C = torch.empty((B, dh, dh), dtype=torch.float32, device=dev)
-    n = torch.empty((B, dh), dtype=torch.float32, device=dev)
-    m = torch.empty((B,), dtype=torch.float32, device=dev)
+    C = torch.empty((B, dh, dh), **f32)
+    n = torch.empty((B, dh), **f32)
+    m = torch.empty((B,), **f32)
     st = [t.data_ptr() for t in state] if state is not None else [None] * 3
     err = build.library().sct_mlstm_chunk(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(), f_pre.data_ptr(),
-        *st, scores.data_ptr(), y.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(),
-        B, S, dh, build.stream_of(q))
+        *st, part.data_ptr(), yq.data_ptr(), qn.data_ptr(), mprev.data_ptr(), y.data_ptr(),
+        C.data_ptr(), n.data_ptr(), m.data_ptr(), B, S, dh, build.stream_of(q))
     build.check(err, "mlstm_chunk")
     build.LAUNCHES["mlstm_chunk"] += 1
     return y, (C, n, m)

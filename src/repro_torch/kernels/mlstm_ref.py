@@ -76,7 +76,7 @@ def mlstm_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Chunks as the reference does: T = min(chunk, S), and one chunk of
     length S when T does not divide S; with ``ragged`` the last chunk is
-    shorter instead, as the kernel cuts them (``chunk`` = its 64). Any
+    shorter instead, as the kernel cuts them (``chunk`` = its 256). Any
     chunking gives the same function in exact arithmetic (m is a running
     max)."""
     B, S, dh = q.shape

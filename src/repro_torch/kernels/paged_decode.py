@@ -11,6 +11,8 @@ The tensor's device decides: CPU tensors run the plain version
 """
 from __future__ import annotations
 
+from typing import List, Sequence, Tuple
+
 import torch
 
 from repro_torch.kernels import build
@@ -24,6 +26,51 @@ from repro_torch.kernels.paged_ref import (
 # the MLA kernel keeps a thread's share of the latent accumulator in
 # registers: at most this latent width (deepseek-v2/v3: 512)
 MLA_MAX_LATENT = 512
+MLA_HEADS = 64          # query heads a block serves from one staged tile
+MLA_ROWS = 16           # token rows of a staged tile
+MLA_MAX_SMEM = 232448   # shared memory a Hopper block may take
+H100_SMS = 132
+
+
+def mla_smem_bytes(lat: int, rope: int, cold: bool) -> int:
+    """Shared memory of one MLA block (``csrc/paged_mla_decode.cu``
+    ``make_layout``): fp32 q rows for 64 heads, a two-tile bf16 ring, the
+    cold tier's int8 codes and scales, the score tiles and statistics."""
+    lp = -(-lat // 16) * 16
+    kd = lp + -(-rope // 16) * 16
+    total = 4 * MLA_HEADS * (kd + 8) + 2 * 2 * MLA_ROWS * (kd + 8)
+    if cold:
+        total += 2 * MLA_ROWS * kd + 4 * 2 * kd
+    return total + 4 * 2 * MLA_HEADS * 24 + 4 * 3 * MLA_HEADS
+
+
+def mla_geometry(b: int, h: int, n_pages: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """(pages an item walks, items a slot can have) of an MLA launch, from
+    what the host knows without a device sync: the slots ``b``, the heads
+    ``h`` and the table width ``n_pages`` (the engine keeps no host-side
+    bound on live pages). A slot's table is cut into as many items as
+    leave b x items x head groups within the ``sms`` SMs (one page an item
+    while the pages alone fit), of equal length. The grid is b x items a
+    slot x head groups (:func:`mla_items`)."""
+    per_slot = max(1, sms // (b * -(-h // MLA_HEADS)))
+    ppi = -(-n_pages // per_slot)
+    return ppi, -(-n_pages // ppi)
+
+
+def mla_items(seq_lens: Sequence[int], page: int, n_pages: int,
+              ppi: int) -> List[Tuple[int, int, int, int]]:
+    """The kernel's live work items: (block, slot, first page, end page).
+    Block i x items a slot + k takes pages [k ppi, (k + 1) ppi) of slot i,
+    cut at the slot's live pages (up to the one holding position
+    seq_lens[i], at most the table width); a block whose item starts past
+    them returns before any barrier and is not listed."""
+    per_slot = -(-n_pages // ppi)
+    items = []
+    for i, n in enumerate(seq_lens):
+        live = min(n_pages, int(n) // page + 1)
+        items += [(i * per_slot + j // ppi, i, j, min(live, j + ppi))
+                  for j in range(0, live, ppi)]
+    return items
 
 
 def _check_pools(name, q, k_pool, v_pool, block_table, seq_lens):
@@ -135,6 +182,9 @@ def _check_mla(name, q_lat, q_rope, ckv_pool, kr_pool, block_table, seq_lens):
             f"{tuple(block_table.shape)}, seq_lens {tuple(seq_lens.shape)}")
     if lat > MLA_MAX_LATENT:
         raise ValueError(f"{name}: latent width {lat} > {MLA_MAX_LATENT}, the kernel's limit")
+    if mla_smem_bytes(lat, q_rope.shape[2], name.endswith("_cold")) > MLA_MAX_SMEM:
+        raise ValueError(f"{name}: latent {lat} + rope {q_rope.shape[2]} is past the "
+                         f"kernel's shared-memory limit")
     if q_rope.dtype != q_lat.dtype:
         raise TypeError(f"{name}: q_lat {q_lat.dtype} and q_rope {q_rope.dtype} differ")
     if block_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
@@ -145,15 +195,26 @@ def _check_mla(name, q_lat, q_rope, ckv_pool, kr_pool, block_table, seq_lens):
 
 
 def _mla_launch(name, fn, q_lat, q_rope, ckv_pool, kr_pool, block_table, seq_lens, scale,
-                cold=()):
+                cold=(), ppi=None):
+    from repro_torch.kernels.spectral_matmul import _sm_count
+
     b, h, lat = q_lat.shape
     q_code = build.dtype_code(q_lat, name)
     build.require_cuda(name, q_lat, q_rope, ckv_pool, kr_pool, block_table, seq_lens, *cold)
+    n_pages = block_table.shape[1]
+    if ppi is None:
+        ppi, per_slot = mla_geometry(b, h, n_pages, _sm_count(q_lat.device.index))
+    else:                               # a probe's choice (tools/tc_probe.py --mla --split)
+        per_slot = -(-n_pages // ppi)
     out = torch.empty_like(q_lat)
+    items = b * per_slot if per_slot > 1 else 0      # scratch of the partial states
+    part_o = torch.empty((max(items, 1), h, lat), dtype=torch.float32, device=q_lat.device)
+    part_ml = torch.empty((max(items, 1), h, 2), dtype=torch.float32, device=q_lat.device)
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(), kr_pool.data_ptr(),
              *(t.data_ptr() for t in cold), block_table.data_ptr(), seq_lens.data_ptr(),
-             out.data_ptr(), b, h, lat, q_rope.shape[2], ckv_pool.shape[1],
-             block_table.shape[1], q_code, float(scale), build.stream_of(q_lat))
+             out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, h, lat,
+             q_rope.shape[2], ckv_pool.shape[1], n_pages, ppi, q_code, float(scale),
+             build.stream_of(q_lat))
     build.check(err, name)
     build.LAUNCHES[name] += 1
     return out

@@ -85,3 +85,24 @@ def paged_mla_decode_cold_ref(q_lat, q_rope, ckv_pool, kr_pool, ckv_q8, ckv_scal
     ckv = torch.where(sel, ckv_q8.float() * ckv_scale.float()[:, None], ckv_pool.float())
     kr = torch.where(sel, kr_q8.float() * kr_scale.float()[:, None], kr_pool.float())
     return paged_mla_decode_ref(q_lat, q_rope, ckv, kr, block_table, seq_lens, scale=scale)
+
+
+def bf16x3(x: torch.Tensor):
+    """The MLA kernel's split of an fp32 operand into three bf16 parts,
+    ``x = hi + mid + lo`` (``csrc/paged_mla_decode.cu`` ``split3``): hi
+    rounds x, mid rounds x - hi, lo rounds what is left. Both differences
+    are exact in fp32 and the parts carry all 24 significand bits, so
+    (hi + mid) + lo gives x back for normal inputs."""
+    hi = x.float().to(torch.bfloat16)
+    r = x.float() - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def bf16x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (fp32) @ b (bf16-exact values) as the kernel's tensor-core products
+    take it: three bf16 products, each exact, summed in fp32, lo first."""
+    hi, mid, lo = bf16x3(a)
+    bf = b.float()
+    return (lo.float() @ bf + mid.float() @ bf) + hi.float() @ bf

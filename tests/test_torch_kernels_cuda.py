@@ -74,14 +74,16 @@ SPECTRAL_Q8 = SPECTRAL_Q8_SHAPES
 PAGED = [(5, 2, 3, 64, 4, 6), (4, 1, 4, 20, 3, 5), (4, 4, 1, 48, 8, 4), (8, 8, 4, 64, 16, 12),
          (4, 8, 4, 128, 16, 12)]     # jamba's attention layers: head dim 128
 # b, h, lat, rope, page, n_pages_per_seq of the absorbed-MLA decode: the
-# reduced deepseek's widths, ragged head groups and page sizes, and
-# deepseek-v3-671b's (128 heads, latent 512, rope 64, page 16)
+# reduced deepseek's widths, ragged head groups (72 heads: a 64-head block
+# and a block of 8) and page sizes (40 rows: three 16-row tiles, the last
+# ragged), and deepseek-v3-671b's (128 heads, latent 512, rope 64, page 16)
 MLA = [(3, 4, 16, 8, 4, 6), (4, 20, 32, 12, 3, 5), (2, 16, 512, 64, 16, 4),
-       (4, 128, 512, 64, 16, 12), (1, 128, 512, 64, 16, 12)]
-# (B, S, dh) of the mLSTM kernel: a ragged 64-token chunk, one token, two
-# and sixteen chunks; the reduced head width and xlstm-1.3b's 1024
+       (4, 128, 512, 64, 16, 12), (1, 128, 512, 64, 16, 12), (2, 72, 64, 16, 40, 3)]
+# (B, S, dh) of the mLSTM kernel: one token, a ragged chunk, one and two
+# chunks of 256 (the second of one token), four; the reduced head width and
+# xlstm-1.3b's 1024
 MLSTM = ([(B, S, 32) for B in (1, 4) for S in (1, 37, 64, 300)]
-         + [(4, 160, 1024), (1, 1000, 1024)])
+         + [(4, 160, 1024), (1, 256, 1024), (1, 257, 1024), (1, 1000, 1024)])
 # (b, S, di, ds) of the selective scan: one token, ragged channels and
 # steps, jamba's prefill (di 8192, ds 16), every state width it is built for
 MAMBA = [(1, 1, 128, 16), (2, 37, 200, 16), (1, 160, 8192, 16), (2, 300, 96, 4),
@@ -307,6 +309,25 @@ def test_paged_mla_decode_cold_kernel_vs_plain(cuda, case, dtype, p_cold):
                            paged_mla_decode(q_lat, q_rope, ckv, kr, bt, sl, scale=scale))
 
 
+@pytest.mark.parametrize("cold", [False, True], ids=["hot", "cold"])
+def test_paged_mla_decode_live_pages_fewer_than_the_table(cuda, cold):
+    """Slots whose live pages are far fewer than the table's 16 (one of
+    them empty): the grid spans the table, the live items sit on its first
+    blocks and the rest return at once. Against the plain version, every
+    page cold in the cold kernel, and two calls give the same bits."""
+    lens = [3, 20, 0, 40]
+    scale = 1.0 / math.sqrt(192)
+    args = mla_inputs(lens, 16, 128, 512, 64, 16, p_cold=1.0 if cold else None, seed=5,
+                      device=cuda)
+    kern = paged_mla_decode_cold if cold else paged_mla_decode
+    ref = paged_mla_decode_cold_ref if cold else paged_mla_decode_ref
+    if cold:
+        args[-1].fill_(1)
+    assert_kernel_matches(lambda *a: kern(*a, scale=scale), lambda *a: ref(*a, scale=scale),
+                          args)
+    assert torch.equal(kern(*args, scale=scale), kern(*args, scale=scale))
+
+
 def test_paged_mla_decode_kernel_refuses_what_it_cannot_run(cuda):
     q_lat, q_rope, ckv, kr, bt, sl = _mla_case((2, 4, 16, 8, 4, 3), torch.float32, cuda)
     with pytest.raises(TypeError, match="differ"):
@@ -519,13 +540,16 @@ def test_spectral_autograd_vs_plain(cuda, dtype):
 def test_mlstm_chunk_kernel_vs_plain(cuda, case, profile, with_state):
     """y and the final (C, n, m), each against the plain version cut into
     the kernel's chunks (the function is the same under any chunking;
-    the same chunks round the same prefix sums), at the fp32 rung."""
+    the same chunks round the same prefix sums), at the fp32 rung; two
+    calls give the same bits."""
     B, S, dh = case
     q, k, v, i, f, state = mlstm_inputs(B, S, dh, profile, seed=S, device=cuda,
                                         with_state=with_state)
     before = LAUNCHES["mlstm_chunk"]
     y, got = mlstm_chunk(q, k, v, i, f, state)
     assert LAUNCHES["mlstm_chunk"] == before + 1
+    y2, got2 = mlstm_chunk(q, k, v, i, f, state)
+    assert all(torch.equal(a, b) for a, b in zip((y, *got), (y2, *got2)))
     yr, ref = mlstm_chunk_ref(q, k, v, i, f, state, chunk=MLSTM_KERNEL_CHUNK, ragged=True)
     for name, g, r in zip(("y", "C", "n", "m"), (y, *got), (yr, *ref)):
         assert_kernel_matches(lambda: g, lambda: r, (), dtype=torch.float32,
@@ -536,8 +560,8 @@ def test_mlstm_chunk_kernel_vs_plain(cuda, case, profile, with_state):
                          ids=lambda c: "x".join(map(str, c)))
 def test_mlstm_chunk_kernel_vs_reference_chunking(cuda, case):
     """Against the plain version chunked as the reference chunks (256,
-    or one chunk when 256 does not divide S): the kernel's 64-token
-    chunks give the same function."""
+    or one chunk when 256 does not divide S): the kernel's chunks (256,
+    the last one ragged) give the same function."""
     B, S, dh = case
     q, k, v, i, f, _ = mlstm_inputs(B, S, dh, "unit", seed=1, device=cuda)
     y, got = mlstm_chunk(q, k, v, i, f)

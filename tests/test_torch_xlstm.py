@@ -31,7 +31,8 @@ from repro_torch.bridge import expected_shapes, params_from_numpy  # noqa: E402
 from repro_torch.checkpoint.store import flatten  # noqa: E402
 from repro_torch.config import get_config  # noqa: E402
 from repro_torch.core.tree import tree_map  # noqa: E402
-from repro_torch.kernels.mlstm_ref import mlstm_chunk_ref  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import CHUNK as KERNEL_CHUNK  # noqa: E402
+from repro_torch.kernels.mlstm_ref import init_state, mlstm_chunk_ref  # noqa: E402
 from repro_torch.kernels.testing import Tol, assert_scaled_close, mlstm_inputs  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.nn import xlstm as tx  # noqa: E402
@@ -73,14 +74,17 @@ def _np(*shape, seed=0, scale=1.0):
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
 
 
-def _jax_chunks(q, k, v, i_pre, f_pre, state, chunk=jx.MLSTM_CHUNK):
+def _jax_chunks(q, k, v, i_pre, f_pre, state, chunk=jx.MLSTM_CHUNK, ragged=False):
     """The reference's chunk loop (``_mlstm_core``'s) over folded (B, S,
-    dh) inputs, one head a row: y and the final (C, n, m)."""
+    dh) inputs, one head a row: y and the final (C, n, m). With ``ragged``
+    the chunks are cut as the CUDA kernel cuts them (the last one shorter)
+    in place of the reference's one chunk of S where ``chunk`` does not
+    divide S."""
     B, S, dh = q.shape
     logf = jax.nn.log_sigmoid(jnp.asarray(f_pre))
     C, n, m = (jnp.asarray(t.numpy())[:, None] for t in state)
     T = min(chunk, S)
-    if S % T:
+    if S % T and not ragged:
         T = S
     outs = []
     for c0 in range(0, S, T):
@@ -100,6 +104,29 @@ def test_mlstm_ref_vs_reference_chunk_body(S):
     q, k, v, i, f, state = mlstm_inputs(3, S, 32, "unit", seed=S, with_state=True)
     y, (C, n, m) = mlstm_chunk_ref(q, k, v, i, f, state)
     yr, (Cr, nr, mr) = _jax_chunks(q, k, v, i, f, state)
+    for what, got, ref in (("y", y, yr), ("C", C, Cr), ("n", n, nr), ("m", m, mr)):
+        _close(got, ref, f"{what} S={S}")
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["empty", "state"])
+@pytest.mark.parametrize("S", [1, 37, 160, 256, 257, 300, 1000])
+def test_mlstm_ref_at_kernel_chunks_vs_reference(S, with_state):
+    """The plain version cut as the CUDA kernel cuts (256-token chunks, the
+    last one ragged) against the reference's chunk body over the same
+    chunks, from the empty state the engine's prefill starts from and from
+    a given one, at the fp32 rung. Up to S = 256 these are the chunks of
+    the reference's ``_mlstm_core`` itself (one chunk of S); past 256 the
+    reference takes one chunk of S where 256 does not divide S, whose fp32
+    prefix sums round elsewhere and move the stabiliser m by their ulp
+    (~2e-4 at S = 1000), so the body is run over the kernel's chunks."""
+    q, k, v, i, f, state = mlstm_inputs(2, S, 32, "unit", seed=S, with_state=with_state)
+    y, (C, n, m) = mlstm_chunk_ref(q, k, v, i, f, state, chunk=KERNEL_CHUNK, ragged=True)
+    st = state if state is not None else init_state(2, 32, device="cpu")
+    yr, (Cr, nr, mr) = _jax_chunks(q, k, v, i, f, st, chunk=KERNEL_CHUNK, ragged=True)
+    if S <= KERNEL_CHUNK:                  # the reference's own chunking
+        y0, st0 = _jax_chunks(q, k, v, i, f, st)
+        assert all(np.array_equal(np.asarray(a), np.asarray(b))
+                   for a, b in zip((y0, *st0), (yr, Cr, nr, mr)))
     for what, got, ref in (("y", y, yr), ("C", C, Cr), ("n", n, nr), ("m", m, mr)):
         _close(got, ref, f"{what} S={S}")
 

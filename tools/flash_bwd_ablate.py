@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the bf16 flash backward's (or forward's) time goes, by ablation,
-on one GPU.
+"""Where a kernel's time goes, by ablation, on one GPU: the bf16 flash
+backward (or forward), or the absorbed-MLA paged decode.
 
-    python3 tools/flash_bwd_ablate.py [--fwd]
+    python3 tools/flash_bwd_ablate.py [--fwd | --mla [--src DIR] | --mlstm]
 
 Copies the port into ``src/repro_torch/_build/ablate/<variant>/`` (git-ignored)
 with one part of the two backward kernels (``csrc/flash_attention.cu``,
@@ -24,6 +24,35 @@ five calls) at smollm2-1.7b's training shape (b 2, s 4096, 32 heads, d 64):
 the kernel as it is with the shared-memory carveout set to its maximum.
 It times the forward as one kernel.
 
+``--mla`` takes parts out of the absorbed-MLA decode
+(``csrc/paged_mla_decode.cu``, hot and cold: one template) and times
+``paged_mla_decode`` and ``paged_mla_decode_cold`` at ``chip_smoke.py``'s
+timed shapes (deepseek-v3-671b's width, fp32 q; hot: 4 slots of lengths
+40/176/87/128 in 16-page tables; cold: 4 slots of 95 tokens in 8-page
+tables, one cold page a slot), cold-L2 medians (``chip_smoke.time_cold``).
+It recognises the cluster design (one block a 16-head group and page
+rank, combined through distributed shared memory) and the split design
+(live pages packed onto 64-head blocks, a second combine pass), and takes
+out of either: ``no_combine`` (the cluster design combines and writes
+nothing; the split design launches no combine pass), ``no_scores`` (no
+q . k products), ``no_softmax`` (no exp), ``no_pv`` (no p . v products),
+``no_staging`` (no page row is copied into shared memory) and ``skeleton``
+(all five). The cluster design adds ``live_ranks``: the cluster sized to
+the fewest live pages of any slot at each shape (6 cold, 3 hot), so that
+no rank walks nothing; the split design ``no_q_load`` (q rows zeroed, not
+read) and ``direct_out`` (every block writes o_lat as if its slot had one
+item: no partial states). ``--src DIR`` ablates another checkout's ``src``
+(a ``git archive`` of an earlier tree).
+
+``--mlstm`` takes parts out of the chunkwise mLSTM (``csrc/mlstm_chunk.cu``)
+and prints each of its three launches' device time (``torch.profiler``,
+five calls) and the call's cold-L2 median at the xlstm prefill shape (B 4,
+S 160, dh 1024, empty state): ``scores_no_load`` (no q / k stage copied),
+``scores_no_fma`` (a quarter of the products), ``state_one_pass`` (the
+update's big x big tf32 product alone, of three), ``out_no_stats`` (no
+chunk statistics), ``out_no_w`` (no gated scores), ``out_no_gemm`` (no
+(w.S) @ v).
+
 The variants compute wrong results: they are timings only. Needs no JAX.
 """
 from __future__ import annotations
@@ -37,6 +66,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 SRC = "src/repro_torch/csrc/flash_attention.cu"
+MLA_SRC = "src/repro_torch/csrc/paged_mla_decode.cu"
+MLSTM_SRC = "src/repro_torch/csrc/mlstm_chunk.cu"
 OUT = ROOT / "src" / "repro_torch" / "_build" / "ablate"
 
 
@@ -118,6 +149,128 @@ def fwd_variants(src: str) -> dict:
             "skeleton": no_streaming(no_products(no_softmax(src))), "carveout": carveout(src)}
 
 
+def mla_variants(src: str) -> dict:
+    """{name: patched paged_mla_decode.cu}, for the design the source holds."""
+    if "cluster.map_shared_rank(mrow" in src:          # the cluster design
+        parts = {
+            "no_combine": [("const int t_hi = min(total, (z + 1) * share);",
+                            "const int t_hi = 0 * total;")],
+            "no_scores": [("for (int d = 0; d < lat / 4; ++d) dl = dot4(qa[d], ka[d], dl);",
+                           "dl = qa[0].x * ka[0].x;"),
+                          ("for (int d = 0; d < rope / 4; ++d) dr = dot4(qb[d], kb[d], dr);",
+                           "(void)qb; (void)kb;")],
+            "no_softmax": [("for (int r = tid; r < kHeads; r += kThreads) {\n      const float m_prev",
+                            "for (int r = tid; r < 0; r += kThreads) {\n      const float m_prev")],
+            "no_pv": [("for (int p = 0; p < page; ++p) {\n        const float2 v",
+                       "for (int p = 0; p < 0 * page; ++p) {\n        const float2 v")],
+            "no_staging": [("if (kCold && cold.flags[phys] != 0) {", "if (j < 0) {"),
+                           ("} else {\n      for (int t = tid; t < page * lat;",
+                            "} else if (j < 0) {\n      for (int t = tid; t < page * lat;")],
+        }
+        extra = {"live_ranks": [("while (splits < 8 && 2 * splits <= n_pages) splits <<= 1;",
+                                 "splits = n_pages == 8 ? 6 : 3;")]}
+    elif "mla_combine_kernel" in src:                   # the split design
+        parts = {
+            "no_combine": [("if (err != cudaSuccess || per_slot == 1) return err;",
+                            "if (true) return err;")],
+            "no_scores": [("for (int kk = k_lo; kk < k_hi; ++kk) {",
+                           "for (int kk = k_lo; kk < k_lo; ++kk) {")],
+            "no_softmax": [("const float p = expf(s[e] - m_new);", "const float p = s[e];"),
+                           ("const float a = expf(m_prev - m_new);", "const float a = 1.f;")],
+            "no_pv": [("        if (col < L.lp) {\n          uint32_t bv[4];",
+                       "        if (col < 0) {\n          uint32_t bv[4];")],
+            "no_staging": [("bool cold_now = stage(0, 0);", "bool cold_now = false;"),
+                           ("if (tau + 1 < ntiles) cold_next = stage(tau + 1, buf ^ 1);",
+                            "(void)buf;")],
+        }
+        extra = {"no_q_load": [("if (r < nh && cc < (lat_part ? lat : rope))\n        load4",
+                                "if (false)\n        load4")],
+                 "direct_out": [("        if (direct)\n", "        if (true)\n")]}
+    else:
+        raise SystemExit("ablate: paged_mla_decode.cu holds neither known design")
+
+    def apply(s, subs):
+        for old, new in subs:
+            if old not in s:
+                raise SystemExit(f"ablate: {old[:60]!r} not found; the kernel source changed")
+            s = s.replace(old, new)
+        return s
+
+    out = {"base": src}
+    out.update({name: apply(src, subs) for name, subs in parts.items()})
+    out["skeleton"] = apply(src, [sub for subs in parts.values() for sub in subs])
+    out.update({name: apply(src, subs) for name, subs in extra.items()})
+    return out
+
+
+def mlstm_variants(src: str) -> dict:
+    """{name: patched mlstm_chunk.cu}."""
+    subs = {
+        "scores_no_load": [("  stage(d_lo, 0);\n", "  (void)d_lo;\n"),
+                           ("if (st + 1 < nst) stage(d_lo + (st + 1) * kSK, buf ^ 1);", ";")],
+        "scores_no_fma": [("          acc[r][s] = fmaf(a[r].y, bb[s].y, acc[r][s]);\n"
+                           "          acc[r][s] = fmaf(a[r].z, bb[s].z, acc[r][s]);\n"
+                           "          acc[r][s] = fmaf(a[r].w, bb[s].w, acc[r][s]);\n", "")],
+        "state_one_pass": [("            mma_tf32(creg[mi][nt], as[mi], bb0, bb1);\n"
+                            "            mma_tf32(creg[mi][nt], ab[mi], bs0, bs1);\n", "")],
+        "out_no_stats": [("  chunk_stats(i_pre, f_pre, row0, tc, sm.bcum, sm.ii, sm.dsc);\n"
+                          "  sct::grid_dependency_wait();", "  sct::grid_dependency_wait();")],
+        "out_no_w": [("      if (r < nr && j <= t) {\n        float sv[kMaxSlices];",
+                      "      if (r < 0) {\n        float sv[kMaxSlices];")],
+        "out_no_gemm": [("    for (int kk = 0; kk < jn; kk += 8) {", "    for (int kk = 0; kk < 0; kk += 8) {")],
+    }
+    out = {"base": src}
+    for name, pairs in subs.items():
+        patched = src
+        for old, new in pairs:
+            if old not in patched:
+                raise SystemExit(f"ablate: {old[:60]!r} not found; the kernel source changed")
+            patched = patched.replace(old, new)
+        out[name] = patched
+    return out
+
+
+MLSTM_TIMER = r'''
+import sys
+sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2])
+import torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+from repro_torch.kernels.testing import mlstm_inputs
+q, k, v, i, f, _ = mlstm_inputs(4, 160, 1024, "unit", seed=cs.SEED + 11, device="cuda")
+ms = cs.time_cold(torch, lambda: mlstm_chunk(q, k, v, i, f))
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(5):
+        mlstm_chunk(q, k, v, i, f)
+    torch.cuda.synchronize()
+rows = {key.split("mlstm_")[1].split("_kernel")[0]: t / c for t, c, key in cs.device_rows(torch, prof)
+        if "mlstm_" in key}
+print(f"call {ms:.4f} ms; " + ", ".join(f"{k} {t:.4f}" for k, t in sorted(rows.items())))
+'''
+
+
+MLA_TIMER = r'''
+import sys
+sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2])
+import torch
+import chip_smoke as cs
+from repro_torch.kernels.paged_decode import paged_mla_decode, paged_mla_decode_cold
+cfg = cs.deepseek_config(cs.DEEPSEEK_LAYERS)
+scale = cs.mla_scale(cfg)
+hot_lens = [p + g // 2 for p, g in cs.TRACE[:cs.SLOTS]]
+hot = cs.mla_case(torch, hot_lens, cs.PAGES_PER_SEQ, cfg, torch.float32, null_slot=False,
+                  seed=cs.SEED + 17)
+cold_lens = [cs.SINK * cs.PAGE + cs.WINDOW * cs.PAGE + cs.PAGE - 1] * cs.STREAM_SLOTS
+cold = cs.mla_case(torch, cold_lens, cs.STREAM_PAGES_PER_SEQ, cfg, torch.float32,
+                   null_slot=False, p_cold=0.0, seed=cs.SEED + 17)
+cold[10][cold[8][:, cs.SINK].long()] = 1          # one cold page a slot
+t_hot = cs.time_cold(torch, lambda: paged_mla_decode(*hot, scale=scale))
+t_cold = cs.time_cold(torch, lambda: paged_mla_decode_cold(*cold, scale=scale))
+print(f"hot {t_hot:.4f} ms, cold {t_cold:.4f} ms")
+'''
+
+
 FWD_TIMER = r'''
 import sys
 sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2])
@@ -155,18 +308,26 @@ print(f"dkdv {ms.get('dkdv', 0.0):.4f} ms, dq {ms.get('dq', 0.0):.4f} ms")
 
 
 def main() -> int:
-    fwd = "--fwd" in sys.argv[1:]
-    src = (ROOT / SRC).read_text()
+    argv = sys.argv[1:]
+    fwd, mla, mlstm = "--fwd" in argv, "--mla" in argv, "--mlstm" in argv
+    tree = Path(argv[argv.index("--src") + 1]).resolve().parent if "--src" in argv else ROOT
+    path = MLA_SRC if mla else MLSTM_SRC if mlstm else SRC
+    src = (tree / path).read_text()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    for name, patched in (fwd_variants(src) if fwd else variants(src)).items():
+    if mla:
+        table, timer = mla_variants(src), MLA_TIMER
+    elif mlstm:
+        table, timer = mlstm_variants(src), MLSTM_TIMER
+    else:
+        table, timer = (fwd_variants(src), FWD_TIMER) if fwd else (variants(src), TIMER)
+    for name, patched in table.items():
         dst = OUT / name
         shutil.rmtree(dst, ignore_errors=True)
-        shutil.copytree(ROOT / "src", dst / "src",
+        shutil.copytree(tree / "src", dst / "src",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        (dst / SRC).write_text(patched)
-        run = subprocess.run([sys.executable, "-c", FWD_TIMER if fwd else TIMER,
-                              str(dst / "src"), str(ROOT)],
+        (dst / path).write_text(patched)
+        run = subprocess.run([sys.executable, "-c", timer, str(dst / "src"), str(ROOT)],
                              capture_output=True, text=True, env=dict(os.environ))
         if run.returncode != 0:
             print(run.stdout, run.stderr, file=sys.stderr)

@@ -4,8 +4,8 @@ spectral matmul and the int8 one on bf16 activations
 (``csrc/spectral_matmul_tc.cu``), and the bf16 flash forward and backward
 (``csrc/flash_attention.cu``, the ``*_tc_kernel``s).
 
-    PYTHONPATH=src python3 tools/tc_probe.py [--fwd] [--q8] [--quick | --split]
-                                             [--time-only] [--src DIR]
+    PYTHONPATH=src python3 tools/tc_probe.py [--fwd] [--q8] [--mla] [--mlstm]
+                                             [--quick | --split] [--time-only] [--src DIR]
 
 With no mode flag: the bf16 spectral kernel and the flash backward. It
 builds the kernels, prints each kernel's registers and spills, holds both
@@ -30,7 +30,17 @@ profile, every row of M = 1/4/37/64/160/256 equal to the row alone on
 both MLP shapes, its launch geometry; its time at one decode layer (3
 launches, M 4) and a 64-row prefill chunk, its gain computed beforehand,
 against the plain version, the three-GEMM chain over pre-dequantized
-factors and the bf16 kernel on those factors. ``--quick`` skips the
+factors and the bf16 kernel on those factors. ``--mla``: the absorbed-MLA
+decode, hot and cold (``csrc/paged_mla_decode.cu``), against its plain
+versions at deepseek-v3-671b's width (b 1 and 4, ragged lengths, a null
+slot, fp32 and bf16 q, p_cold 0/0.5/1, live pages fewer than the table) and
+at ragged small widths (h 20, latent 32, rope 12, page 3); two calls the same
+bits, the cold kernel with no page flagged the hot one's bits; its launch
+geometry and time at ``chip_smoke.py``'s timed shapes. ``--mlstm``: the
+chunkwise mLSTM (``csrc/mlstm_chunk.cu``) against its plain version in the
+kernel's chunks (S 1 to 1000, dh 32 and 1024, both gate profiles, with and
+without a state), two calls the same bits; its time at the xlstm prefill
+shape (B 4, S 160, dh 1024) and with a state. ``--quick`` skips the
 timing, ``--time-only`` the checks. ``--src DIR`` imports the port from
 another checkout's ``src`` (its kernels build there), so that two trees
 can be timed in one call. Needs no JAX.
@@ -133,6 +143,165 @@ def fwd_mode(torch, cs, gen, args):
           f"(operations), {flops / ms / 1e9:.1f} TFLOP/s")
 
 
+def mla_mode(torch, cs, args):
+    from repro_torch.kernels.paged_decode import paged_mla_decode, paged_mla_decode_cold
+    from repro_torch.kernels.spectral_matmul import _sm_count
+    from repro_torch.kernels.paged_ref import paged_mla_decode_cold_ref, paged_mla_decode_ref
+    from repro_torch.kernels.testing import compare_kernel, ragged_seq_lens
+
+    cfg = cs.deepseek_config(cs.DEEPSEEK_LAYERS)
+    scale = cs.mla_scale(cfg)
+    sms = _sm_count(0)
+    hot_lens = [p + g // 2 for p, g in cs.TRACE[:cs.SLOTS]]
+    cold_lens = [cs.SINK * cs.PAGE + cs.WINDOW * cs.PAGE + cs.PAGE - 1] * cs.STREAM_SLOTS
+    for name, lens, n_pages in ((("hot", hot_lens, cs.PAGES_PER_SEQ),
+                                 ("cold", cold_lens, cs.STREAM_PAGES_PER_SEQ))
+                                if not args.time_only else ()):
+        from repro_torch.kernels.paged_decode import mla_geometry, mla_items
+        ppi, per_slot = mla_geometry(len(lens), cfg.n_heads, n_pages, sms)
+        items = mla_items(lens, cs.PAGE, n_pages, ppi)
+        print(f"[mla] {name} shape: lens {lens}, table {n_pages}: {ppi} page(s) an item, grid "
+              f"{len(lens) * per_slot} x {-(-cfg.n_heads // 64)}, {len(items)} live items")
+
+    def small(case, dtype, p_cold=None, seed=0):
+        from repro_torch.kernels.testing import mla_inputs
+        b, h, lat, rope, page, n = case
+        lens = ragged_seq_lens(b, page * n - 1, page, seed=seed).tolist()
+        return mla_inputs(lens, n, h, lat, rope, page, dtype=dtype, null_slot=b > 1,
+                          p_cold=p_cold, seed=seed, device="cuda")
+
+    def check(args, cold, what, dtype):
+        kern = paged_mla_decode_cold if cold else paged_mla_decode
+        ref = paged_mla_decode_cold_ref if cold else paged_mla_decode_ref
+        b = args[0].shape[0]
+        parts = (slice(1, None), slice(0, 1)) if b > 1 else (slice(None),)
+        worst = 0.0
+        for part in parts:
+            e = compare_kernel(lambda *a: kern(*a, scale=scale)[part],
+                               lambda *a: ref(*a, scale=scale)[part], args, dtype=dtype,
+                               label=f"mla {what}")
+            worst = max(worst, e.max_scaled)
+        if not torch.equal(kern(*args, scale=scale), kern(*args, scale=scale)):
+            raise AssertionError(f"mla {what}: two calls differ")
+        return worst
+
+    if not args.time_only:
+        for dtype in (torch.float32, torch.bfloat16):
+            for lens, n_pages, null in (([cs.PAGE * 12 - 7], 12, False),
+                                        (ragged_seq_lens(4, cs.PAGE * 12 - 1, cs.PAGE,
+                                                         seed=cs.SEED).tolist(), 12, True),
+                                        (hot_lens, cs.PAGES_PER_SEQ, False),
+                                        (cold_lens, cs.STREAM_PAGES_PER_SEQ, False),
+                                        ([3, 20, 0, 40], 16, False)):
+                args_h = cs.mla_case(torch, lens, n_pages, cfg, dtype, null_slot=null)
+                e = check(args_h, False, f"hot {lens} {dtype}", dtype)
+                worst = [e]
+                for p_cold in (0.0, 0.5, 1.0):
+                    ca = cs.mla_case(torch, lens, n_pages, cfg, dtype, null_slot=null,
+                                     p_cold=p_cold, seed=cs.SEED + 10)
+                    worst.append(check(ca, True, f"cold {p_cold} {lens} {dtype}", dtype))
+                    if p_cold == 0.0 and not torch.equal(
+                            paged_mla_decode_cold(*ca, scale=scale),
+                            paged_mla_decode(*ca[:4], ca[8], ca[9], scale=scale)):
+                        raise AssertionError("mla: the cold kernel with no flag differs "
+                                             "from the hot one")
+                print(f"[mla] lens {lens} table {n_pages} {dtype}: hot and cold (p_cold "
+                      f"0/0.5/1) match, deterministic; max scaled {max(worst):.3e}")
+            for case in ((3, 4, 16, 8, 4, 6), (4, 20, 32, 12, 3, 5), (2, 16, 512, 64, 16, 4),
+                         (2, 72, 64, 16, 40, 3)):
+                worst = [check(small(case, dtype), False, f"{case}", dtype)]
+                for p_cold in (0.5, 1.0):
+                    worst.append(check(small(case, dtype, p_cold), True, f"{case} {p_cold}",
+                                       dtype))
+                print(f"[mla] {case} {dtype}: hot and cold match; max scaled {max(worst):.3e}")
+        torch.cuda.synchronize()
+    if args.quick:
+        return
+    for name, lens, n_pages, p_cold in (("paged_mla_decode", hot_lens, cs.PAGES_PER_SEQ, None),
+                                        ("paged_mla_decode_cold", cold_lens,
+                                         cs.STREAM_PAGES_PER_SEQ, 0.0)):
+        a = cs.mla_case(torch, lens, n_pages, cfg, torch.float32, null_slot=False,
+                        p_cold=p_cold, seed=cs.SEED + 17)
+        if p_cold is None:
+            kern, plain = paged_mla_decode, paged_mla_decode_ref
+        else:
+            a[10][a[8][:, cs.SINK].long()] = 1          # one cold page a slot
+            kern, plain = paged_mla_decode_cold, paged_mla_decode_cold_ref
+        ms = cs.time_cold(torch, lambda: kern(*a, scale=scale))
+        pl = cs.time_cold(torch, lambda: plain(*a, scale=scale))
+        flops = 2 * cfg.n_heads * sum(n + 1 for n in lens) * (2 * cfg.kv_lora_rank
+                                                              + cfg.qk_rope_dim)
+        print(f"[time] {name} (lens {lens}): kernel {ms:.4f} ms, plain {pl:.4f}, bound "
+              f"{flops / cs.PEAK_FLOPS['float32'] * 1e3:.4f} (operations)")
+        if args.split:                  # pages an item, and each launch's device time
+            from repro_torch.kernels import paged_decode as pd
+            from repro_torch.kernels.build import library
+            fn = getattr(library(), "sct_" + name)
+            cold = () if p_cold is None else a[4:8] + a[10:11]
+            for ppi in (1, 2, 3, 4, 6):
+                t = cs.time_cold(torch, lambda: pd._mla_launch(
+                    name, fn, *a[:4], a[-3 if p_cold is not None else 4],
+                    a[-2 if p_cold is not None else 5], scale, cold=cold, ppi=ppi))
+                print(f"[split] {name}: {ppi} page(s) an item: {t:.4f} ms")
+            profile_split(torch, cs, lambda: kern(*a, scale=scale))
+
+
+def profile_split(torch, cs, fn):
+    """Each launch's device time of ``fn()`` (torch.profiler, five calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    for ms_all, count, key in cs.device_rows(torch, prof)[:6]:
+        print(f"[split] {demangle(key)[:60]}: {ms_all / count:.4f} ms a launch, {count} launches")
+
+
+def mlstm_mode(torch, cs, args):
+    from repro_torch.kernels.mlstm_chunk import CHUNK, mlstm_chunk
+    from repro_torch.kernels.mlstm_ref import mlstm_chunk_ref
+    from repro_torch.kernels.testing import MLSTM_PROFILES, compare_kernel, mlstm_inputs
+
+    if not args.time_only:
+        for B, S, dh in ((1, 1, 32), (4, 37, 32), (4, 160, 1024), (1, 256, 1024),
+                         (1, 257, 1024), (2, 300, 64), (1, 1000, 1024), (4, 64, 96)):
+            for profile in MLSTM_PROFILES:
+                for with_state in (False, True):
+                    q, k, v, i, f, st = mlstm_inputs(B, S, dh, profile, seed=S, device="cuda",
+                                                     with_state=with_state)
+                    y, got = mlstm_chunk(q, k, v, i, f, st)
+                    y2, got2 = mlstm_chunk(q, k, v, i, f, st)
+                    yr, ref = mlstm_chunk_ref(q, k, v, i, f, st, chunk=CHUNK, ragged=True)
+                    worst = 0.0
+                    for name, g, g2, r in zip(("y", "C", "n", "m"), (y, *got), (y2, *got2),
+                                              (yr, *ref)):
+                        e = compare_kernel(lambda: g, lambda: r, (), dtype=torch.float32,
+                                           label=f"mlstm {name} {(B, S, dh)} {profile} "
+                                                 f"state={with_state}")
+                        worst = max(worst, e.max_scaled)
+                        if not torch.equal(g, g2):
+                            raise AssertionError(f"mlstm {name} {(B, S, dh)}: two calls differ")
+                    print(f"[mlstm] {(B, S, dh)} {profile} state={with_state}: match, "
+                          f"deterministic; max scaled {worst:.3e}")
+        torch.cuda.synchronize()
+    if args.quick:
+        return
+    for with_state in (False, True):
+        q, k, v, i, f, st = mlstm_inputs(4, 160, 1024, "unit", seed=cs.SEED + 11, device="cuda",
+                                         with_state=with_state)
+        ms = cs.time_cold(torch, lambda: mlstm_chunk(q, k, v, i, f, st))
+        pl = cs.time_cold(torch, lambda: mlstm_chunk_ref(q, k, v, i, f, st, chunk=CHUNK,
+                                                         ragged=True))
+        print(f"[time] mlstm_chunk (4, 160, 1024) state={with_state}: kernel {ms:.4f} ms, "
+              f"plain {pl:.4f}")
+        if args.split:
+            profile_split(torch, cs, lambda: mlstm_chunk(q, k, v, i, f, st))
+
+
 def q8_checks(torch, cs, gen, spectral_matmul_q8):
     """The int8 kernel's launch geometry, its outputs against the plain
     version and the batch invariance of its rows, in bf16."""
@@ -209,6 +378,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--fwd", action="store_true", help="the flash forward")
     ap.add_argument("--q8", action="store_true", help="the int8 spectral matmul in bf16")
+    ap.add_argument("--mla", action="store_true", help="the absorbed-MLA decode")
+    ap.add_argument("--mlstm", action="store_true", help="the chunkwise mLSTM")
     ap.add_argument("--quick", action="store_true", help="checks only")
     ap.add_argument("--time-only", action="store_true", help="timing only")
     ap.add_argument("--split", action="store_true",
@@ -235,6 +406,14 @@ def main() -> int:
     build.library()
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
+    if args.mla or args.mlstm:
+        if args.mla:
+            print_ptxas(build, ("paged_mla_decode.cu",))
+            mla_mode(torch, cs, args)
+        if args.mlstm:
+            print_ptxas(build, ("mlstm_chunk.cu",))
+            mlstm_mode(torch, cs, args)
+        return 0
     if args.fwd or args.q8:
         if args.fwd:
             print_ptxas(build, ("flash_attention.cu",), only="flash_fwd")
