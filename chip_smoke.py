@@ -12,16 +12,20 @@ Phases (any failure exits non-zero and prints no result line):
    the decode shapes, and the training shapes (flash forward and
    backward, the spectral autograd Function at M = 8192); every bf16
    spectral row of M in {37, 64, 8192} equals the row alone, bit for bit
-   (bf16 runs on the tensor cores, fp32 on the CUDA cores);
+   (bf16 runs on the tensor cores, fp32 on the CUDA cores); two paged GQA
+   decode calls give the same bits and every slot's row equals the slot
+   computed alone at the same table width;
 3. serve llama3.2-1b at full width (16 layers, d_model 2048, 32/8
    heads, d_ff 8192, vocab 128256, rank 128, bf16; random weights from
    seed 0) through ``ServingEngine``: one warm-up trace, then the
    measured staggered 8-request trace, with the kernel launch counts
-   zeroed just before it and read just after; replay two requests
-   through ``static_greedy_reference`` and require identical tokens;
+   zeroed just before it and read just after (the paged decode exactly
+   once a layer and decode step); replay two requests through
+   ``static_greedy_reference`` and require identical tokens;
 4. time each kernel, its plain version and a library call computing the
    same function at the decode shapes (and the spectral kernel at a
-   64-token prefill chunk), in device time only;
+   64-token prefill chunk, the paged decode at jamba's head dim 128), in
+   device time only;
 5. trace a decode-heavy stretch of serving with ``torch.profiler`` and
    print device time by kernel and the device's busy share of the wall
    clock;
@@ -49,11 +53,13 @@ Phases (any failure exits non-zero and prints no result line):
    profile of the JAX package's tests, with every row of every such M
    bit-identical to the row alone; the cold-aware paged decode at
    p_cold in {0, 0.5, 1} (shadows uncorrelated with the pools, ragged
-   lengths, shuffled tables, a null-page slot), bit-identical to the hot
+   lengths, shuffled tables, a null-page slot), two calls the same bits,
+   every row the slot's row computed alone, bit-identical to the hot
    kernel with no page flagged;
 10. serve llama3.2-1b at full width with int8 weights on phase 3's trace
     and geometry: the int8 spectral kernel launched 48 times per decode
-    step and prefill chunk, the bf16 one never; every request's tokens
+    step and prefill chunk, the bf16 one never, the paged decode 16 times
+    per decode step; every request's tokens
     equal the request served alone by a fresh engine (bit for bit) and
     stay within the tolerance ladder of the static greedy path over the
     same int8 tree, teacher-forced (in bf16 the static path's attention
@@ -366,8 +372,11 @@ def phase_kernels(torch, cfg):
             note(errs, "paged_gqa_decode", compare_kernel(
                 lambda *a: paged_gqa_decode(*a)[part], lambda *a: paged_gqa_decode_ref(*a)[part],
                 args, label=f"paged_gqa_decode {dtype} {what}"))
+        require_rows_alone(torch, paged_gqa_decode, args, (0, 3, 4),
+                           f"paged_gqa_decode {dtype}")
         print(f"[kernels] {dtype}: spectral_matmul (M in 1/8/37/256, both MLP shapes) "
-              f"and paged_gqa_decode (ragged lens {lens}, null slot) match")
+              f"and paged_gqa_decode (ragged lens {lens}, null slot) match; "
+              f"paged_gqa_decode: two calls the same bits, every row == the slot alone")
     for m, n in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
         x, U, s, V = spectral_inputs(torch, max(BF16_INVARIANT_ROWS), m, n, k, torch.bfloat16,
                                      gen)
@@ -382,6 +391,35 @@ def phase_kernels(torch, cfg):
           f"{list(BF16_INVARIANT_ROWS)} == the row alone, both MLP shapes)")
     torch.cuda.synchronize()
     return errs
+
+
+def require_rows_alone(torch, kern, args, per_slot, label):
+    """Two calls of ``kern(*args)`` give the same bits, and each slot's row
+    equals the slot computed alone at the same table width (``per_slot``:
+    the positions of the arguments cut to the slot: q, block table,
+    seq_lens)."""
+    full = kern(*args)
+    if not torch.equal(full, kern(*args)):
+        raise AssertionError(f"{label}: two calls differ")
+    for i in range(full.shape[0]):
+        one = [t[i:i + 1] if j in per_slot else t for j, t in enumerate(args)]
+        if not torch.equal(kern(*one)[0], full[i]):
+            raise AssertionError(f"{label}: slot {i} differs from the slot computed alone")
+
+
+def gqa_library_ms(torch, q, kp, vp, bt, sl):
+    """One SDPA call over pages gathered beforehand (the gather not timed):
+    the library yardstick of the paged GQA decode."""
+    import torch.nn.functional as F
+    from repro_torch.serving.paged_cache import paged_gather
+
+    b, kvh, rep, hd = q.shape
+    S = bt.shape[1] * kp.shape[1]
+    ck = paged_gather(kp, bt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    cv = paged_gather(vp, bt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    qh = q.reshape(b, kvh * rep, 1, hd)
+    mask = (torch.arange(S, device="cuda")[None, :] <= sl[:, None].long())[:, None, None, :]
+    return time_cold(torch, lambda: F.scaled_dot_product_attention(qh, ck, cv, attn_mask=mask))
 
 
 def make_trace(vocab, seed, rid0=0):
@@ -436,6 +474,8 @@ def phase_serving(torch, cfg, device):
     for name in ("spectral_matmul", "paged_gqa_decode"):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"the main path never launched {name}: {launches}")
+    require_launches(launches, {"paged_gqa_decode": cfg.n_layers * int(st["decode_steps"]),
+                                "paged_gqa_decode_cold": 0})
     for r in trace:
         got = out[r.rid]
         if (engine.last_statuses.get(r.rid) != "finished" or len(got) != r.max_new_tokens
@@ -486,13 +526,11 @@ def phase_serving(torch, cfg, device):
 
 def phase_timing(torch, cfg, engine, trace, launches, errs):
     """Kernel, plain and library times at the main path's decode shapes."""
-    import torch.nn.functional as F
     from repro_torch.core.spectral import spectral_apply
     from repro_torch.kernels.ops import spectral_matmul
     from repro_torch.kernels.paged_decode import paged_gqa_decode
     from repro_torch.kernels.paged_ref import paged_gqa_decode_ref
     from repro_torch.kernels.ref import spectral_matmul_ref
-    from repro_torch.serving.paged_cache import paged_gather
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     dt = torch.bfloat16
@@ -517,27 +555,26 @@ def phase_timing(torch, cfg, engine, trace, launches, errs):
     sm, chunk = layer[SLOTS], layer[Q8_PREFILL_M]
 
     # one layer's decode attention: all slots mid-trace (prompt + half the
-    # generation cached), pools at the engine's geometry
+    # generation cached), pools at the engine's geometry; and the same at
+    # jamba's attention width (hd 128)
     lens = [r.prompt_len + r.max_new_tokens // 2 for r in trace[:SLOTS]]
     kvh, rep, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
-    q, kp, vp, bt, sl = paged_inputs(torch, lens, PAGES_PER_SEQ, kvh, rep, hd, dt, gen,
-                                     null_slot=False)
-    pd = {"ms": time_cold(torch, lambda: paged_gqa_decode(q, kp, vp, bt, sl)),
-          "plain_ms": time_cold(torch, lambda: paged_gqa_decode_ref(q, kp, vp, bt, sl))}
-    # library yardstick: SDPA over the pre-gathered pages (gather not timed)
     b, h = len(lens), cfg.n_heads
-    S = PAGES_PER_SEQ * PAGE
-    ck = paged_gather(kp, bt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
-    cv = paged_gather(vp, bt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
-    qh = q.reshape(b, h, 1, hd)
-    mask = (torch.arange(S, device="cuda")[None, :] <= sl[:, None].long())[:, None, None, :]
-    pd["library_ms"] = time_cold(
-        torch, lambda: F.scaled_dot_product_attention(qh, ck, cv, attn_mask=mask))
     live = sum(n + 1 for n in lens)
-    pd["bytes"] = (2 * live * kvh * hd * 2 + 2 * q.numel() * 2
-                   + bt.numel() * 4 + sl.numel() * 4)
-    pd["flops"] = 4 * h * hd * live
-    add_err(pd, paged_gqa_decode(q, kp, vp, bt, sl), paged_gqa_decode_ref(q, kp, vp, bt, sl))
+    at_hd = {}
+    for width in (hd, 128):
+        q, kp, vp, bt, sl = paged_inputs(torch, lens, PAGES_PER_SEQ, kvh, rep, width, dt, gen,
+                                         null_slot=False)
+        t = at_hd[width] = {
+            "ms": time_cold(torch, lambda: paged_gqa_decode(q, kp, vp, bt, sl)),
+            "plain_ms": time_cold(torch, lambda: paged_gqa_decode_ref(q, kp, vp, bt, sl)),
+            # library yardstick: SDPA over the pre-gathered pages (gather not timed)
+            "library_ms": gqa_library_ms(torch, q, kp, vp, bt, sl),
+            "bytes": (2 * live * kvh * width * 2 + 2 * q.numel() * 2
+                      + bt.numel() * 4 + sl.numel() * 4),
+            "flops": 4 * h * width * live}
+        add_err(t, paged_gqa_decode(q, kp, vp, bt, sl), paged_gqa_decode_ref(q, kp, vp, bt, sl))
+    pd, wide = at_hd[hd], at_hd[128]
 
     spectral = kernel_entry(
         "spectral_matmul", "src/repro_torch/csrc/spectral_matmul_tc.cu",
@@ -550,13 +587,17 @@ def phase_timing(torch, cfg, engine, trace, launches, errs):
         "ms": chunk["ms"], "plain_ms": chunk["plain_ms"], "library_ms": chunk["library_ms"],
         "max_abs_err": chunk["err"], "max_scaled_err": chunk["scaled"],
         **bound_of(chunk, "bfloat16")}
-    return [
-        spectral,
-        kernel_entry("paged_gqa_decode", "src/repro_torch/csrc/paged_decode.cu",
-                     "src/repro/kernels/paged_decode.py:110", pd, "float32",
-                     f"one decode layer: b={b} kvh={kvh} rep={rep} hd={hd} page={PAGE} "
-                     f"lens={lens}, bf16 pools, fp32 math", launches, errs),
-    ]
+    decode = kernel_entry("paged_gqa_decode", "src/repro_torch/csrc/paged_decode.cu",
+                          "src/repro/kernels/paged_decode.py:110", pd, "float32",
+                          f"one decode layer: b={b} kvh={kvh} rep={rep} hd={hd} page={PAGE} "
+                          f"lens={lens}, bf16 pools, fp32 math", launches, errs)
+    decode["at_hd128"] = {
+        "shape": f"jamba's decode attention: b={b} kvh={kvh} rep={rep} hd=128 page={PAGE} "
+                 f"lens={lens}",
+        "ms": wide["ms"], "plain_ms": wide["plain_ms"], "library_ms": wide["library_ms"],
+        "max_abs_err": wide["err"], "max_scaled_err": wide["scaled"],
+        **bound_of(wide, "float32")}
+    return [spectral, decode]
 
 
 def phase_profile(torch, cfg, engine, prompt_len=96):
@@ -971,6 +1012,8 @@ def phase_int8_kernels(torch, cfg):
                     lambda *a: paged_gqa_decode_cold(*a)[part],
                     lambda *a: paged_gqa_decode_cold_ref(*a)[part], args,
                     label=f"paged_gqa_decode_cold p_cold={p_cold} {dtype} {what}"))
+            require_rows_alone(torch, paged_gqa_decode_cold, args, (0, 7, 8),
+                               f"paged_gqa_decode_cold p_cold={p_cold} {dtype}")
             if p_cold == 0.0:
                 q, kp, vp, _, _, _, _, bt, sl, _ = args
                 if not torch.equal(paged_gqa_decode_cold(*args),
@@ -980,8 +1023,9 @@ def phase_int8_kernels(torch, cfg):
         print(f"[kernels] {dtype}: spectral_matmul_q8 (M in {list(Q8_ROWS)}, both MLP "
               f"shapes, scale profiles {list(SCALE_PROFILES)}) matches and is batch "
               f"invariant (every row == the row alone); paged_gqa_decode_cold (p_cold "
-              f"0/0.5/1, ragged lens {lens}, null slot) matches, bit-identical to "
-              f"paged_gqa_decode with no page flagged")
+              f"0/0.5/1, ragged lens {lens}, null slot) matches, two calls the same bits, "
+              f"every row == the slot alone, bit-identical to paged_gqa_decode with no "
+              f"page flagged")
     torch.cuda.synchronize()
     return errs
 
@@ -1043,7 +1087,9 @@ def phase_int8_serving(torch, cfg, device, masters, bf16_weight_bytes):
     engine.sched.check_invariants()
     steps = int(st["decode_steps"]) + int(st["prefill_chunks"])
     require_launches(launches, {"spectral_matmul_q8": 3 * cfg.n_layers * steps,
-                                "spectral_matmul": 0})
+                                "spectral_matmul": 0,
+                                "paged_gqa_decode": cfg.n_layers * int(st["decode_steps"]),
+                                "paged_gqa_decode_cold": 0})
     print(f"[int8] {int(st['requests'])} requests, {int(st['prefill_tokens'])} prefill + "
           f"{int(st['generated_tokens'])} generated tokens in {st['wall_s']:.3f} s "
           f"({st['tokens_per_s']:.1f} tok/s), {int(st['decode_steps'])} decode steps + "
@@ -1243,14 +1289,12 @@ def phase_int8_timing(torch, cfg, q8_launches, cold_launches, errs):
     int8 matmul is timed with its gain computed beforehand (``ms``; the
     op the model calls also multiplies the three scale vectors: ``op_ms``),
     beside the bf16 kernel on the dequantized factors (``bf16_kernel_ms``)."""
-    import torch.nn.functional as F
     from repro_torch.core.spectral import spectral_apply
     from repro_torch.kernels.ops import spectral_matmul, spectral_matmul_q8
     from repro_torch.kernels.ref import spectral_matmul_q8_ref
     from repro_torch.kernels.spectral_matmul_q8 import spectral_matmul_q8_cuda
     from repro_torch.kernels.paged_decode import paged_gqa_decode_cold
     from repro_torch.kernels.paged_ref import paged_gqa_decode_cold_ref
-    from repro_torch.serving.paged_cache import paged_gather
     from repro_torch.serving.quantize import dequantize_int8
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
@@ -1295,13 +1339,7 @@ def phase_int8_timing(torch, cfg, q8_launches, cold_launches, errs):
     sel = (cold != 0)[:, None, None, None]
     kd = torch.where(sel, kq.float() * ks[:, None], kp.float()).to(dt)
     vd = torch.where(sel, vq.float() * vs[:, None], vp.float()).to(dt)
-    S = STREAM_PAGES_PER_SEQ * PAGE
-    ck = paged_gather(kd, bt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
-    cv = paged_gather(vd, bt).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
-    qh = q.reshape(b, h, 1, hd)
-    mask = (torch.arange(S, device="cuda")[None, :] <= sl[:, None].long())[:, None, None, :]
-    cd["library_ms"] = time_cold(
-        torch, lambda: F.scaled_dot_product_attention(qh, ck, cv, attn_mask=mask))
+    cd["library_ms"] = gqa_library_ms(torch, q, kd, vd, bt, sl)
     live = sum(n + 1 for n in lens)
     cold_rows = b * PAGE                       # one cold page a slot
     cold_pages = b
@@ -2396,6 +2434,7 @@ def main() -> int:
     kernels[0]["launches_xlstm"] = xlstm["launches"].get("spectral_matmul", 0)
     kernels[0]["launches_jamba"] = jamba["launches"].get("spectral_matmul", 0)
     kernels[1]["launches_jamba"] = jamba["launches"].get("paged_gqa_decode", 0)
+    kernels[1]["launches_int8"] = int8["launches"].get("paged_gqa_decode", 0)
     kernels[0]["launches_deepseek"] = deepseek["launches"].get("spectral_matmul", 0)
     kernels += kernels_int8 + [kernel_mlstm, kernel_mamba] + kernels_mla
     for kern in kernels:                        # checks of later phases count too
@@ -2407,7 +2446,9 @@ def main() -> int:
              dict(kernels[0]["at_prefill_chunk"], name="spectral_matmul (prefill chunk)",
                   launches=kernels[0]["launches"]),
              dict(kernels_int8[0]["at_prefill_chunk"], name="spectral_matmul_q8 (prefill chunk)",
-                  launches=kernels_int8[0]["launches"])]
+                  launches=kernels_int8[0]["launches"]),
+             dict(kernels[1]["at_hd128"], name="paged_gqa_decode (hd 128)",
+                  launches=kernels[1]["launches_jamba"])]
     for kern in kernels + extra:
         lib = "none" if kern["library_ms"] is None else f"{kern['library_ms']:.4f} ms"
         beside = "".join(f", {key} {kern[key]:.4f}"

@@ -32,6 +32,31 @@ MLA_MAX_SMEM = 232448   # shared memory a Hopper block may take
 H100_SMS = 132
 
 
+# csrc/paged_decode.cu: warps a block, warp-wide row loads a unit
+GQA_WARPS, GQA_PASSES = 8, 4
+
+
+def gqa_geometry(hd: int, page: int, n_pages: int) -> Tuple[int, int, int, int, int]:
+    """(E, LP, rows a unit, units a page, units a warp) of a GQA decode
+    launch (one block a slot and query head), as ``csrc/paged_decode.cu``
+    ``launch`` picks them for aligned pools: E bf16 elements a lane (the
+    widest of 8, 4, 2, 1 that divides hd), LP lanes a row (the power of
+    two that covers hd / E; at most 32), units of ``GQA_PASSES`` x 32 / LP
+    rows of one page, and the units each of the ``GQA_WARPS`` warps walks,
+    from the table width alone, so that a slot's row is the same served
+    alone or batched. Raises for a head dim the kernel does not take."""
+    e = next(v for v in (8, 4, 2, 1) if hd % v == 0)
+    lp = 1
+    while e * lp < hd:
+        lp *= 2
+    if lp > 32:
+        raise ValueError(f"paged_gqa_decode: head dim {hd} needs {lp} lanes a row; the "
+                         f"kernel takes at most 32 (hd <= {32 * e} at this hd's vector)")
+    rows = GQA_PASSES * 32 // lp
+    per_page = -(-page // rows)
+    return e, lp, rows, per_page, -(-n_pages * per_page // GQA_WARPS)
+
+
 def mla_smem_bytes(lat: int, rope: int, cold: bool) -> int:
     """Shared memory of one MLA block (``csrc/paged_mla_decode.cu``
     ``make_layout``): fp32 q rows for 64 heads, a two-tile bf16 ring, the
@@ -86,6 +111,7 @@ def _check_pools(name, q, k_pool, v_pool, block_table, seq_lens):
     if k_pool.dtype != torch.bfloat16 or v_pool.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the kernel reads bf16 pools, got "
                         f"{k_pool.dtype}/{v_pool.dtype}")
+    gqa_geometry(hd, k_pool.shape[1], block_table.shape[1])
 
 
 def paged_gqa_decode_cuda(q, k_pool, v_pool, block_table, seq_lens):

@@ -255,6 +255,48 @@ def mamba_inputs(b: int, S: int, di: int, ds: int, profile: str, *, dtype=torch.
     return (*(x.to(dtype) for x in t[:4]), t[4], t[5])
 
 
+def gqa_inputs(seq_lens, n_pages: int, kvh: int, rep: int, hd: int, page: int, *,
+               dtype=torch.float32, null_slot: bool = False, p_cold: Optional[float] = None,
+               seed: int = 0, device="cpu"):
+    """Inputs of the paged GQA decode, drawn with numpy from ``seed``: q
+    (b, kvh, rep, hd) ~ N(0, 1) in ``dtype``; pools k, v (P+1, page, kvh,
+    hd) ~ N(0, 1) in bf16 everywhere (the null page included), P = b
+    n_pages + 3; a shuffled block table whose rows end in null pages
+    (:func:`make_block_table`); ``seq_lens`` (b,) int32. With
+    ``null_slot`` slot 0 becomes an inactive slot (null page, length 0).
+    Returns (q, k_pool, v_pool, block_table, seq_lens); with ``p_cold``
+    (q, k_pool, v_pool, k_q8, k_scale, v_q8, v_scale, block_table,
+    seq_lens, cold_flags): int8 shadows quantized per page from
+    independent noise (a read of the wrong tier misses by O(1)) and cold
+    flags drawn with probability ``p_cold``."""
+    from repro_torch.serving.quantize import quantize_kv_pages
+
+    b = len(seq_lens)
+    num_pages = b * n_pages + 3
+    rng = np.random.default_rng(seed)
+    sl = torch.tensor(np.asarray(seq_lens), dtype=torch.int32)
+    bt = make_block_table(b, n_pages, num_pages, sl, page, seed=seed)
+    if null_slot:
+        bt[0, :] = num_pages
+        sl[0] = 0
+
+    def draw(*shape):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=device)
+
+    shape = (num_pages + 1, page, kvh, hd)
+    out = [draw(b, kvh, rep, hd).to(dtype), draw(*shape).to(torch.bfloat16),
+           draw(*shape).to(torch.bfloat16)]
+    if p_cold is not None:
+        for _ in range(2):
+            qt = quantize_kv_pages(draw(*shape), token_axis=1)
+            out += [qt["q8"], qt["scale"]]
+    out += [bt.to(device), sl.to(device)]
+    if p_cold is not None:
+        out.append(torch.tensor(rng.uniform(size=num_pages + 1) < p_cold, dtype=torch.int32,
+                                device=device))
+    return tuple(out)
+
+
 def mla_inputs(seq_lens, n_pages: int, h: int, lat: int, rope: int, page: int, *,
                dtype=torch.float32, null_slot: bool = False, p_cold: Optional[float] = None,
                seed: int = 0, device="cpu"):

@@ -57,6 +57,7 @@ from repro_torch.kernels.testing import (  # noqa: E402
     SPECTRAL_Q8_SHAPES,
     SPECTRAL_SHAPES,
     assert_kernel_matches,
+    gqa_inputs,
     make_block_table,
     mamba_inputs,
     mla_inputs,
@@ -72,7 +73,9 @@ SPECTRAL = SPECTRAL_SHAPES
 SPECTRAL_Q8 = SPECTRAL_Q8_SHAPES
 # b, kvh, rep, hd, page, n_pages_per_seq
 PAGED = [(5, 2, 3, 64, 4, 6), (4, 1, 4, 20, 3, 5), (4, 4, 1, 48, 8, 4), (8, 8, 4, 64, 16, 12),
-         (4, 8, 4, 128, 16, 12)]     # jamba's attention layers: head dim 128
+         (4, 8, 4, 128, 16, 12),     # jamba's attention layers: head dim 128
+         (4, 8, 4, 64, 16, 256),     # a 4096-token table: 32 units a warp
+         (2, 4, 2, 64, 16, 600)]     # 9600 tokens: past 32 units a warp
 # b, h, lat, rope, page, n_pages_per_seq of the absorbed-MLA decode: the
 # reduced deepseek's widths, ragged head groups (72 heads: a 64-head block
 # and a block of 8) and page sizes (40 rows: three 16-row tiles, the last
@@ -263,6 +266,32 @@ def test_paged_decode_kernel_vs_plain(cuda, case, dtype):
         assert_kernel_matches(lambda *a: paged_gqa_decode(*a)[part],
                               lambda *a: paged_gqa_decode_ref(*a)[part], args)
     assert LAUNCHES["paged_gqa_decode"] == before + 2
+
+
+@pytest.mark.parametrize("cold", [False, True], ids=["hot", "cold"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", PAGED, ids=lambda c: "-".join(map(str, c)))
+def test_paged_decode_rows_equal_the_slot_alone(cuda, case, dtype, cold):
+    """Two calls give the same bits, and each slot's row equals the slot
+    computed alone at the same table width (the bf16 serving cells gate on
+    a request served alone), hot and cold (half the pages flagged)."""
+    b, kvh, rep, hd, page, n = case
+    lens = ragged_seq_lens(b, page * n - 1, page, seed=1).tolist()
+    args = gqa_inputs(lens, n, kvh, rep, hd, page, dtype=DTYPES[dtype], null_slot=True,
+                      p_cold=0.5 if cold else None, seed=1, device=cuda)
+    kern = paged_gqa_decode_cold if cold else paged_gqa_decode
+    per_slot = (0, 7, 8) if cold else (0, 3, 4)      # q, block table, seq_lens
+    full = kern(*args)
+    assert torch.equal(full, kern(*args))
+    for i in range(b):
+        one = [t[i:i + 1] if j in per_slot else t for j, t in enumerate(args)]
+        assert torch.equal(kern(*one)[0], full[i]), f"slot {i}"
+
+
+def test_paged_decode_kernel_refuses_rows_wider_than_a_warp(cuda):
+    q, kp, vp, bt, sl = gqa_inputs([5, 9], 2, 1, 2, 512, 8, device=cuda)
+    with pytest.raises(ValueError, match="lanes a row"):
+        paged_gqa_decode(q, kp, vp, bt, sl)
 
 
 def _mla_case(case, dtype, device, p_cold=None):

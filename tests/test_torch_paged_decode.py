@@ -14,7 +14,10 @@ both compute in fp32 and round once at the output, so in practice they
 agree to one bf16 ulp. The reference's gather oracle computes in q's
 dtype, which in bf16 is not the fp32 decode contract, so it is compared
 in fp32 only. The CUDA kernel is held against the plain version on the
-card by chip_smoke.py and tests/test_torch_kernels_cuda.py.
+card by chip_smoke.py and tests/test_torch_kernels_cuda.py; here its
+launch geometry (``gqa_geometry``) is checked at the main path's shapes,
+and a model of its walk reads every live row once and no page past the
+one holding the last position.
 """
 import pytest
 
@@ -29,6 +32,8 @@ from repro.kernels.testing import forced_interpret  # noqa: E402
 from repro.serving import paged_cache as jpc  # noqa: E402
 from repro_torch.kernels.build import LAUNCHES  # noqa: E402
 from repro_torch.kernels.paged_decode import (  # noqa: E402
+    GQA_WARPS,
+    gqa_geometry,
     paged_gqa_decode,
     paged_gqa_decode_cuda,
 )
@@ -167,3 +172,52 @@ def test_ladder_check_rejects_faulty_kernel(fault):
     assert_kernel_matches(paged_gqa_decode_ref, paged_gqa_decode_ref, args)
     with pytest.raises(AssertionError):
         assert_kernel_matches(fault, paged_gqa_decode_ref, args)
+
+
+@pytest.mark.parametrize("hd, page, n_pages, expect", [
+    (64, 16, 16, (8, 8, 16, 1, 2)),      # llama3.2-1b serving: a warp a 16-row page
+    (64, 16, 8, (8, 8, 16, 1, 1)),       # the streaming cell's 8-page tables
+    (128, 16, 16, (8, 16, 8, 2, 4)),     # jamba: half a page a unit
+    (64, 16, 256, (8, 8, 16, 1, 32)),    # a 4096-token table
+    (64, 16, 600, (8, 8, 16, 1, 75)),    # past 32 units a warp: the table entries reload
+    (20, 3, 5, (4, 8, 16, 1, 1)),        # 8-byte vectors, 5 of 8 lanes a row
+    (48, 8, 4, (8, 8, 16, 1, 1)),        # 6 of 8 lanes a row
+    (16, 16, 40, (8, 2, 64, 1, 5)),      # the reduced configs' head dim
+])
+def test_gqa_geometry(hd, page, n_pages, expect):
+    """The launch geometry of ``csrc/paged_decode.cu`` at the main path's
+    shapes, the card tests' odd ones and long tables."""
+    assert gqa_geometry(hd, page, n_pages) == expect
+
+
+@pytest.mark.parametrize("hd", [512, 260, 129])
+def test_gqa_geometry_refuses_rows_wider_than_a_warp(hd):
+    with pytest.raises(ValueError, match="lanes a row"):
+        gqa_geometry(hd, 16, 16)
+
+
+@pytest.mark.parametrize("hd, page, n_pages", [(64, 16, 16), (128, 16, 16), (64, 16, 256),
+                                               (20, 3, 5), (16, 16, 40), (64, 4, 600)])
+def test_gqa_walk_reads_each_live_row_once(hd, page, n_pages):
+    """The kernel's walk, modelled from its geometry: every warp w takes
+    units w, w + W, ... for its trip count, and reads the live ones (up to
+    the one holding position len). Every position 0..len is read exactly
+    once, by lanes that cover all of hd, and no page past the one holding
+    len is touched."""
+    e, lp, rows, per_page, iters = gqa_geometry(hd, page, n_pages)
+    assert e * lp >= hd > e * lp // 2 or lp == 1
+    for length in sorted({0, 1, page - 1, page, 3 * page + 1, page * n_pages - 1}):
+        if length >= page * n_pages:
+            continue
+        last = length // page
+        live = last * per_page + (length - last * page) // rows + 1
+        seen = []
+        for w in range(GQA_WARPS):
+            for u in range(w, w + iters * GQA_WARPS, GQA_WARPS):
+                if u >= live:
+                    continue
+                pg, row0 = u // per_page, (u % per_page) * rows
+                assert pg <= last
+                seen += [pg * page + row0 + r for r in range(min(rows, page - row0))
+                         if pg * page + row0 + r <= length]
+        assert sorted(seen) == list(range(length + 1))

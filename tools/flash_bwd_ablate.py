@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, by ablation, on one GPU: the bf16 flash
-backward (or forward), or the absorbed-MLA paged decode.
+backward (or forward), the absorbed-MLA or GQA paged decode, or the
+chunkwise mLSTM.
 
-    python3 tools/flash_bwd_ablate.py [--fwd | --mla [--src DIR] | --mlstm]
+    python3 tools/flash_bwd_ablate.py [--fwd | --mla | --gqa | --mlstm] [--src DIR]
 
 Copies the port into ``src/repro_torch/_build/ablate/<variant>/`` (git-ignored)
 with one part of the two backward kernels (``csrc/flash_attention.cu``,
@@ -44,6 +45,21 @@ read) and ``direct_out`` (every block writes o_lat as if its slot had one
 item: no partial states). ``--src DIR`` ablates another checkout's ``src``
 (a ``git archive`` of an earlier tree).
 
+``--gqa`` takes parts out of the paged GQA decode (``csrc/paged_decode.cu``,
+hot and cold: one template) and times ``paged_gqa_decode`` and
+``paged_gqa_decode_cold`` at ``chip_smoke.py``'s timed shapes (llama3.2-1b:
+b 4, kvh 8, rep 4, hd 64, page 16, bf16 q; hot: lengths 40/176/87/128 in
+16-page tables; cold: 95 tokens a slot in 8-page tables, one cold page a
+slot), cold-L2 medians. Of the cluster design (a rank a page, combined
+through distributed shared memory) and of the warp-a-page design (one
+block a slot and query head, warps walking the pages) it takes out
+``no_combine`` (the outputs are not combined or written), ``no_staging``
+(no K/V row is read), ``no_scores``, ``no_softmax``, ``no_pv`` (the
+warp-a-page design keeps one product a row, so that the V rows are still
+read) and ``skeleton`` (all five); the cluster design adds ``cluster_1`` …
+``cluster_8`` (the cluster size fixed), the warp-a-page design ``warps_4``
+and ``warps_16`` (warps a block; the base has 8).
+
 ``--mlstm`` takes parts out of the chunkwise mLSTM (``csrc/mlstm_chunk.cu``)
 and prints each of its three launches' device time (``torch.profiler``,
 five calls) and the call's cold-L2 median at the xlstm prefill shape (B 4,
@@ -68,6 +84,7 @@ ROOT = Path(__file__).resolve().parent.parent
 SRC = "src/repro_torch/csrc/flash_attention.cu"
 MLA_SRC = "src/repro_torch/csrc/paged_mla_decode.cu"
 MLSTM_SRC = "src/repro_torch/csrc/mlstm_chunk.cu"
+GQA_SRC = "src/repro_torch/csrc/paged_decode.cu"
 OUT = ROOT / "src" / "repro_torch" / "_build" / "ablate"
 
 
@@ -149,6 +166,14 @@ def fwd_variants(src: str) -> dict:
             "skeleton": no_streaming(no_products(no_softmax(src))), "carveout": carveout(src)}
 
 
+def _patch(src: str, subs) -> str:
+    for old, new in subs:
+        if old not in src:
+            raise SystemExit(f"ablate: {old[:60]!r} not found; the kernel source changed")
+        src = src.replace(old, new)
+    return src
+
+
 def mla_variants(src: str) -> dict:
     """{name: patched paged_mla_decode.cu}, for the design the source holds."""
     if "cluster.map_shared_rank(mrow" in src:          # the cluster design
@@ -189,17 +214,58 @@ def mla_variants(src: str) -> dict:
     else:
         raise SystemExit("ablate: paged_mla_decode.cu holds neither known design")
 
-    def apply(s, subs):
-        for old, new in subs:
-            if old not in s:
-                raise SystemExit(f"ablate: {old[:60]!r} not found; the kernel source changed")
-            s = s.replace(old, new)
-        return s
-
     out = {"base": src}
-    out.update({name: apply(src, subs) for name, subs in parts.items()})
-    out["skeleton"] = apply(src, [sub for subs in parts.values() for sub in subs])
-    out.update({name: apply(src, subs) for name, subs in extra.items()})
+    out.update({name: _patch(src, subs) for name, subs in parts.items()})
+    out["skeleton"] = _patch(src, [sub for subs in parts.values() for sub in subs])
+    out.update({name: _patch(src, subs) for name, subs in extra.items()})
+    return out
+
+
+def gqa_variants(src: str) -> dict:
+    """{name: patched paged_decode.cu}, for the design the source holds."""
+    if "cluster.map_shared_rank(mrow" in src:          # the cluster design
+        parts = {
+            "no_combine": [("const int t_hi = min(rep * hd, (z + 1) * share);",
+                            "const int t_hi = 0 * share;")],
+            "no_staging": [("if (kCold && cold.flags[phys] != 0) {", "if (j < 0) {"),
+                           ("} else {\n      for (int t = tid; t < page * hd;",
+                            "} else if (j < 0) {\n      for (int t = tid; t < page * hd;")],
+            "no_scores": [("for (int d = 0; d < hd; ++d) dot = fmaf(qs[r * hd + d], "
+                           "ks[p * hdp + d], dot);", "dot = qs[r * hd] * ks[p * hdp];")],
+            "no_softmax": [("for (int r = tid; r < rep; r += kThreads) {\n      const float m_prev",
+                            "for (int r = tid; r < 0; r += kThreads) {\n      const float m_prev")],
+            "no_pv": [("for (int p = 0; p < page; ++p) o = fmaf(ps[r * page + p]",
+                       "for (int p = 0; p < 0 * page; ++p) o = fmaf(ps[r * page + p]")],
+        }
+        old = "while (splits < 8 && 2 * splits <= n_pages) splits <<= 1;"
+        extra = {f"cluster_{n}": [(old, f"splits = {n};")] for n in (1, 2, 4, 8)}
+    elif "kWarps" in src:                               # the warp-a-page design
+        parts = {
+            "no_combine": [("for (int d = threadIdx.x; d < G.hd; d += kWarps * 32) {",
+                            "for (int d = threadIdx.x; d < 0 * G.hd; d += kWarps * 32) {")],
+            "no_staging": [("const bool ok = live && dims && rr < rows && pos0 + rr <= len;",
+                            "const bool ok = false;"),
+                           ("live && dims && !hot, U.ks);", "false, U.ks);"),
+                           ("live && dims && !hot, U.vs);", "false, U.vs);")],
+            "no_scores": [("for (int e = 0; e < E; ++e) dot = fmaf(qv[e], kf[e], dot);",
+                           "dot = qv[0] * kf[0];"),
+                          ("dot = reduce<kLp, true>(dot, LP, Add{});", "(void)LP;")],
+            "no_softmax": [("const float alpha = exp2f(__fsub_rn(m, m_new));",
+                            "const float alpha = 1.f;"),
+                           ("sc[s] = valid[s] ? exp2f(__fsub_rn(sc[s], m_new)) : 0.f;",
+                            "sc[s] = valid[s] ? __fsub_rn(sc[s], m_new) : 0.f;"),
+                           ("mx = reduce<kLp, false>(mx, LP, Max{});", "(void)0;")],
+            "no_pv": [("for (int e = 0; e < E; ++e) acc[e] = fmaf(sc[s], vf[e], acc[e]);",
+                       "acc[0] = fmaf(sc[s], vf[0], acc[0]);")],
+        }
+        old = "constexpr int kWarps = 8;"
+        extra = {f"warps_{n}": [(old, f"constexpr int kWarps = {n};")] for n in (4, 16)}
+    else:
+        raise SystemExit("ablate: paged_decode.cu holds neither known design")
+    out = {"base": src}
+    out.update({name: _patch(src, subs) for name, subs in parts.items()})
+    out["skeleton"] = _patch(src, [sub for subs in parts.values() for sub in subs])
+    out.update({name: _patch(src, subs) for name, subs in extra.items()})
     return out
 
 
@@ -220,13 +286,7 @@ def mlstm_variants(src: str) -> dict:
         "out_no_gemm": [("    for (int kk = 0; kk < jn; kk += 8) {", "    for (int kk = 0; kk < 0; kk += 8) {")],
     }
     out = {"base": src}
-    for name, pairs in subs.items():
-        patched = src
-        for old, new in pairs:
-            if old not in patched:
-                raise SystemExit(f"ablate: {old[:60]!r} not found; the kernel source changed")
-            patched = patched.replace(old, new)
-        out[name] = patched
+    out.update({name: _patch(src, pairs) for name, pairs in subs.items()})
     return out
 
 
@@ -271,6 +331,26 @@ print(f"hot {t_hot:.4f} ms, cold {t_cold:.4f} ms")
 '''
 
 
+GQA_TIMER = r'''
+import sys
+sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2])
+import torch
+import chip_smoke as cs
+from repro_torch.kernels.paged_decode import paged_gqa_decode, paged_gqa_decode_cold
+gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+hot_lens = [p + g // 2 for p, g in cs.TRACE[:cs.SLOTS]]
+hot = cs.paged_inputs(torch, hot_lens, cs.PAGES_PER_SEQ, 8, 4, 64, torch.bfloat16, gen,
+                      null_slot=False)
+cold_lens = [cs.SINK * cs.PAGE + cs.WINDOW * cs.PAGE + cs.PAGE - 1] * cs.STREAM_SLOTS
+cold = cs.cold_inputs(torch, cold_lens, cs.STREAM_PAGES_PER_SEQ, 8, 4, 64, torch.bfloat16, gen,
+                      null_slot=False, p_cold=0.0)
+cold[9][cold[7][:, cs.SINK].long()] = 1          # one cold page a slot
+t_hot = cs.time_cold(torch, lambda: paged_gqa_decode(*hot))
+t_cold = cs.time_cold(torch, lambda: paged_gqa_decode_cold(*cold))
+print(f"hot {t_hot:.4f} ms, cold {t_cold:.4f} ms")
+'''
+
+
 FWD_TIMER = r'''
 import sys
 sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2])
@@ -309,14 +389,17 @@ print(f"dkdv {ms.get('dkdv', 0.0):.4f} ms, dq {ms.get('dq', 0.0):.4f} ms")
 
 def main() -> int:
     argv = sys.argv[1:]
-    fwd, mla, mlstm = "--fwd" in argv, "--mla" in argv, "--mlstm" in argv
+    fwd, mla, mlstm, gqa = ("--fwd" in argv, "--mla" in argv, "--mlstm" in argv,
+                            "--gqa" in argv)
     tree = Path(argv[argv.index("--src") + 1]).resolve().parent if "--src" in argv else ROOT
-    path = MLA_SRC if mla else MLSTM_SRC if mlstm else SRC
+    path = MLA_SRC if mla else MLSTM_SRC if mlstm else GQA_SRC if gqa else SRC
     src = (tree / path).read_text()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     if mla:
         table, timer = mla_variants(src), MLA_TIMER
+    elif gqa:
+        table, timer = gqa_variants(src), GQA_TIMER
     elif mlstm:
         table, timer = mlstm_variants(src), MLSTM_TIMER
     else:

@@ -4,7 +4,7 @@ spectral matmul and the int8 one on bf16 activations
 (``csrc/spectral_matmul_tc.cu``), and the bf16 flash forward and backward
 (``csrc/flash_attention.cu``, the ``*_tc_kernel``s).
 
-    PYTHONPATH=src python3 tools/tc_probe.py [--fwd] [--q8] [--mla] [--mlstm]
+    PYTHONPATH=src python3 tools/tc_probe.py [--fwd] [--q8] [--mla] [--mlstm] [--gqa]
                                              [--quick | --split] [--time-only] [--src DIR]
 
 With no mode flag: the bf16 spectral kernel and the flash backward. It
@@ -40,7 +40,15 @@ geometry and time at ``chip_smoke.py``'s timed shapes. ``--mlstm``: the
 chunkwise mLSTM (``csrc/mlstm_chunk.cu``) against its plain version in the
 kernel's chunks (S 1 to 1000, dh 32 and 1024, both gate profiles, with and
 without a state), two calls the same bits; its time at the xlstm prefill
-shape (B 4, S 160, dh 1024) and with a state. ``--quick`` skips the
+shape (B 4, S 160, dh 1024) and with a state. ``--gqa``: the paged GQA
+decode, hot and cold (``csrc/paged_decode.cu``), against its plain versions
+at every case of the card tests (256- and 600-page tables among them;
+ragged lengths, a null slot, fp32 and bf16 q, p_cold 0/0.5/1): two calls
+the same bits, every row the slot's row computed alone at the same table
+width, the cold kernel with no page flagged the hot one's bits; its time
+at ``chip_smoke.py``'s two timed shapes, at jamba's hd 128 and at a
+256-page table (4095 tokens a slot), hot and cold, against the plain
+version and the bytes bound (one launch each: no ``--split``). ``--quick`` skips the
 timing, ``--time-only`` the checks. ``--src DIR`` imports the port from
 another checkout's ``src`` (its kernels build there), so that two trees
 can be timed in one call. Needs no JAX.
@@ -261,6 +269,99 @@ def profile_split(torch, cs, fn):
         print(f"[split] {demangle(key)[:60]}: {ms_all / count:.4f} ms a launch, {count} launches")
 
 
+# (b, kvh, rep, hd, page, table width) of the GQA decode checks: the card
+# tests' cases (tests/test_torch_kernels_cuda.py PAGED), 256- and 600-page
+# tables among them (the second past 32 units a warp)
+GQA_CHECKS = [(5, 2, 3, 64, 4, 6), (4, 1, 4, 20, 3, 5), (4, 4, 1, 48, 8, 4),
+              (8, 8, 4, 64, 16, 12), (4, 8, 4, 128, 16, 12), (4, 8, 4, 64, 16, 256),
+              (2, 4, 2, 64, 16, 600)]
+
+
+def gqa_timed_cases(torch, cs):
+    """{name: (kernel, plain, args, bytes)} at chip_smoke.py's two timed
+    shapes (hot: lengths 40/176/87/128 in 16-page tables; cold: 95 tokens
+    a slot in 8-page tables, one cold page a slot), at jamba's hd 128 and
+    at a 256-page table (4095 tokens a slot)."""
+    from repro_torch.kernels.paged_decode import paged_gqa_decode, paged_gqa_decode_cold
+    from repro_torch.kernels.paged_ref import paged_gqa_decode_cold_ref, paged_gqa_decode_ref
+
+    hot_lens = [p + g // 2 for p, g in cs.TRACE[:cs.SLOTS]]
+    cold_lens = [cs.SINK * cs.PAGE + cs.WINDOW * cs.PAGE + cs.PAGE - 1] * cs.STREAM_SLOTS
+    long_lens = [256 * cs.PAGE - 1] * 4
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+    cases = {}
+    for name, lens, n, hd in (("hot", hot_lens, cs.PAGES_PER_SEQ, 64),
+                              ("hd128", hot_lens, cs.PAGES_PER_SEQ, 128),
+                              ("table256", long_lens, 256, 64)):
+        a = cs.paged_inputs(torch, lens, n, 8, 4, hd, bf, gen, null_slot=False)
+        nbytes = 2 * sum(x + 1 for x in lens) * 8 * hd * 2 + 2 * a[0].numel() * 2
+        cases[name] = (paged_gqa_decode, paged_gqa_decode_ref, a, nbytes)
+    for name, lens, n, hd in (("cold", cold_lens, cs.STREAM_PAGES_PER_SEQ, 64),
+                              ("cold_table256", long_lens, 256, 64)):
+        a = cs.cold_inputs(torch, lens, n, 8, 4, hd, bf, gen, null_slot=False, p_cold=0.0)
+        a[9][a[7][:, cs.SINK].long()] = 1          # one cold page a slot
+        rows = sum(x + 1 for x in lens) - len(lens) * cs.PAGE
+        nbytes = (2 * rows * 8 * hd * 2 + 2 * len(lens) * cs.PAGE * 8 * hd
+                  + 2 * len(lens) * 8 * hd * 4 + 2 * a[0].numel() * 2)
+        cases[name] = (paged_gqa_decode_cold, paged_gqa_decode_cold_ref, a, nbytes)
+    return cases
+
+
+def gqa_mode(torch, cs, args):
+    from repro_torch.kernels.paged_decode import paged_gqa_decode, paged_gqa_decode_cold
+    from repro_torch.kernels.paged_ref import paged_gqa_decode_cold_ref, paged_gqa_decode_ref
+
+    def check(a, cold, what, dtype):
+        from repro_torch.kernels.testing import compare_kernel
+
+        kern = paged_gqa_decode_cold if cold else paged_gqa_decode
+        ref = paged_gqa_decode_cold_ref if cold else paged_gqa_decode_ref
+        worst = 0.0
+        for part in (slice(1, None), slice(0, 1)):     # live slots, then the null slot
+            e = compare_kernel(lambda *x: kern(*x)[part], lambda *x: ref(*x)[part], a,
+                               dtype=dtype, label=f"gqa {what}")
+            worst = max(worst, e.max_scaled)
+        cs.require_rows_alone(torch, kern, a, (0, 7, 8) if cold else (0, 3, 4),
+                              f"gqa {what}")
+        return worst
+
+    if not args.time_only:              # (another tree's port may lack these)
+        from repro_torch.kernels.paged_decode import gqa_geometry
+        from repro_torch.kernels.testing import gqa_inputs, ragged_seq_lens
+
+        for case in GQA_CHECKS:
+            b, kvh, rep, hd, page, n = case
+            lens = ragged_seq_lens(b, page * n - 1, page, seed=cs.SEED).tolist()
+            for dtype in (torch.float32, torch.bfloat16):
+                hot = gqa_inputs(lens, n, kvh, rep, hd, page, dtype=dtype, null_slot=True,
+                                 device="cuda")
+                worst = [check(hot, False, f"hot {case} {dtype}", dtype)]
+                for p_cold in (0.0, 0.5, 1.0):
+                    ca = gqa_inputs(lens, n, kvh, rep, hd, page, dtype=dtype, null_slot=True,
+                                    p_cold=p_cold, seed=cs.SEED + 10, device="cuda")
+                    worst.append(check(ca, True, f"cold {p_cold} {case} {dtype}", dtype))
+                    if p_cold == 0.0 and not torch.equal(
+                            paged_gqa_decode_cold(*ca),
+                            paged_gqa_decode(*ca[:3], ca[7], ca[8])):
+                        raise AssertionError(f"gqa {case} {dtype}: the cold kernel with no "
+                                             "flag differs from the hot one")
+                print(f"[gqa] {case} {dtype} (E, LP, rows a unit, units a page, units a "
+                      f"warp: {gqa_geometry(hd, page, n)}): hot and cold (p_cold 0/0.5/1) "
+                      f"match, deterministic, every row == the slot alone; max scaled "
+                      f"{max(worst):.3e}")
+        torch.cuda.synchronize()
+    if args.quick:
+        return
+    for name, (kern, plain, a, nbytes) in gqa_timed_cases(torch, cs).items():
+        ms = cs.time_cold(torch, lambda: kern(*a))
+        pl = cs.time_cold(torch, lambda: plain(*a))
+        bt, sl = (a[7], a[8]) if name.startswith("cold") else (a[3], a[4])
+        print(f"[time] {kern.__name__} {name} (lens {sl.tolist()}, table {bt.shape[1]}, hd "
+              f"{a[0].shape[-1]}): kernel {ms:.4f} ms, plain {pl:.4f}, bound "
+              f"{nbytes / cs.HBM_BYTES_PER_S * 1e3:.4f} (bytes)")
+
+
 def mlstm_mode(torch, cs, args):
     from repro_torch.kernels.mlstm_chunk import CHUNK, mlstm_chunk
     from repro_torch.kernels.mlstm_ref import mlstm_chunk_ref
@@ -380,6 +481,7 @@ def main() -> int:
     ap.add_argument("--q8", action="store_true", help="the int8 spectral matmul in bf16")
     ap.add_argument("--mla", action="store_true", help="the absorbed-MLA decode")
     ap.add_argument("--mlstm", action="store_true", help="the chunkwise mLSTM")
+    ap.add_argument("--gqa", action="store_true", help="the paged GQA decode")
     ap.add_argument("--quick", action="store_true", help="checks only")
     ap.add_argument("--time-only", action="store_true", help="timing only")
     ap.add_argument("--split", action="store_true",
@@ -406,6 +508,10 @@ def main() -> int:
     build.library()
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
+    if args.gqa:
+        print_ptxas(build, ("paged_decode.cu",))
+        gqa_mode(torch, cs, args)
+        return 0
     if args.mla or args.mlstm:
         if args.mla:
             print_ptxas(build, ("paged_mla_decode.cu",))
