@@ -104,7 +104,9 @@ Phases (any failure exits non-zero and prints no result line):
     and bf16 inputs, two dt profiles (unit, and one that drives dt * A to
     -30): y and the final state at the fp32 rung (the kernel computes the
     plain version's fp32 operations in its order, so a bf16 y rounds
-    from the same value); print the bf16 gap to the reference model's
+    from the same value), and on the model's layout (A and D in u's
+    dtype, B and C column views of one projection) one launch a call with
+    the same bits; print the bf16 gap to the reference model's
     scan, which carries h in bf16 (not gated); hold the spectral kernel at
     jamba's MLP shapes (rank 256, M in {4, 160}) and the paged decode at
     head dim 128 (b 4, kvh 8, rep 4, ragged lengths, a null-page slot),
@@ -121,7 +123,9 @@ Phases (any failure exits non-zero and prints no result line):
     static path, teacher-forced; weight, recurrent-state and peak device
     bytes printed; profile a decode-heavy stretch as in phase 5;
 18. time the scan kernel and its plain version at one 160-token prompt's
-    mamba layer (b 1, di 8192, d_state 16, bf16);
+    mamba layer (b 1, di 8192, d_state 16, bf16) on the model's layout,
+    and the kernel again at S 4096; the profiler must count one device
+    kernel a scan call at both;
 19. hold the absorbed-MLA paged decode and its cold variant against their
     plain versions at deepseek-v3-671b's width (128 heads, latent 512,
     rope 64, page 16): b in {1, 4}, ragged lengths with page edges, a
@@ -189,6 +193,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 SEED = 0
 SPIN_CYCLES = 1 << 21   # ~1 ms at the H100's 1.98 GHz: longer than queueing one call
+SM_CLOCK_HZ = 1.98e9    # the H100 SXM's boost clock, for the exp unit's floor
 
 # training: smollm2-1.7b at batch 2 x seq 4096 (train_4k's sequence length)
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm2-1.7b", 2, 4096, 8
@@ -236,6 +241,7 @@ JAMBA_ARCH, JAMBA_CAPACITY = "jamba-v0.1-52b", 8.0
 # tiles, the cell's longest prompt, long), channels (one block, a ragged
 # edge, jamba's 8192)
 MAMBA_B, MAMBA_S, MAMBA_DI = (1, 2), (1, 3, 37, 64, 160, 512, 1000), (128, 200, 8192)
+MAMBA_LONG_S = 4096             # a training length: the scan timed again there
 
 # the deepseek cell: deepseek-v3-671b at full width cut to 8 layers (the 3
 # dense + 5 MoE), at capacity factor n_experts / top_k, where a forward over
@@ -1591,6 +1597,7 @@ def phase_jamba_kernels(torch, cfg):
     (y and hT at the fp32 rung), its gap to the reference model's bf16
     scan (printed), the spectral kernel at jamba's MLP shapes and the
     paged decode at head dim 128."""
+    from repro_torch.kernels.build import LAUNCHES
     from repro_torch.kernels.mamba_ref import mamba_scan_ref, mamba_scan_twin_ref
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.ops import spectral_matmul
@@ -1602,6 +1609,7 @@ def phase_jamba_kernels(torch, cfg):
         compare_kernel,
         kernel_error,
         mamba_inputs,
+        mamba_model_layout,
         ragged_seq_lens,
     )
 
@@ -1622,11 +1630,22 @@ def phase_jamba_kernels(torch, cfg):
                                 lambda: g, lambda: r, (), dtype=torch.float32,
                                 label=f"mamba_scan {name} b={b} S={S} di={di} {dtype} "
                                       f"{profile}"))
+                        # the model's layout (A, D in u's dtype, B, C views):
+                        # one launch, the bits of fp32 A, D and contiguous B, C
+                        model = mamba_model_layout(*args, dt_rank=cfg.mamba_dt_rank)
+                        before = LAUNCHES["mamba_scan"]
+                        ym, hm = mamba_scan(*model)
+                        yc, hc = mamba_scan(*args[:4], model[4].float(), model[5].float())
+                        if (LAUNCHES["mamba_scan"] != before + 2 or not torch.equal(ym, yc)
+                                or not torch.equal(hm, hc)):
+                            raise AssertionError(f"mamba_scan b={b} S={S} di={di} {dtype} "
+                                                 f"{profile}: the model's layout differs")
                         cases += 1
     print(f"[kernels] mamba_scan: y and hT match the plain version at the fp32 rung over "
           f"{cases} cases (b {list(MAMBA_B)}, S {list(MAMBA_S)}, di {list(MAMBA_DI)}, fp32 "
           f"and bf16, dt profiles {list(MAMBA_PROFILES)}); max scaled error "
-          f"{errs['mamba_scan'][1]:.3e}")
+          f"{errs['mamba_scan'][1]:.3e}; on the model's layout (A, D in u's dtype, B, C "
+          f"column views) one launch a call, the same bits")
     di = cfg.mamba_expand * cfg.d_model
     args = mamba_inputs(1, MLSTM_PREFILL_S, di, ds, "unit", dtype=torch.bfloat16,
                         seed=SEED + 13, device="cuda")
@@ -1781,34 +1800,52 @@ def phase_jamba_serving(torch, device):
 
 def phase_jamba_timing(torch, cfg, launches, errs):
     """The scan kernel and its plain version at one 160-token prompt's
-    mamba layer (b 1, di 8192, d_state 16, bf16; A and D in bf16 as the
-    model hands them over), in device time only. No single PyTorch call
-    computes a selective scan: no library time."""
+    mamba layer (b 1, di 8192, d_state 16, bf16), on the model's layout (A
+    and D in bf16, B and C column views of ``x_proj``'s output), in device
+    time only; the kernel again at a training length (S 4096). One scan
+    call must run one device kernel (the profiler counts them). No single
+    PyTorch call computes a selective scan: no library time."""
     from repro_torch.kernels.mamba_ref import mamba_scan_ref
     from repro_torch.kernels.mamba_scan import mamba_scan
-    from repro_torch.kernels.testing import mamba_inputs
+    from repro_torch.kernels.testing import mamba_inputs, mamba_model_layout
 
-    S, di, ds = MLSTM_PREFILL_S, cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
-    u, dt, B, C, A, D = mamba_inputs(1, S, di, ds, "unit", dtype=torch.bfloat16,
-                                     seed=SEED + 12, device="cuda")
-    A, D = A.bfloat16(), D.bfloat16()
-    t = {"ms": time_cold(torch, lambda: mamba_scan(u, dt, B, C, A, D)),
-         "plain_ms": time_cold(torch, lambda: mamba_scan_ref(u, dt, B, C, A, D)),
-         "library_ms": None}
-    y, h = mamba_scan(u, dt, B, C, A, D)
-    yr, hr = mamba_scan_ref(u, dt, B, C, A, D)
-    add_err(t, y, yr)
-    add_err(t, h, hr)
-    # bytes: u, dt, B, C, A, D in (bf16) and y (bf16), hT (fp32) out; the
-    # operations a (step, channel): dt u, u D and the sum's add, and a state
-    # dt A, dA h, du B, their sum, h C and its add
-    t["bytes"] = 2 * (3 * S * di + 2 * S * ds + di * ds + di) + 4 * di * ds
-    t["flops"] = S * di * (6 * ds + 3)
+    di, ds = cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t = {"library_ms": None}
+    for S, key in ((MLSTM_PREFILL_S, ""), (MAMBA_LONG_S, "long_")):
+        args = mamba_model_layout(*mamba_inputs(1, S, di, ds, "unit", dtype=torch.bfloat16,
+                                                seed=SEED + 12, device="cuda"),
+                                  dt_rank=cfg.mamba_dt_rank)
+        n_kernels = kernels_a_call(torch, lambda: mamba_scan(*args))
+        if n_kernels != 1:
+            raise AssertionError(f"mamba_scan at S={S} on the model's layout ran {n_kernels} "
+                                 "device kernels, not one")
+        t[key + "ms"] = time_cold(torch, lambda: mamba_scan(*args))
+        if not key:
+            t["plain_ms"] = time_cold(torch, lambda: mamba_scan_ref(*args))
+        y, h = mamba_scan(*args)
+        yr, hr = mamba_scan_ref(*args)
+        add_err(t, y, yr)
+        add_err(t, h, hr)
+        # bytes: u, dt, B, C, A, D in (bf16) and y (bf16), hT (fp32) out; the
+        # operations a (step, channel): dt u, u D and the sum's add, and a
+        # state dt A, dA h, du B, their sum, h C and its add; the exp unit:
+        # one exp a state and step at 16 a clock an SM, at the 1.98 GHz boost
+        nbytes = 2 * (3 * S * di + 2 * S * ds + di * ds + di) + 4 * di * ds
+        flops = S * di * (6 * ds + 3)
+        if key:
+            t["long_bound_ms"] = bound_of({"bytes": nbytes, "flops": flops}, "float32")[
+                "bound_ms"]
+        else:
+            t["bytes"], t["flops"] = nbytes, flops
+        t[key + "bound_exp_ms"] = S * di * ds / (16 * sms * SM_CLOCK_HZ) * 1e3
+    t["kernels_a_call"] = 1
     return kernel_entry("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
                         "src/repro/kernels/mamba_scan.py:52", t, "float32",
-                        f"one {S}-token prompt's mamba layer: b=1, S={S}, di={di}, "
-                        f"d_state={ds}, bf16 in and out, fp32 state; no library call "
-                        f"computes it", launches, errs)
+                        f"one {MLSTM_PREFILL_S}-token prompt's mamba layer: b=1, "
+                        f"S={MLSTM_PREFILL_S}, di={di}, d_state={ds}, bf16 in and out, fp32 "
+                        f"state, A and D in bf16, B and C column views (one kernel a call); "
+                        f"long_*: S={MAMBA_LONG_S}; no library call computes it", launches, errs)
 
 
 def mla_case(torch, lens, n_pages, cfg, dtype, *, null_slot, p_cold=None, seed=SEED):
@@ -2250,6 +2287,29 @@ def device_rows(torch, prof):
     return rows
 
 
+def kernels_a_call(torch, fn, calls: int = 5, tries: int = 5) -> float:
+    """The device kernels one call of ``fn()`` runs: three calls to warm
+    up, then the kernel rows of a profile of ``calls`` calls
+    (``device_rows``), over ``calls``. The profiler now and then drops
+    kernel records (seen on the H100: 3 of 5 scans in one profile, none in
+    another); a profile whose count is not a whole number a call is taken
+    again, up to ``tries`` times, and 0 is returned if none was."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        count = sum(n for _, n, _ in device_rows(torch, prof))
+        if count and count % calls == 0:
+            return count / calls
+    return 0.0
+
+
 # kernel families of a training step's profile, matched on the kernel's
 # name in order; the rest is "other" (copies, elementwise, reductions)
 STEP_FAMILIES = (("flash backward", ("flash_bwd",)), ("flash forward", ("flash_fwd",)),
@@ -2316,7 +2376,8 @@ def kernel_entry(name, source, replaces, t, peak_key, shape, launches, errs):
         **bound_of(t, peak_key),
         "library_ms": t["library_ms"], "shape": shape,
     }
-    for key in ("library_fwd_bwd_ms", "bound_tc_ms"):
+    for key in ("library_fwd_bwd_ms", "bound_tc_ms", "bound_exp_ms", "long_ms",
+                "long_bound_ms", "long_bound_exp_ms", "kernels_a_call"):
         if key in t:
             entry[key] = t[key]
     return entry

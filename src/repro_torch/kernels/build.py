@@ -144,7 +144,8 @@ def library() -> ctypes.CDLL:
             lib.sct_flash_attention_bwd.restype = i
             lib.sct_mlstm_chunk.argtypes = [p] * 16 + [i] * 3 + [p]
             lib.sct_mlstm_chunk.restype = i
-            lib.sct_mamba_scan.argtypes = [p] * 8 + [i] * 5 + [p]
+            ll = ctypes.c_longlong
+            lib.sct_mamba_scan.argtypes = [p] * 8 + [i] * 7 + [ll] * 4 + [i, p]
             lib.sct_mamba_scan.restype = i
             _lib = lib
         return _lib

@@ -6,12 +6,14 @@ kernel's arithmetic, returning the final state too.
     h_t = exp(dt_t * A) * h_{t-1} + (dt_t * u_t) * B_t        (h from zero)
     y_t = sum_j h_t[:, j] * C_t[j] + u_t * D
 
-Everything is fp32 (inputs converted exactly), y rounds once a step to
-u's dtype, the final h stays fp32. The sum over the state axis runs in
-the kernel's order (each of ``LANES`` threads sums the states j = lane +
-LANES * i in turn, then the lanes pairwise), and every product and sum is
-its own rounded operation, as the kernel computes it without fused
-multiply-adds: with the same ``exp`` the two agree bit for bit.
+Everything is fp32 (inputs converted exactly, whatever their dtype and
+strides), y rounds once a step to u's dtype, the final h stays fp32. The
+sum over the state axis is a binary tree over neighbouring pairs,
+((p0 + p1) + (p2 + p3)) + ..., the order in which the kernel sums (each
+thread its contiguous states, then the groups' partials), and every
+product and sum is its own rounded operation, as the kernel computes it
+without fused multiply-adds: with the same ``exp`` the two agree bit for
+bit.
 
 :func:`mamba_scan_twin_ref` is the reference model's jnp twin
 (``src/repro/nn/mamba.py:49-76`` ``_ssm_scan``), which carries h in u's
@@ -23,20 +25,26 @@ from typing import Tuple
 
 import torch
 
-LANES = 4             # threads a channel in the kernel (csrc/mamba_scan.cu kLanes)
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis (a power of two wide) as a binary tree
+    over neighbouring pairs."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
 
 
 def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                    A: torch.Tensor, D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """u, dt: (b, S, di); B, C: (b, S, ds) with ds a multiple of
-    ``LANES``; A: (di, ds); D: (di,). Returns (y (b, S, di) in u.dtype,
-    final state hT (b, di, ds) fp32). Only the state update is a loop over
-    time; the factors before it and the sums after it run over every step
-    at once, each element by the same operations."""
+    """u, dt: (b, S, di); B, C: (b, S, ds) with ds a power of two; A:
+    (di, ds); D: (di,); any dtype and strides. Returns (y (b, S, di) in
+    u.dtype, final state hT (b, di, ds) fp32). Only the state update is a
+    loop over time; the factors before it and the sums after it run over
+    every step at once, each element by the same operations."""
     b, S, di = u.shape
     ds = B.shape[-1]
-    if ds % LANES:
-        raise ValueError(f"mamba_scan_ref: d_state {ds} is not a multiple of {LANES}")
+    if ds < 1 or ds & (ds - 1):
+        raise ValueError(f"mamba_scan_ref: d_state {ds} is not a power of two")
     uf, dtf, Bf, Cf = (t.float() for t in (u, dt, B, C))
     dA = torch.exp(dtf[..., None] * A.float())                   # (b, S, di, ds)
     dBu = (dtf * uf)[..., None] * Bf[:, :, None, :]
@@ -45,11 +53,7 @@ def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.
     for t in range(S):
         h = dA[:, t] * h + dBu[:, t]
         hs.append(h)
-    part = (torch.stack(hs, dim=1) * Cf[:, :, None, :]).view(b, S, di, ds // LANES, LANES)
-    acc = part[..., 0, :]
-    for i in range(1, ds // LANES):
-        acc = acc + part[..., i, :]
-    y = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+    y = tree_sum(torch.stack(hs, dim=1) * Cf[:, :, None, :])
     return (y + uf * D.float()).to(u.dtype), h
 
 

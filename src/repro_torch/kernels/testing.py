@@ -255,6 +255,21 @@ def mamba_inputs(b: int, S: int, di: int, ds: int, profile: str, *, dtype=torch.
     return (*(x.to(dtype) for x in t[:4]), t[4], t[5])
 
 
+def mamba_model_layout(u, dt, B, C, A, D, *, dt_rank: int = 256, seed: int = 0):
+    """The scan's inputs in the layout the model hands over
+    (``nn/mamba.py:_mamba_ssm_params``): B and C column views of one (b, S,
+    dt_rank + 2 ds) projection in u's dtype (its dt columns drawn from
+    ``seed``), A and D in u's dtype. The values of B and C are kept."""
+    b, S, ds = B.shape
+    rng = np.random.default_rng(seed)
+    proj = torch.tensor(rng.standard_normal((b, S, dt_rank + 2 * ds)), dtype=torch.float32,
+                        device=u.device).to(u.dtype)
+    proj[..., dt_rank:dt_rank + ds] = B
+    proj[..., dt_rank + ds:] = C
+    return (u, dt, proj[..., dt_rank:dt_rank + ds], proj[..., dt_rank + ds:], A.to(u.dtype),
+            D.to(u.dtype))
+
+
 def gqa_inputs(seq_lens, n_pages: int, kvh: int, rep: int, hd: int, page: int, *,
                dtype=torch.float32, null_slot: bool = False, p_cold: Optional[float] = None,
                seed: int = 0, device="cpu"):

@@ -47,7 +47,7 @@ from repro_torch.kernels.mlstm_chunk import CHUNK as MLSTM_KERNEL_CHUNK  # noqa:
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk  # noqa: E402
 from repro_torch.kernels.mlstm_ref import mlstm_chunk_ref  # noqa: E402
 from repro_torch.kernels.mamba_ref import mamba_scan_ref  # noqa: E402
-from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_cuda  # noqa: E402
 from repro_torch.kernels.ref import spectral_matmul_q8_ref, spectral_matmul_ref  # noqa: E402
 from repro_torch.serving.quantize import quantize_kv_pages  # noqa: E402
 from repro_torch.kernels.testing import (  # noqa: E402
@@ -60,6 +60,7 @@ from repro_torch.kernels.testing import (  # noqa: E402
     gqa_inputs,
     make_block_table,
     mamba_inputs,
+    mamba_model_layout,
     mla_inputs,
     mlstm_inputs,
     ragged_seq_lens,
@@ -91,6 +92,11 @@ MLSTM = ([(B, S, 32) for B in (1, 4) for S in (1, 37, 64, 300)]
 # steps, jamba's prefill (di 8192, ds 16), every state width it is built for
 MAMBA = [(1, 1, 128, 16), (2, 37, 200, 16), (1, 160, 8192, 16), (2, 300, 96, 4),
          (1, 64, 130, 64), (2, 1000, 256, 8), (1, 33, 64, 32)]
+# (b, S, di, ds) of the scan on the model's layout (A and D in u's dtype, B
+# and C column views of one projection): one token, a ragged last tile,
+# jamba's prompt, a training length, the smallest state width
+MAMBA_MODEL = [(1, 1, 128, 16), (2, 37, 200, 16), (1, 160, 8192, 16), (1, 4096, 8192, 16),
+               (2, 70, 96, 4)]
 # (b, s, g, r, d): rep 1 and 4 at s 256, 1000 (ragged tiles) and 4096, plus
 # head dim 128, a group size that does not divide the 64-row tile, and the
 # largest group (64 heads a kv head: one position a query tile)
@@ -653,6 +659,28 @@ def test_mamba_scan_kernel_vs_plain(cuda, case, dtype, profile):
                               label=f"mamba_scan {name} {case} {dtype} {profile}")
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", MAMBA_MODEL, ids=lambda c: "x".join(map(str, c)))
+def test_mamba_scan_kernel_on_the_model_layout(cuda, case, dtype):
+    """A and D in u's dtype, B and C column views of a wider projection (as
+    ``nn/mamba.py`` hands them over): one launch, the plain version's
+    values at the fp32 rung, and the bits of the kernel on contiguous B and
+    C with A and D in fp32."""
+    b, S, di, ds = case
+    u, dt, B, C, A, D = mamba_inputs(b, S, di, ds, "unit", dtype=DTYPES[dtype], seed=S,
+                                     device=cuda)
+    _, _, Bv, Cv, Am, Dm = mamba_model_layout(u, dt, B, C, A, D)
+    before = LAUNCHES["mamba_scan"]
+    y, h = mamba_scan(u, dt, Bv, Cv, Am, Dm)
+    assert LAUNCHES["mamba_scan"] == before + 1
+    yc, hc = mamba_scan(u, dt, B, C, Am.float(), Dm.float())
+    assert torch.equal(y, yc) and torch.equal(h, hc)
+    yr, hr = mamba_scan_ref(u, dt, Bv, Cv, Am, Dm)
+    for name, g, r in (("y", y, yr), ("hT", h, hr)):
+        assert_kernel_matches(lambda: g, lambda: r, (), dtype=torch.float32,
+                              label=f"mamba_scan {name} {case} {dtype} model layout")
+
+
 def test_mamba_scan_kernel_refuses_what_it_cannot_run(cuda):
     u, dt, B, C, A, D = mamba_inputs(1, 8, 64, 16, "unit", device=cuda)
     with pytest.raises(TypeError):
@@ -663,6 +691,10 @@ def test_mamba_scan_kernel_refuses_what_it_cannot_run(cuda):
         mamba_scan(u, dt, B[..., :12], C[..., :12], A[:, :12], D)
     with pytest.raises(ValueError):
         mamba_scan(u[:, :0], dt[:, :0], B[:, :0], C[:, :0], A, D)
+    with pytest.raises(TypeError):
+        mamba_scan_cuda(u, dt, B, C, A, D.bfloat16())
+    with pytest.raises(ValueError):
+        mamba_scan_cuda(u, dt, B[..., ::2], C[..., ::2], A[:, ::2].contiguous(), D)
 
 
 def test_moe_top_k_ties_on_cuda(cuda):

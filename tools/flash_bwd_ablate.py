@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, by ablation, on one GPU: the bf16 flash
 backward (or forward), the absorbed-MLA or GQA paged decode, or the
-chunkwise mLSTM.
+chunkwise mLSTM, or the selective scan.
 
-    python3 tools/flash_bwd_ablate.py [--fwd | --mla | --gqa | --mlstm] [--src DIR]
+    python3 tools/flash_bwd_ablate.py [--fwd | --mla | --gqa | --mlstm | --mamba] [--src DIR]
 
 Copies the port into ``src/repro_torch/_build/ablate/<variant>/`` (git-ignored)
 with one part of the two backward kernels (``csrc/flash_attention.cu``,
@@ -69,6 +69,24 @@ update's big x big tf32 product alone, of three), ``out_no_stats`` (no
 chunk statistics), ``out_no_w`` (no gated scores), ``out_no_gemm`` (no
 (w.S) @ v).
 
+``--mamba`` takes parts out of the selective scan (``csrc/mamba_scan.cu``)
+and times the kernel alone (contiguous B and C, A and D in fp32) at jamba's
+prompt (b 1, S 160, di 8192, d_state 16, bf16) and at S 4096, cold-L2
+medians. Of the design that walks one step at a time with the lanes' sums
+in the chain (4 lanes a channel, 32-step tiles staged by strided loops) it
+takes out ``no_staging`` (no tile of u, dt, B or C is loaded), ``no_exp``
+(dA = dt a, no exp), ``no_shuffle`` (the lanes' sums are not combined),
+``no_writeback`` (no y is stored) and ``skeleton`` (all four), and adds
+``empty`` (the kernel returns at once: the same grid, no work). Of the
+design that walks groups of steps (loads, then exps, then the chain, then
+the lanes' sums) it takes out ``no_staging``, ``no_exp``, ``no_shuffle``,
+``no_ywrite`` (no y is written out of shared memory) and ``skeleton``,
+and adds ``empty``, ``states_2`` /
+``states_8`` (states a thread at d_state 16; the base holds 4), ``steps_1``
+(a step at a time in place of groups of 32 / states steps) and ``exp2`` (dA
+= exp2f(dt (A log2 e)) in place of the accurate expf(dt A): what the exp's
+instruction slots cost).
+
 The variants compute wrong results: they are timings only. Needs no JAX.
 """
 from __future__ import annotations
@@ -85,6 +103,8 @@ SRC = "src/repro_torch/csrc/flash_attention.cu"
 MLA_SRC = "src/repro_torch/csrc/paged_mla_decode.cu"
 MLSTM_SRC = "src/repro_torch/csrc/mlstm_chunk.cu"
 GQA_SRC = "src/repro_torch/csrc/paged_decode.cu"
+MAMBA_SRC = "src/repro_torch/csrc/mamba_scan.cu"
+PLAN_SRC = "src/repro_torch/kernels/mamba_scan.py"
 OUT = ROOT / "src" / "repro_torch" / "_build" / "ablate"
 
 
@@ -290,6 +310,90 @@ def mlstm_variants(src: str) -> dict:
     return out
 
 
+def mamba_variants(src: str, tree: Path) -> dict:
+    """{name: patched mamba_scan.cu}, for the design the source holds; a
+    variant that patches other files of ``tree`` is {path: text}."""
+    body = "const int tid = threadIdx.x;"
+    if "__shfl_xor_sync(0xffffffffu, acc, 1)" in src:     # states over 4 lanes
+        parts = {
+            "no_staging": [("for (int e = tid; e < kTT * kChannels; e += kThreads) {\n"
+                            "      const int r = e / kChannels, col = e % kChannels;\n"
+                            "      const bool ok",
+                            "for (int e = tid; e < 0; e += kThreads) {\n"
+                            "      const int r = e / kChannels, col = e % kChannels;\n"
+                            "      const bool ok"),
+                           ("for (int e = tid; e < kTT * ds; e += kThreads) {",
+                            "for (int e = tid; e < 0; e += kThreads) {")],
+            "no_exp": [("const float dA = expf(__fmul_rn(dtt, a[i]));",
+                        "const float dA = __fmul_rn(dtt, a[i]);")],
+            "no_shuffle": [("acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 1));\n"
+                            "      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 2));",
+                            "")],
+            "no_writeback": [("y[(row0 + t0 + r) * di + c0 + col] = sct::from_float<T>(ys[r][col]);",
+                              "(void)0;")],
+        }
+        extra = {"empty": [(body, "if (S > 0) return;\n  " + body)]}
+    elif "kStates" in src:                                 # states over lanes, step groups
+        parts = {
+            "no_staging": [("const uint4 pu = *reinterpret_cast<const uint4*>(u + off);",
+                            "const uint4 pu = make_uint4(0, 0, 0, 0);"),
+                           ("const uint4 pd = *reinterpret_cast<const uint4*>(dt + off);",
+                            "const uint4 pd = make_uint4(0, 0, 0, 0);"),
+                           ("      const bool ok = r < nt;\n      br[i]",
+                            "      const bool ok = false;\n      br[i]")],
+            "no_exp": [("dA[s][i] = expf(__fmul_rn(ud[s].y, a[i]));",
+                        "dA[s][i] = __fmul_rn(ud[s].y, a[i]);")],
+            "no_shuffle": [("for (int w = 1; w < kGroups; w *= 2)",
+                            "for (int w = 1; w < 1; w *= 2)")],
+            "no_ywrite": [("if (e >= kPiecesTile || r >= nt) break;", "if (e >= 0) break;")],
+        }
+        extra = {"empty": [("const int cl = threadIdx.x / kGroups, g = threadIdx.x % kGroups;",
+                            "if (S > 0) return;\n  "
+                            "const int cl = threadIdx.x / kGroups, g = threadIdx.x % kGroups;")],
+                 "exp2": [("a[i] = live ? load_param(A, (size_t)c * kDs + g * kStates + i, "
+                           "ad_bf16) : 0.f;",
+                           "a[i] = live ? __fmul_rn(load_param(A, (size_t)c * kDs + g * kStates"
+                           " + i, ad_bf16), 1.44269504f) : 0.f;"),
+                          ("dA[s][i] = expf(__fmul_rn(ud[s].y, a[i]));",
+                           "dA[s][i] = exp2f(__fmul_rn(ud[s].y, a[i]));")],
+                 "steps_1": [("constexpr int kU = kStates >= 32 ? 1 : 32 / kStates;",
+                              "constexpr int kU = 1;")]}
+        # states a thread at d_state 16: the plan's table in the wrapper and
+        # the kernel's instance
+        table = "STATES = {4: 4, 8: 4, 16: 4, 32: 8, 64: 16}"
+        for n in (2, 8):
+            extra[f"states_{n}"] = {
+                PLAN_SRC: [(table, table.replace("16: 4", f"16: {n}"))],
+                MAMBA_SRC: [("  SCT_SCAN(16, 4)\n", f"  SCT_SCAN(16, {n})\n")]}
+    else:
+        raise SystemExit("ablate: mamba_scan.cu holds neither known design")
+    out = {"base": src}
+    out.update({name: _patch(src, subs) for name, subs in parts.items()})
+    out["skeleton"] = _patch(src, [sub for subs in parts.values() for sub in subs])
+    for name, subs in extra.items():
+        # a dict patches other files of the port (by path) and keeps the kernel
+        out[name] = ({path: _patch((tree / path).read_text(), pairs)
+                      for path, pairs in subs.items()} if isinstance(subs, dict)
+                     else _patch(src, subs))
+    return out
+
+
+MAMBA_TIMER = r'''
+import sys
+sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2])
+import torch
+import chip_smoke as cs
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+from repro_torch.kernels.testing import mamba_inputs
+ms = []
+for S in (cs.MLSTM_PREFILL_S, 4096):
+    u, dt, B, C, A, D = mamba_inputs(1, S, 8192, 16, "unit", dtype=torch.bfloat16,
+                                     seed=cs.SEED + 12, device="cuda")
+    ms.append(cs.time_cold(torch, lambda: mamba_scan_cuda(u, dt, B, C, A, D)))
+print(f"S 160 {ms[0]:.4f} ms, S 4096 {ms[1]:.4f} ms")
+'''
+
+
 MLSTM_TIMER = r'''
 import sys
 sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2])
@@ -389,10 +493,11 @@ print(f"dkdv {ms.get('dkdv', 0.0):.4f} ms, dq {ms.get('dq', 0.0):.4f} ms")
 
 def main() -> int:
     argv = sys.argv[1:]
-    fwd, mla, mlstm, gqa = ("--fwd" in argv, "--mla" in argv, "--mlstm" in argv,
-                            "--gqa" in argv)
+    fwd, mla, mlstm, gqa, mamba = ("--fwd" in argv, "--mla" in argv, "--mlstm" in argv,
+                                   "--gqa" in argv, "--mamba" in argv)
     tree = Path(argv[argv.index("--src") + 1]).resolve().parent if "--src" in argv else ROOT
-    path = MLA_SRC if mla else MLSTM_SRC if mlstm else GQA_SRC if gqa else SRC
+    path = (MLA_SRC if mla else MLSTM_SRC if mlstm else GQA_SRC if gqa else
+            MAMBA_SRC if mamba else SRC)
     src = (tree / path).read_text()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
@@ -402,6 +507,8 @@ def main() -> int:
         table, timer = gqa_variants(src), GQA_TIMER
     elif mlstm:
         table, timer = mlstm_variants(src), MLSTM_TIMER
+    elif mamba:
+        table, timer = mamba_variants(src, tree), MAMBA_TIMER
     else:
         table, timer = (fwd_variants(src), FWD_TIMER) if fwd else (variants(src), TIMER)
     for name, patched in table.items():
@@ -409,7 +516,8 @@ def main() -> int:
         shutil.rmtree(dst, ignore_errors=True)
         shutil.copytree(tree / "src", dst / "src",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        (dst / path).write_text(patched)
+        for file, text in (patched.items() if isinstance(patched, dict) else [(path, patched)]):
+            (dst / file).write_text(text)
         run = subprocess.run([sys.executable, "-c", timer, str(dst / "src"), str(ROOT)],
                              capture_output=True, text=True, env=dict(os.environ))
         if run.returncode != 0:

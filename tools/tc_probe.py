@@ -5,7 +5,8 @@ spectral matmul and the int8 one on bf16 activations
 (``csrc/flash_attention.cu``, the ``*_tc_kernel``s).
 
     PYTHONPATH=src python3 tools/tc_probe.py [--fwd] [--q8] [--mla] [--mlstm] [--gqa]
-                                             [--quick | --split] [--time-only] [--src DIR]
+                                             [--mamba] [--quick | --split] [--time-only]
+                                             [--src DIR]
 
 With no mode flag: the bf16 spectral kernel and the flash backward. It
 builds the kernels, prints each kernel's registers and spills, holds both
@@ -48,7 +49,16 @@ the same bits, every row the slot's row computed alone at the same table
 width, the cold kernel with no page flagged the hot one's bits; its time
 at ``chip_smoke.py``'s two timed shapes, at jamba's hd 128 and at a
 256-page table (4095 tokens a slot), hot and cold, against the plain
-version and the bytes bound (one launch each: no ``--split``). ``--quick`` skips the
+version and the bytes bound (one launch each: no ``--split``). ``--mamba``: the selective
+scan (``csrc/mamba_scan.cu``) against its plain version at every case of
+the card tests and on the model's layout (A and D in bf16, B and C column
+views of ``x_proj``'s output), two calls the same bits, one device kernel a
+call; its time at jamba's prompt (b 1, S 160, di 8192, d_state 16, bf16)
+and at S 4096: the kernel alone (contiguous B and C, fp32 A and D), the op
+on the model's layout, the device kernels the op runs, the plain version,
+the bytes bound; and the floors of ``tools/mamba_floors.cu`` (an empty
+kernel of the scan's grid, one round of loads, the exponentials alone on a
+full card: accurate expf, exp2f, ex2.approx). ``--quick`` skips the
 timing, ``--time-only`` the checks. ``--src DIR`` imports the port from
 another checkout's ``src`` (its kernels build there), so that two trees
 can be timed in one call. Needs no JAX.
@@ -403,6 +413,130 @@ def mlstm_mode(torch, cs, args):
             profile_split(torch, cs, lambda: mlstm_chunk(q, k, v, i, f, st))
 
 
+def mamba_view(torch, u, dt, B, C, A, D, dt_rank=256):
+    """The model's layout of the scan's inputs: B and C column views of one
+    (b, S, dt_rank + 2 ds) projection (``nn/mamba.py:_mamba_ssm_params``),
+    A and D in u's dtype. (``kernels/testing.py:mamba_model_layout`` does
+    the same, but a tree probed with ``--src`` may predate it.)"""
+    b, S, ds = B.shape
+    proj = torch.randn((b, S, dt_rank + 2 * ds), device=u.device).to(u.dtype)
+    proj[..., dt_rank:dt_rank + ds] = B
+    proj[..., dt_rank + ds:] = C
+    return (u, dt, proj[..., dt_rank:dt_rank + ds], proj[..., dt_rank + ds:], A.to(u.dtype),
+            D.to(u.dtype))
+
+
+def mamba_floors(torch, cs, shapes):
+    """Build ``tools/mamba_floors.cu`` and time its floors at each (S, di,
+    ds) of ``shapes`` (b 1, bf16)."""
+    import ctypes
+    import hashlib
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.spectral_matmul import _sm_count
+    from repro_torch.kernels.testing import mamba_inputs
+
+    src = ROOT / "tools" / "mamba_floors.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    out = build.BUILD_DIR / "probe" / f"libmamba_floors_{digest}.so"
+    if not out.is_file():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                        "-shared", "-Xcompiler", "-fPIC", "-o", str(out), str(src)], check=True)
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.floor_empty.argtypes = [i, i, i, p]
+    lib.floor_one_round.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.floor_exps.argtypes = [p, i, i, i, i, p]
+    st = torch.cuda.current_stream().cuda_stream
+    sms = _sm_count(0)
+    blocks, threads = sms * 16, 128                 # 2048 threads an SM: a full card
+    sink = torch.empty(blocks * threads + (1 << 22), device="cuda")
+    for S, di, ds in shapes:
+        u, dt, B, C, _, _ = mamba_inputs(1, S, di, ds, "unit", dtype=torch.bfloat16,
+                                         seed=cs.SEED + 12, device="cuda")
+        grid = -(-di // 32)
+        t_empty = cs.time_cold(torch, lambda: lib.floor_empty(grid, 1, 128, st))
+        t_round = cs.time_cold(torch, lambda: lib.floor_one_round(
+            u.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), sink.data_ptr(), 1, S, di,
+            ds, st))
+        n = -(-S * di * ds // (4 * blocks * threads))
+        t_exp = [cs.time_cold(torch, lambda: lib.floor_exps(sink.data_ptr(), blocks, threads, n,
+                                                            mode, st)) for mode in (0, 1, 2)]
+        print(f"[floor] S {S}, di {di}, ds {ds}: empty kernel ({grid} x 128) {t_empty:.4f} ms, "
+              f"one round of loads {t_round:.4f}; {4 * n * blocks * threads} exponentials of "
+              f"dt * a on {blocks} x {threads}: expf {t_exp[0]:.4f}, exp2f {t_exp[1]:.4f}, "
+              f"ex2.approx {t_exp[2]:.4f}")
+
+
+def mamba_mode(torch, cs, args):
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.kernels.mamba_ref import mamba_scan_ref
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_cuda
+    from repro_torch.kernels.testing import MAMBA_PROFILES, compare_kernel, mamba_inputs
+
+    bf = torch.bfloat16
+    if not args.time_only:
+        from repro_torch.kernels.mamba_scan import scan_plan
+
+        cases = [(1, 1, 128, 16), (2, 37, 200, 16), (1, 160, 8192, 16), (2, 300, 96, 4),
+                 (1, 64, 130, 64), (2, 1000, 256, 8), (1, 33, 64, 32), (1, 4096, 8192, 16)]
+        for b, S, di, ds in cases:
+            worst = 0.0
+            for dtype in (torch.float32, bf):
+                for profile in MAMBA_PROFILES:
+                    base = mamba_inputs(b, S, di, ds, profile, dtype=dtype, seed=S,
+                                        device="cuda")
+                    for layout, a in (("contiguous", base),
+                                      ("model", mamba_view(torch, *base))):
+                        before = LAUNCHES["mamba_scan"]
+                        y, h = mamba_scan(*a)
+                        y2, h2 = mamba_scan(*a)
+                        if LAUNCHES["mamba_scan"] != before + 2:
+                            raise AssertionError("mamba_scan: launches not counted once a call")
+                        if not (torch.equal(y, y2) and torch.equal(h, h2)):
+                            raise AssertionError(f"mamba {(b, S, di, ds)}: two calls differ")
+                        yr, hr = mamba_scan_ref(*a)
+                        for name, g, r in (("y", y, yr), ("hT", h, hr)):
+                            e = compare_kernel(lambda: g, lambda: r, (), dtype=torch.float32,
+                                               label=f"mamba {name} {(b, S, di, ds)} {dtype} "
+                                                     f"{profile} {layout}")
+                            worst = max(worst, e.max_scaled)
+            n_kernels = cs.kernels_a_call(torch, lambda: mamba_scan(*a))
+            if n_kernels != 1.0:
+                raise AssertionError(f"mamba {(b, S, di, ds)}: {n_kernels} device kernels a "
+                                     "call on the model's layout")
+            print(f"[mamba] {(b, S, di, ds)} plan {scan_plan(b, S, di, ds)}: fp32 and bf16, "
+                  f"both profiles, contiguous and the model's layout match at the fp32 rung, "
+                  f"deterministic, one device kernel a call; max scaled {worst:.3e}")
+        torch.cuda.synchronize()
+    if args.quick:
+        return
+    for S in (cs.MLSTM_PREFILL_S, 4096):
+        base = mamba_inputs(1, S, 8192, 16, "unit", dtype=bf, seed=cs.SEED + 12, device="cuda")
+        u, dt, B, C, A, D = base
+        model = mamba_view(torch, *base)
+        Af, Df = model[4].float(), model[5].float()
+        alone = cs.time_cold(torch, lambda: mamba_scan_cuda(u, dt, B, C, Af, Df))
+        op = cs.time_cold(torch, lambda: mamba_scan(*model))
+        # (the plain version's 4096-step host loop outlasts time_cold's spin)
+        plain = (f"{cs.time_cold(torch, lambda: mamba_scan_ref(*model)):.4f}" if S < 1000
+                 else "not timed")
+        nbytes = 2 * (3 * S * 8192 + 2 * S * 16 + 8192 * 16 + 8192) + 4 * 8192 * 16
+        n_kernels = cs.kernels_a_call(torch, lambda: mamba_scan(*model))
+        print(f"[time] mamba_scan (1, {S}, 8192, 16) bf16: kernel alone {alone:.4f} ms, op on "
+              f"the model's layout {op:.4f} ({n_kernels} device kernels a call), plain {plain}, "
+              f"bound "
+              f"{nbytes / cs.HBM_BYTES_PER_S * 1e3:.4f} (bytes)")
+    # how often a profile of the scan comes back empty
+    base = mamba_inputs(1, cs.MLSTM_PREFILL_S, 8192, 16, "unit", dtype=bf, seed=cs.SEED + 12,
+                        device="cuda")
+    model = mamba_view(torch, *base)
+    counts = [cs.kernels_a_call(torch, lambda: mamba_scan(*model), tries=1) for _ in range(20)]
+    print(f"[profile] kernels a scan call over 20 profiles of 5 calls: {counts}")
+    mamba_floors(torch, cs, ((cs.MLSTM_PREFILL_S, 8192, 16), (4096, 8192, 16)))
+
+
 def q8_checks(torch, cs, gen, spectral_matmul_q8):
     """The int8 kernel's launch geometry, its outputs against the plain
     version and the batch invariance of its rows, in bf16."""
@@ -482,6 +616,7 @@ def main() -> int:
     ap.add_argument("--mla", action="store_true", help="the absorbed-MLA decode")
     ap.add_argument("--mlstm", action="store_true", help="the chunkwise mLSTM")
     ap.add_argument("--gqa", action="store_true", help="the paged GQA decode")
+    ap.add_argument("--mamba", action="store_true", help="the selective scan")
     ap.add_argument("--quick", action="store_true", help="checks only")
     ap.add_argument("--time-only", action="store_true", help="timing only")
     ap.add_argument("--split", action="store_true",
@@ -511,6 +646,10 @@ def main() -> int:
     if args.gqa:
         print_ptxas(build, ("paged_decode.cu",))
         gqa_mode(torch, cs, args)
+        return 0
+    if args.mamba:
+        print_ptxas(build, ("mamba_scan.cu",))
+        mamba_mode(torch, cs, args)
         return 0
     if args.mla or args.mlstm:
         if args.mla:
