@@ -124,8 +124,8 @@ Phases (any failure exits non-zero and prints no result line):
     bytes printed; profile a decode-heavy stretch as in phase 5;
 18. time the scan kernel and its plain version at one 160-token prompt's
     mamba layer (b 1, di 8192, d_state 16, bf16) on the model's layout,
-    and the kernel again at S 4096; the profiler must count one device
-    kernel a scan call at both;
+    and the kernel again at S 4096; a scan call must enqueue one kernel
+    and nothing else at both (counted in a CUDA graph of the call);
 19. hold the absorbed-MLA paged decode and its cold variant against their
     plain versions at deepseek-v3-671b's width (128 heads, latent 512,
     rope 64, page 16): b in {1, 4}, ragged lengths with page edges, a
@@ -162,10 +162,35 @@ Phases (any failure exits non-zero and prints no result line):
     requests: every token the static path's;
 23. time both MLA kernels at the cell's decode shape (fp32 q, 4 slots)
     against their plain versions and one SDPA call over pre-gathered
-    [ckv | kr] keys and ckv values.
+    [ckv | kr] keys and ckv values;
+24. (K) hold the mLSTM backward kernel against its plain version (the
+    forward's 256-token chunks, the last one ragged): dh in {32, 1024},
+    B in {1, 8}, S in {1, 37, 256, 300, 1000, 4096}, phase 13's two gate
+    profiles, with and without an initial state and gradients of the
+    final state: every gradient at the fp32 rung (scaled by the plain
+    version's RMS or, where the gradient is rounding noise in fp32, by
+    that noise: ``kernels/testing.py:noise_scale``); two calls give the
+    same bits;
+25. (T) train xlstm-1.3b at full width cut to 16 blocks (2 periods: 14
+    mLSTM + 2 sLSTM; d_model 2048, 4 mLSTM heads of 1024, vocab 50304,
+    rank 128, cholesky_qr2 retraction, remat, bf16 compute over fp32
+    masters; batch 2 x 4096; random weights from seed 0) for 6 steps
+    through the calls ``Trainer.__init__`` makes, the launch counts zeroed
+    before each step and read after it: 28 ``mlstm_chunk`` (forward and
+    remat recompute), 14 ``mlstm_chunk_bwd`` and 64 ``spectral_matmul`` a
+    step; losses finite, orthogonality error <= 1e-4, every gradient leaf
+    finite and non-zero (read from each leaf's Adam first moment); warm
+    step (median of steps 3-6), tokens/s, peak memory, the sLSTM blocks'
+    share of the step, step 2's device time by family (under the
+    profiler);
+26. (R) resume reduced xlstm from its step-3 checkpoint on the card:
+    losses of steps 4-6 and the final parameters bit-identical;
+27. time the mLSTM backward (#9b) and forward (#9) at the training shape
+    (B 8, S 4096, dh 1024) against their plain versions.
 
 The ``kernels`` line has one entry per kernel: the nine TPU kernels' ports
-and, as its own entry, the flash backward. Every entry carries
+and, as their own entries, the flash backward and the mLSTM backward.
+Every entry carries
 ``max_scaled_err``: the
 largest error of its checks divided by the reference's RMS, the figure
 the ladder's rung bounds (``max_abs_err`` and ``max_err`` are unscaled).
@@ -178,6 +203,7 @@ the repository around it: alone, or without a CUDA device, it fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -233,6 +259,15 @@ XLSTM_ARCH = "xlstm-1.3b"
 # the cell's longest prompt, one and two chunks of 256, four)
 MLSTM_DH, MLSTM_B, MLSTM_S = (32, 1024), (1, 4), (1, 37, 64, 160, 256, 300, 1000)
 MLSTM_PREFILL_S = 160           # the cell's longest prompt: the timed shape
+# the xlstm training cell: xlstm-1.3b at full width cut to 16 blocks (two
+# periods: 14 mLSTM + 2 sLSTM), batch 2 x train_4k's 4096 tokens
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 16, 2, 4096, 6
+XLSTM_PROFILED_STEP = 2         # warm (step 1 warms up), outside the median of steps 3-6
+# mLSTM backward checks: head widths, folded batch * heads (xlstm's
+# training batch: 2 x 4 heads), lengths (one token, a ragged chunk, one and
+# two chunks, four, the training length)
+MLSTM_BWD_DH, MLSTM_BWD_B = (32, 1024), (1, 8)
+MLSTM_BWD_S = (1, 37, 256, 300, 1000, 4096)
 
 # the jamba cell: jamba-v0.1-52b at full width on slice 1's trace and
 # geometry, at the capacity factor the JAX package's tests pin
@@ -264,7 +299,7 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
-def time_cold(torch, fn, iters: int = 30) -> float:
+def time_cold(torch, fn, iters: int = 30, spin_ahead: bool = True) -> float:
     """Median device time of ``fn()`` in ms: CUDA events around each
     call, L2 flushed before each (the decode step finds each layer's
     weights cold: 1 GB of weights cycle through a 50 MB L2).
@@ -273,7 +308,9 @@ def time_cold(torch, fn, iters: int = 30) -> float:
     the start event only after the host has queued the whole call:
     the events then bracket device work alone, not host dispatch. A
     sample whose spin ended before the host was done is dropped and
-    the spin doubled."""
+    the spin doubled. Without ``spin_ahead`` the events bracket the call
+    as the host queues it, gaps included: for a call of thousands of
+    launches, which fill the launch queue behind any spin."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
@@ -285,14 +322,15 @@ def time_cold(torch, fn, iters: int = 30) -> float:
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         lead.record()
-        torch.cuda._sleep(spin)
+        if spin_ahead:
+            torch.cuda._sleep(spin)
         flush.zero_()
         start.record()
         fn()
         end.record()
         host_ms = (time.perf_counter() - t0) * 1e3
         end.synchronize()
-        if lead.elapsed_time(start) <= host_ms:
+        if spin_ahead and lead.elapsed_time(start) <= host_ms:
             if spin >= SPIN_CYCLES << 6:
                 raise RuntimeError(f"time_cold: the host took {host_ms:.3f} ms to queue "
                                    "one call; the spin cannot cover it")
@@ -819,8 +857,8 @@ def phase_training(torch, device):
     }
 
 
-def phase_resume(torch, device):
-    """Reduced smollm2 on the card: an uninterrupted 6-step run against a
+def phase_resume(torch, device, arch=TRAIN_ARCH):
+    """A reduced model on the card: an uninterrupted 6-step run against a
     run saved at step 3 and resumed, through Trainer.resume and fit."""
     import tempfile
     from repro_torch.api import CheckpointSpec, ModelSpec, RunSpec, Trainer, TrainSpec
@@ -828,7 +866,7 @@ def phase_resume(torch, device):
 
     with tempfile.TemporaryDirectory() as tmp:
         def spec(name):
-            return RunSpec(model=ModelSpec(TRAIN_ARCH, reduced=True),
+            return RunSpec(model=ModelSpec(arch, reduced=True),
                            train=TrainSpec(steps=6, batch=2, seq=64, lr=1e-3, seed=SEED),
                            checkpoint=CheckpointSpec(directory=f"{tmp}/{name}", every=3))
 
@@ -843,7 +881,7 @@ def phase_resume(torch, device):
         final = Trainer.resume(f"{tmp}/b", device=device).fit()
         same_params = all(torch.equal(t, flatten(straight.params)[key])
                           for key, t in flatten(final["params"]).items())
-    print(f"[resume] reduced {TRAIN_ARCH}: losses {losses}; resumed from step 3: {tail}; "
+    print(f"[resume] reduced {arch}: losses {losses}; resumed from step 3: {tail}; "
           f"fit() from step 3 ends on the uninterrupted run's parameters: {same_params}")
     if tail != losses[3:] or not same_params:
         raise AssertionError("resume on the card is not bit-identical")
@@ -943,6 +981,323 @@ def phase_train_timing(torch, cfg, launches, errs):
                      "src/repro/nn/attention.py:136", bwd, "bfloat16",
                      shape + "; library: SDPA backward alone", launches, errs),
     ], at_train
+
+
+def mlstm_bwd_cotangents(torch, y, fin, finals, seed):
+    """dy and, with ``finals``, the final state's dC, dn, dm: unit normals."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dy = torch.randn(y.shape, generator=gen, device="cuda")
+    dfin = ([torch.randn(t.shape, generator=gen, device="cuda") for t in fin] if finals
+            else [None] * 3)
+    return dy, dfin
+
+
+def check_noise_scaled(torch, got, ref, alt, rung, label):
+    """``kernel_error`` and ``assert_scaled_close`` of ``got`` against
+    ``ref`` on the card, with the scale of ``noise_scale`` (``alt``: the
+    plain version with its sums in another order). Returns (max abs error,
+    the same over the scale, the same over the RMS)."""
+    from repro_torch.kernels.testing import NOISE_FACTOR
+
+    got, ref, alt = got.float(), ref.float(), alt.float()
+    rms = float(ref.pow(2).mean().sqrt()) or 1.0
+    scale = max(rms, NOISE_FACTOR * float((ref - alt).abs().max()) / rung.atol)
+    err = (got - ref).abs()
+    if not bool((err <= rung.atol * scale + rung.rtol * ref.abs()).all()):
+        raise AssertionError(f"{label}: kernel vs plain version beyond the rung (max error "
+                             f"{float(err.max()):.3e}, scale {scale:.3e}, RMS {rms:.3e})")
+    e = float(err.max())
+    return e, e / scale, e / rms
+
+
+def phase_mlstm_bwd_kernels(torch):
+    """K: the mLSTM backward kernel against its plain version on the card
+    over the sweep, every gradient at the fp32 rung: scaled by the plain
+    version's RMS or, for a gradient that is rounding noise in fp32 (dq
+    and dk at one token), by that noise (``noise_scale``); two calls give
+    the same bits."""
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_bwd_cuda
+    from repro_torch.kernels.mlstm_ref import mlstm_chunk_bwd_ref
+    from repro_torch.kernels.testing import (MLSTM_PROFILES, mlstm_bwd_reordered, mlstm_inputs,
+                                             tolerance_for)
+
+    rung = tolerance_for(torch.float32)
+    errs, cases, floored, worst_rms = {}, 0, 0, 0.0
+    names = ("dq", "dk", "dv", "di", "df", "dC0", "dn0", "dm0")
+    for dh in MLSTM_BWD_DH:
+        for B in MLSTM_BWD_B:
+            for S in MLSTM_BWD_S:
+                for profile in MLSTM_PROFILES:
+                    for with_state in (False, True):
+                        q, k, v, i, f, state = mlstm_inputs(B, S, dh, profile, seed=SEED + S,
+                                                            device="cuda",
+                                                            with_state=with_state)
+                        y, fin = mlstm_chunk(q, k, v, i, f, state)
+                        for finals in (False, True):
+                            dy, dfin = mlstm_bwd_cotangents(torch, y, fin, finals, SEED + S)
+                            args = (q, k, v, i, f, state, y, dy, *dfin)
+                            g1 = mlstm_chunk_bwd_cuda(*args)
+                            g2 = mlstm_chunk_bwd_cuda(*args)
+                            got = list(g1[:5]) + (list(g1[5]) if with_state else [])
+                            again = list(g2[:5]) + (list(g2[5]) if with_state else [])
+                            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                                raise AssertionError(f"mlstm_chunk_bwd B={B} S={S} dh={dh}: "
+                                                     "two calls differ")
+                            r = mlstm_chunk_bwd_ref(*args)
+                            ref = list(r[:5]) + (list(r[5]) if with_state else [])
+                            alt = mlstm_bwd_reordered(*args)
+                            for name, g, rr, a in zip(names, got, ref, alt):
+                                e, scaled, by_rms = check_noise_scaled(
+                                    torch, g, rr, a, rung,
+                                    f"mlstm_chunk_bwd {name} B={B} S={S} dh={dh} {profile} "
+                                    f"state={with_state} dstate={finals}")
+                                if scaled < by_rms:
+                                    floored += 1
+                                else:
+                                    worst_rms = max(worst_rms, by_rms)
+                                note(errs, "mlstm_chunk_bwd", (e, scaled))
+                            cases += 1
+                            del g1, g2, got, again, r, ref, alt
+                        del q, k, v, i, f, state, y, fin
+                torch.cuda.empty_cache()
+    print(f"[kernels] mlstm_chunk_bwd: every gradient matches the plain version over {cases} "
+          f"cases (dh {list(MLSTM_BWD_DH)}, B {list(MLSTM_BWD_B)}, S {list(MLSTM_BWD_S)}, gate "
+          f"profiles {list(MLSTM_PROFILES)}, with and without an initial state and gradients "
+          f"of the final state), two calls the same bits; max scaled error "
+          f"{errs['mlstm_chunk_bwd'][1]:.3e} (of the gradients scaled by their RMS "
+          f"{worst_rms:.3e}; {floored} gradients are rounding noise and scaled by it)")
+    torch.cuda.synchronize()
+    return errs
+
+
+def xlstm_train_config():
+    from repro_torch.config import get_config
+
+    return get_config(XLSTM_ARCH).replace(n_layers=XLSTM_TRAIN_LAYERS)
+
+
+def phase_xlstm_training(torch, device):
+    """T: xlstm-1.3b at full width cut to 16 blocks through the calls
+    Trainer.__init__ makes (make_sct_optimizer, make_train_step,
+    init_model, SyntheticLMDataset), for XLSTM_TRAIN_STEPS steps with the
+    launch counts zeroed just before each and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint.store import flatten, unflatten
+    from repro_torch.core.tree import layer_slice, max_orthogonality_error
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import n_periods
+    from repro_torch.models.model import init_model, param_count
+    from repro_torch.nn import xlstm as xlstm_mod
+    from repro_torch.optim import make_sct_optimizer
+
+    cfg = xlstm_train_config()
+    steps, b, s = XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ
+    t0 = time.time()
+    opt = make_sct_optimizer(cfg, lr=1e-3, warmup=min(100, steps // 10 + 1), total_steps=steps,
+                             precision="legacy")
+    step_fn = make_train_step(cfg, opt)
+    state = opt.init(init_model(cfg, seed=SEED, device=device))
+    data = SyntheticLMDataset(vocab=cfg.vocab, seq_len=s, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = param_count(state["params"])
+    n_mlstm = n_periods(cfg) * (cfg.slstm_every - 1)
+    n_slstm = n_periods(cfg)
+    print(f"[xlstm-train] {cfg.name} cut to {cfg.n_layers} blocks ({n_periods(cfg)} periods: "
+          f"{n_mlstm} mLSTM + {n_slstm} sLSTM): {n_params} parameters, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads (mLSTM head width {2 * cfg.d_model // cfg.n_heads}), vocab "
+          f"{cfg.vocab}, rank {cfg.sct.rank}, retraction {cfg.sct.retraction}, legacy "
+          f"({cfg.dtype} compute over fp32 masters), remat {cfg.remat}; batch {b} x {s}; init "
+          f"{time.time() - t0:.1f} s")
+
+    def batch(i):
+        tokens, labels = data.batch(i, b)
+        return {"tokens": torch.as_tensor(tokens, device=device),
+                "labels": torch.as_tensor(labels, device=device)}
+
+    batches = [batch(i) for i in range(steps)]
+    # per step: the mLSTM kernel twice a layer (forward, remat recompute),
+    # its backward once; two spectral projections a block, forward and
+    # recompute (the spectral backward is plain GEMMs)
+    expect = {"mlstm_chunk": 2 * n_mlstm, "mlstm_chunk_bwd": n_mlstm,
+              "spectral_matmul": 4 * cfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, orthos = [], [], []
+    totals = {name: 0 for name in expect}
+    for i in range(steps):
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        # step 2 runs under the profiler (device kernels only: the sLSTM's
+        # loop makes ~750K of them); the warm median reads steps 3-6
+        with (profile(activities=[ProfilerActivity.CUDA]) if i == XLSTM_PROFILED_STEP - 1
+              else contextlib.nullcontext()) as prof:
+            t1 = time.perf_counter()
+            state, metrics = step_fn(state, batches[i])
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        if prof is not None:
+            t_exit = time.perf_counter()
+            rows = device_rows_raw(torch, prof)
+            print(f"[xlstm-train] profiled step {i + 1}: the profiler's stop took "
+                  f"{(t_exit - t1) - ms / 1e3:.1f} s, its rows "
+                  f"{time.perf_counter() - t_exit:.1f} s")
+            wall_ms = ms
+        launches = {name: LAUNCHES.get(name, 0) for name in expect}
+        ortho = float(max_orthogonality_error(state["params"]))
+        print(f"[xlstm-train] step {i + 1}: loss {loss:.6f}, step {ms:.1f} ms, max "
+              f"orthogonality error {ortho:.3e}, launches {launches}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"xlstm step {i + 1}: loss {loss}")
+        if not ortho <= ORTHO_LIMIT:
+            raise AssertionError(f"xlstm step {i + 1}: orthogonality error {ortho}")
+        if launches != expect:
+            raise AssertionError(f"xlstm step {i + 1}: launches {launches}, expected {expect}")
+        losses.append(loss)
+        step_ms.append(ms)
+        orthos.append(ortho)
+        for name in expect:
+            totals[name] += launches[name]
+    peak_mem = torch.cuda.max_memory_allocated()
+    warm = sorted(step_ms[2:])
+    warm_ms = (warm[len(warm) // 2 - 1] + warm[len(warm) // 2]) / 2
+    tokens_per_s = b * s / (warm_ms / 1e3)
+    print(f"[xlstm-train] median warm step (steps 3-{steps}) {warm_ms:.1f} ms, "
+          f"{tokens_per_s:.1f} tokens/s; max_memory_allocated {peak_mem}; launches over "
+          f"{steps} steps {totals}")
+
+    # every gradient leaf was finite and non-zero: a non-finite gradient
+    # makes every leaf's Adam first moment non-finite (through the global
+    # norm's clip), and a leaf whose gradients were all zero keeps a zero
+    # moment (a pass of its own would cost another ~25 s step)
+    mu = flatten(state["opt"]["mu"])
+    for path, m in mu.items():
+        if not bool(torch.isfinite(m).all()) or float(m.abs().max()) == 0.0:
+            raise AssertionError(f"xlstm gradient of {path}: its first moment is finite "
+                                 f"{bool(torch.isfinite(m).all())}, max {float(m.abs().max())}")
+    print(f"[xlstm-train] all {len(mu)} parameter leaves got finite, non-zero gradients "
+          f"(their Adam first moments after {steps} steps)")
+
+    # the sLSTM's scans: one block's forward, remat recompute and backward
+    # on the host clock (a Python loop of small ops over the 4096 tokens;
+    # the steps have warmed its ops up), without the checkpoint's hooks
+    p = layer_slice(state["params"]["periods"], 0)[f"p{cfg.slstm_offset}"]["slstm"]
+    x = torch.randn((b, s, cfg.d_model), device=device).to(torch.bfloat16).requires_grad_()
+    leaves = {key: t.detach().clone().requires_grad_() for key, t in flatten(p).items()}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        xlstm_mod.apply_slstm(unflatten(leaves), x, cfg)
+    out = xlstm_mod.apply_slstm(unflatten(leaves), x, cfg)
+    torch.autograd.grad(out.float().sum(), [x, *leaves.values()], allow_unused=True)
+    torch.cuda.synchronize()
+    slstm_ms = (time.perf_counter() - t1) * 1e3
+    print(f"[xlstm-train] one sLSTM block's forward + recompute + backward {slstm_ms:.1f} ms "
+          f"(host clock); the {n_slstm} blocks {n_slstm * slstm_ms:.1f} ms = "
+          f"{100.0 * n_slstm * slstm_ms / warm_ms:.1f}% of the warm step")
+    del x, out, leaves, p, state, batches
+
+    busy_ms = sum(r[0] for r in rows)
+    print(f"[profile] xlstm training step {XLSTM_PROFILED_STEP} ({b}x{s}): wall "
+          f"{wall_ms:.1f} ms under the profiler, device busy {busy_ms:.1f} ms "
+          f"({100.0 * busy_ms / wall_ms:.1f}% of wall)")
+    for ms, count, key in rows[:20]:
+        print(f"[profile] {ms:10.3f} ms {count:7d}x  {key[:160]}")
+    split = step_split(rows)
+    print("[profile] one xlstm training step's device ms by kernel family (the backward's "
+          "state pass is the forward's state kernel, under mLSTM forward): " + ", ".join(
+              f"{name} {ms:.1f} ms ({count}x)" for name, (ms, count) in split.items()))
+    return {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params, "batch": b, "seq": s,
+        "steps": steps, "losses": losses, "step_ms": step_ms, "ortho": orthos,
+        "warm_step_ms": warm_ms, "tokens_per_s": tokens_per_s,
+        "max_memory_allocated": peak_mem, "launches": totals, "launches_per_step": expect,
+        "slstm_block_ms": slstm_ms, "slstm_share": n_slstm * slstm_ms / warm_ms,
+        "profile": {"step": XLSTM_PROFILED_STEP, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                    "by_family": {name: ms for name, (ms, _) in split.items()},
+                    "top": [{"ms": ms, "launches": c, "kernel": key[:120]}
+                            for ms, c, key in rows[:20]]},
+    }
+
+
+def mlstm_train_work(B, S, dh, *, backward):
+    """(flops, bytes) of the chunkwise mLSTM over (B, S, dh) from the empty
+    state with no gradient of the final state, as these inputs need them.
+    Forward: the causal scores and w.S @ v (p dh each, p the chunk's causal
+    pairs), q @ C0 where C0 is not empty (T dh^2), the state update (T dh^2)
+    and n. Backward: the five triangle products (S, dy v^T, dS k, dS^T q,
+    P^T dy), C0 dnum and the dC update where the chunk's C0 and dC1 are not
+    empty (T dh^2 each), dC1 v and dC1^T k where dC1 is not (T dh^2 each),
+    and the chunks' starting states (T dh^2 each but the last's update)."""
+    lens = [min(256, S - c0) for c0 in range(0, S, 256)]
+    macs = 0
+    for c, T in enumerate(lens):
+        p = T * (T + 1) // 2
+        first, last = c == 0, c == len(lens) - 1
+        if backward:
+            macs += 5 * p * dh
+            macs += (0 if first else 2) * T * dh * dh     # C0 dnum; q dnum^T into dC
+            macs += (0 if last else 2) * T * dh * dh      # dC1 v, dC1^T k
+            macs += (0 if last else 1) * T * dh * dh      # the state pass
+        else:
+            macs += 2 * p * dh + T * dh * dh + T * dh
+            macs += (0 if first else 1) * T * dh * dh     # q @ C0
+    flops = 2 * B * macs
+    if backward:     # q k v y dy i f in; dq dk dv di df out
+        nbytes = 4 * B * (8 * S * dh + 4 * S)
+    else:            # q k v i f in; y C n m out
+        nbytes = 4 * B * (4 * S * dh + 2 * S + dh * dh + dh + 1)
+    return flops, nbytes
+
+
+def phase_xlstm_train_timing(torch, cfg, launches_fwd, launches_bwd, errs):
+    """The mLSTM backward kernel (#9b) and the forward (#9) at the training
+    shape (B = 2 x 4 heads, S 4096, dh 1024, the empty state, no gradient
+    of the final state), cold L2, against their plain versions, in device
+    time only. No single PyTorch call computes either: no library time."""
+    from repro_torch.kernels.mlstm_chunk import CHUNK, mlstm_chunk, mlstm_chunk_bwd_cuda
+    from repro_torch.kernels.mlstm_ref import mlstm_chunk_bwd_ref, mlstm_chunk_ref
+    from repro_torch.kernels.testing import mlstm_inputs
+
+    B = XLSTM_TRAIN_BATCH * cfg.n_heads
+    S, dh = XLSTM_TRAIN_SEQ, 2 * cfg.d_model // cfg.n_heads
+    q, k, v, i, f, _ = mlstm_inputs(B, S, dh, "unit", seed=SEED + 12, device="cuda")
+    y, _ = mlstm_chunk(q, k, v, i, f)
+    dy = torch.randn(y.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 13),
+                     device="cuda")
+    args = (q, k, v, i, f, None, y, dy, None, None, None)
+    bwd = {"ms": time_cold(torch, lambda: mlstm_chunk_bwd_cuda(*args), iters=20),
+           # the plain versions' chunk loops launch thousands of kernels: timed
+           # as the host queues them, gaps included
+           "plain_ms": time_cold(torch, lambda: mlstm_chunk_bwd_ref(*args), iters=10,
+                                 spin_ahead=False),
+           "library_ms": None}
+    got, ref = mlstm_chunk_bwd_cuda(*args), mlstm_chunk_bwd_ref(*args)
+    for g, r in zip(got[:5], ref[:5]):
+        add_err(bwd, g, r)
+    bwd["flops"], bwd["bytes"] = mlstm_train_work(B, S, dh, backward=True)
+    del got, ref
+    fwd = {"ms": time_cold(torch, lambda: mlstm_chunk(q, k, v, i, f), iters=20),
+           "plain_ms": time_cold(torch, lambda: mlstm_chunk_ref(q, k, v, i, f, chunk=CHUNK,
+                                                                ragged=True), iters=10,
+                                 spin_ahead=False),
+           "library_ms": None}
+    yg, sg = mlstm_chunk(q, k, v, i, f)
+    yr, sr = mlstm_chunk_ref(q, k, v, i, f, chunk=CHUNK, ragged=True)
+    for g, r in zip((yg, *sg), (yr, *sr)):
+        add_err(fwd, g, r)
+    fwd["flops"], fwd["bytes"] = mlstm_train_work(B, S, dh, backward=False)
+    shape = (f"one xlstm mLSTM layer in training: B={B} ({XLSTM_TRAIN_BATCH} x {cfg.n_heads} "
+             f"heads), S={S}, dh={dh}, empty state, fp32; no library call computes it")
+    entry_bwd = kernel_entry("mlstm_chunk_bwd", "src/repro_torch/csrc/mlstm_chunk_bwd.cu",
+                             "src/repro/nn/xlstm.py:59", bwd, "float32",
+                             shape + "; replaces autodiff of the jnp chunk body (no TPU kernel)",
+                             launches_bwd, errs)
+    entry_fwd = {key: fwd[key] for key in ("ms", "plain_ms", "library_ms")}
+    entry_fwd.update(bound_of(fwd, "float32"), shape=shape, max_abs_err=fwd["err"],
+                     max_scaled_err=fwd["scaled"], launches=launches_fwd.get("mlstm_chunk", 0))
+    return entry_bwd, entry_fwd
 
 
 def q8_inputs(torch, M, m, n, k, profile, dtype, gen):
@@ -1803,7 +2158,8 @@ def phase_jamba_timing(torch, cfg, launches, errs):
     mamba layer (b 1, di 8192, d_state 16, bf16), on the model's layout (A
     and D in bf16, B and C column views of ``x_proj``'s output), in device
     time only; the kernel again at a training length (S 4096). One scan
-    call must run one device kernel (the profiler counts them). No single
+    call must enqueue one kernel and no other device work (a CUDA graph
+    of the call counts it: ``kernels_a_call``). No single
     PyTorch call computes a selective scan: no library time."""
     from repro_torch.kernels.mamba_ref import mamba_scan_ref
     from repro_torch.kernels.mamba_scan import mamba_scan
@@ -1816,10 +2172,10 @@ def phase_jamba_timing(torch, cfg, launches, errs):
         args = mamba_model_layout(*mamba_inputs(1, S, di, ds, "unit", dtype=torch.bfloat16,
                                                 seed=SEED + 12, device="cuda"),
                                   dt_rank=cfg.mamba_dt_rank)
-        n_kernels = kernels_a_call(torch, lambda: mamba_scan(*args))
-        if n_kernels != 1:
-            raise AssertionError(f"mamba_scan at S={S} on the model's layout ran {n_kernels} "
-                                 "device kernels, not one")
+        work = kernels_a_call(torch, lambda: mamba_scan(*args))
+        if work != {"kernel": 1}:
+            raise AssertionError(f"mamba_scan at S={S} on the model's layout enqueued {work}, "
+                                 "not one kernel")
         t[key + "ms"] = time_cold(torch, lambda: mamba_scan(*args))
         if not key:
             t["plain_ms"] = time_cold(torch, lambda: mamba_scan_ref(*args))
@@ -2287,35 +2643,81 @@ def device_rows(torch, prof):
     return rows
 
 
-def kernels_a_call(torch, fn, calls: int = 5, tries: int = 5) -> float:
-    """The device kernels one call of ``fn()`` runs: three calls to warm
-    up, then the kernel rows of a profile of ``calls`` calls
-    (``device_rows``), over ``calls``. The profiler now and then drops
-    kernel records (seen on the H100: 3 of 5 scans in one profile, none in
-    another); a profile whose count is not a whole number a call is taken
-    again, up to ``tries`` times, and 0 is returned if none was."""
-    from torch.profiler import ProfilerActivity, profile
+def device_rows_raw(torch, prof):
+    """``device_rows`` summed from the profiler's raw records, without
+    building its per-event objects: a training step of the xlstm cell
+    runs ~750K kernels (the sLSTM's loop), over which ``key_averages``
+    takes minutes."""
+    acc = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        ms, n = acc.get(ev.name(), (0.0, 0))
+        acc[ev.name()] = (ms + ev.duration_ns() / 1e6, n + 1)
+    rows = [(ms, n, key) for key, (ms, n) in acc.items() if ms > 0]
+    rows.sort(reverse=True)
+    return rows
+
+
+# node types of the CUDA driver API's graphs (``CUgraphNodeType``) that put work
+# on the device: kernels, copies, sets
+GRAPH_WORK_NODES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def kernels_a_call(torch, fn) -> dict:
+    """The device work one call of ``fn()`` enqueues, by kind: three
+    calls to warm up, then one call captured into a CUDA graph, whose
+    kernel, copy and set nodes are counted through the CUDA driver API
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``). A profile's count is
+    not exact: the profiler drops kernel records now and then (seen on the
+    H100: 3 of 5 scans in one profile, no record in five profiles of
+    another run). The capture runs nothing on the device."""
+    import ctypes
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        count = sum(n for _, n, _ in device_rows(torch, prof))
-        if count and count % calls == 0:
-            return count / calls
-    return 0.0
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = (ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t))
+    cu.cuGraphNodeGetType.argtypes = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_int))
+
+    def check(res, what):
+        if res != 0:
+            raise RuntimeError(f"{what} returned CUresult {res}")
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+        handle = graph.raw_cuda_graph()
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * n.value)()
+        check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+        kinds = {}
+        for node in nodes[:n.value]:
+            kind = ctypes.c_int(-1)
+            check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+            name = GRAPH_WORK_NODES.get(kind.value)
+            if name is not None:
+                kinds[name] = kinds.get(name, 0) + 1
+    finally:
+        graph.reset()
+    torch.cuda.synchronize()
+    return kinds
 
 
 # kernel families of a training step's profile, matched on the kernel's
 # name in order; the rest is "other" (copies, elementwise, reductions)
 STEP_FAMILIES = (("flash backward", ("flash_bwd",)), ("flash forward", ("flash_fwd",)),
+                 ("mLSTM backward", ("bwd_scores", "bwd_rows", "bwd_dstate", "bwd_inputs",
+                                     "bwd_gates")),
+                 ("mLSTM forward", ("mlstm_scores", "mlstm_state", "mlstm_out")),
                  ("spectral_matmul", ("spectral_tc", "spectral_matmul")),
                  ("QR retraction", ("geqr", "orgqr", "org2r", "orm2r", "ormqr", "larf",
                                     "householder")),
+                 ("Cholesky retraction", ("potrf", "trsm", "syrk")),
                  ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")))
 
 
@@ -2482,6 +2884,15 @@ def main() -> int:
         lap("training")
         flash, at_train = phase_train_timing(torch, train_cfg, train["launches"], errs)
         lap("training timing")
+        merge_errs(errs, phase_mlstm_bwd_kernels(torch))
+        lap("mlstm backward checks")
+        xlstm_train = phase_xlstm_training(torch, device)
+        torch.cuda.empty_cache()
+        xlstm_train["resume"] = phase_resume(torch, device, arch=XLSTM_ARCH)
+        lap("xlstm training")
+        kernel_mlstm_bwd, mlstm_at_train = phase_xlstm_train_timing(
+            torch, xlstm_train_config(), xlstm_train["launches"], xlstm_train["launches"], errs)
+        lap("xlstm training timing")
     except Exception:                            # every phase failure fails the run
         traceback.print_exc()
         return fail("a phase failed")
@@ -2497,7 +2908,9 @@ def main() -> int:
     kernels[1]["launches_jamba"] = jamba["launches"].get("paged_gqa_decode", 0)
     kernels[1]["launches_int8"] = int8["launches"].get("paged_gqa_decode", 0)
     kernels[0]["launches_deepseek"] = deepseek["launches"].get("spectral_matmul", 0)
-    kernels += kernels_int8 + [kernel_mlstm, kernel_mamba] + kernels_mla
+    kernel_mlstm["launches_train"] = xlstm_train["launches"]["mlstm_chunk"]
+    kernel_mlstm["at_train_shape"] = mlstm_at_train
+    kernels += kernels_int8 + [kernel_mlstm, kernel_mamba] + kernels_mla + [kernel_mlstm_bwd]
     for kern in kernels:                        # checks of later phases count too
         raw, scaled = errs.get(kern["name"], (0.0, 0.0))
         kern["max_err"] = max(kern["max_err"], raw)
@@ -2509,7 +2922,8 @@ def main() -> int:
              dict(kernels_int8[0]["at_prefill_chunk"], name="spectral_matmul_q8 (prefill chunk)",
                   launches=kernels_int8[0]["launches"]),
              dict(kernels[1]["at_hd128"], name="paged_gqa_decode (hd 128)",
-                  launches=kernels[1]["launches_jamba"])]
+                  launches=kernels[1]["launches_jamba"]),
+             dict(mlstm_at_train, name="mlstm_chunk (training shape)")]
     for kern in kernels + extra:
         lib = "none" if kern["library_ms"] is None else f"{kern['library_ms']:.4f} ms"
         beside = "".join(f", {key} {kern[key]:.4f}"
@@ -2528,6 +2942,7 @@ def main() -> int:
     print(json.dumps({"jamba_serving": jamba}))
     print(json.dumps({"deepseek_serving": deepseek}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"xlstm_train": xlstm_train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,6 +59,7 @@
 // running maxima by block and lane reductions, which are exact. Accurate
 // expf / log1pf (no fast-math flags in kernels/build.py).
 #include "common.cuh"
+#include "mlstm.cuh"
 #include "mma.cuh"
 
 using namespace sct::mma;
@@ -78,46 +79,8 @@ constexpr int kYC = 256;        // output columns a block
 constexpr int kYJ = 32;         // tokens of v an output stage holds
 constexpr float kNegInit = -1e30f;
 
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
-}
-
-// Chunk statistics, every thread of the block: b[j] (fp64 prefix sums of
-// log sigmoid(f), rounded once) and ii[j] for the tc tokens of the chunk at
-// row0; dsc is scratch of kThreads / 32 doubles. Returns b[tc - 1].
-__device__ float chunk_stats(const float* __restrict__ i_pre, const float* __restrict__ f_pre,
-                             size_t row0, int tc, float* b, float* ii, double* dsc) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  double x = tid < tc ? static_cast<double>(log_sigmoid(f_pre[row0 + tid])) : 0.0;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const double v = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += v;
-  }
-  if (lane == 31) dsc[warp] = x;
-  __syncthreads();
-  double base = 0.0;
-  for (int w = 0; w < warp; ++w) base += dsc[w];
-  if (tid < tc) {
-    b[tid] = static_cast<float>(base + x);
-    ii[tid] = i_pre[row0 + tid];
-  }
-  __syncthreads();
-  return b[tc - 1];
-}
-
-// max over the block of v (every thread passes one value); fsc: 8 floats
-__device__ float block_max(float v, float* fsc) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if (lane == 0) fsc[warp] = v;
-  __syncthreads();
-  float m = fsc[0];
-  for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, fsc[w]);
-  __syncthreads();
-  return m;
-}
+using sct::mlstm::block_max;
+using sct::mlstm::chunk_stats;
 
 // ---------------------------------------------------------------- scores --
 // part[b][s][c][t][j] = sum over dims of slice s of q[t] . k[j], chunk c, for
@@ -242,7 +205,8 @@ mlstm_state_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ n0, const float* __restrict__ m0_in,
                    float* __restrict__ yq, float* __restrict__ qn, float* __restrict__ mprev,
                    float* __restrict__ C_out, float* __restrict__ n_out,
-                   float* __restrict__ m_out, int S, int dh) {
+                   float* __restrict__ m_out, float* __restrict__ C_hist,
+                   float* __restrict__ n_hist, int S, int dh) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   StateSmem& sm = *reinterpret_cast<StateSmem*>(smem_raw);
   CarrySmem& cm = *reinterpret_cast<CarrySmem*>(smem_raw + sizeof(StateSmem));
@@ -275,6 +239,21 @@ mlstm_state_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int t0 = c * kT, tc = min(kT, S - t0);
     const size_t row0 = (size_t)b * S + t0;
     if (dt == 0 && et == 0 && tid == 0) mprev[(size_t)b * nc + c] = m0;
+    if (C_hist != nullptr) {                   // the backward's record: the chunk's start
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const int d = d0 + row_of(mi, e), col = e0 + col_of(nt, e);
+            if (d < dh && col < dh)
+              *reinterpret_cast<float2*>(C_hist + (((size_t)b * nc + c) * dh + d) * dh + col) =
+                  make_float2(creg[mi][nt][e], creg[mi][nt][e + 1]);
+          }
+      if (keeps_n && tid < kCT && d0 + tid < dh)
+        n_hist[((size_t)b * nc + c) * dh + d0 + tid] = sm.ns[tid];
+    }
     // the chunk's first k / v stage is in flight while its statistics build
     const int nst = (tc + kJS - 1) / kJS;
     auto stage = [&](int st, int buf) {
@@ -297,7 +276,7 @@ mlstm_state_kernel(const float* __restrict__ q, const float* __restrict__ k,
     sm.wa[tid] = tid < tc ? expf(a_j - m_new) : 0.f;
 
     // ---- the carried state's share of y: q @ C and q . n over this tile ----
-    if (carry && (c > 0 || C0 != nullptr)) {
+    if (carry && yq != nullptr && (c > 0 || C0 != nullptr)) {
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -413,19 +392,21 @@ mlstm_state_kernel(const float* __restrict__ q, const float* __restrict__ k,
     m0 = m_new;
   }
 
+  if (C_out != nullptr) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int d = d0 + row_of(mi, e), col = e0 + col_of(nt, e);
-        if (d < dh && col < dh)
-          *reinterpret_cast<float2*>(C_out + ((size_t)b * dh + d) * dh + col) =
-              make_float2(creg[mi][nt][e], creg[mi][nt][e + 1]);
-      }
-  if (keeps_n && tid < kCT && d0 + tid < dh) n_out[(size_t)b * dh + d0 + tid] = sm.ns[tid];
-  if (et == 0 && dt == 0 && tid == 0) m_out[b] = m0;
+        for (int e = 0; e < 4; e += 2) {
+          const int d = d0 + row_of(mi, e), col = e0 + col_of(nt, e);
+          if (d < dh && col < dh)
+            *reinterpret_cast<float2*>(C_out + ((size_t)b * dh + d) * dh + col) =
+                make_float2(creg[mi][nt][e], creg[mi][nt][e + 1]);
+        }
+    if (keeps_n && tid < kCT && d0 + tid < dh) n_out[(size_t)b * dh + d0 + tid] = sm.ns[tid];
+    if (et == 0 && dt == 0 && tid == 0) m_out[b] = m0;
+  }
   sct::grid_dependency_wait();                 // complete only after the scores pass
 }
 
@@ -620,7 +601,7 @@ extern "C" int sct_mlstm_chunk(const void* q, const void* k, const void* v, cons
       static_cast<const float*>(C0), static_cast<const float*>(n0),
       static_cast<const float*>(m0), static_cast<float*>(yq), static_cast<float*>(qn),
       static_cast<float*>(mprev), static_cast<float*>(C), static_cast<float*>(n),
-      static_cast<float*>(m), S, dh);
+      static_cast<float*>(m), static_cast<float*>(nullptr), static_cast<float*>(nullptr), S, dh);
   if (err != cudaSuccess) return err;
   err = sct::allow_smem(mlstm_out_kernel, sizeof(OutSmem));
   if (err != cudaSuccess) return err;
@@ -631,5 +612,28 @@ extern "C" int sct_mlstm_chunk(const void* q, const void* k, const void* v, cons
       static_cast<const float*>(qn), static_cast<const float*>(mprev), static_cast<float*>(y),
       S, dh, slices, nd, C0 != nullptr ? 1 : 0);
   if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The backward's state pass (csrc/mlstm_chunk_bwd.cu): the state kernel
+// alone, without the carried state's share of y, recording every chunk's
+// starting state: C_hist (B, nc, dh, dh), n_hist (B, nc, dh) and mprev
+// (B, nc), nc = ceil(S / 256). k, v and C0 16-byte aligned.
+extern "C" int sct_mlstm_states(const void* k, const void* v, const void* i_pre,
+                                const void* f_pre, const void* C0, const void* n0,
+                                const void* m0, void* C_hist, void* n_hist, void* mprev, int B,
+                                int S, int dh, void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (S <= 0 || dh <= 0 || dh % 32 != 0 || dh > 1024) return cudaErrorInvalidValue;
+  const int nd = (dh + kCT - 1) / kCT;
+  const size_t smem = sizeof(StateSmem);
+  cudaError_t err = sct::allow_smem(mlstm_state_kernel, smem);
+  if (err != cudaSuccess) return err;
+  mlstm_state_kernel<<<dim3(nd, nd, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      nullptr, static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(i_pre), static_cast<const float*>(f_pre),
+      static_cast<const float*>(C0), static_cast<const float*>(n0),
+      static_cast<const float*>(m0), nullptr, nullptr, static_cast<float*>(mprev), nullptr,
+      nullptr, nullptr, static_cast<float*>(C_hist), static_cast<float*>(n_hist), S, dh);
   return cudaGetLastError();
 }

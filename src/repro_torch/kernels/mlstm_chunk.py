@@ -1,11 +1,11 @@
 """Chunkwise mLSTM: the CUDA kernel (``csrc/mlstm_chunk.cu``), which
 replaces the JAX package's ``kernels/mlstm_chunk.py:82``
-``mlstm_chunk_pallas``, and its wrapper.
+``mlstm_chunk_pallas``, its backward (``csrc/mlstm_chunk_bwd.cu``, the
+port's own: the JAX package differentiates its jnp chunk loop), and
+their wrapper.
 
-The tensor's device decides: CPU tensors run the plain version
-(``kernels/mlstm_ref.py``), CUDA tensors launch the kernel or raise. The
-kernel has no backward yet: under autograd the wrapper's backward raises
-``TypeError`` (the training slice brings a hand-written one).
+The tensor's device decides: CPU tensors run the plain versions
+(``kernels/mlstm_ref.py``), CUDA tensors launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mlstm_ref import mlstm_chunk_ref
+from repro_torch.kernels.mlstm_ref import mlstm_chunk_bwd_ref, mlstm_chunk_ref
 
 CHUNK = 256           # the kernel's chunk length (csrc/mlstm_chunk.cu kT): the reference's
 COLS = 32             # dh is a multiple of this
@@ -31,35 +31,44 @@ def chunk_lengths(S: int) -> list:
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def mlstm_chunk_cuda(q, k, v, i_pre, f_pre, state: Optional[State] = None):
-    """The kernel launch: q/k/v (B, S, dh), i_pre/f_pre (B, S) and the
-    optional state (C (B, dh, dh), n (B, dh), m (B,)), all fp32 and
-    contiguous on one CUDA device; dh a multiple of 32, at most 1024.
-    Returns (y, (C, n, m)). One call is three launches (the scores, the
-    state's tiles, the outputs) and counts once."""
+def _check_inputs(name, q, k, v, i_pre, f_pre, state):
+    """The kernels' shared contract: shapes, fp32, one CUDA device,
+    contiguous, dh a multiple of 32 up to 1024, 16-byte aligned rows.
+    Returns the tensors checked."""
     B, S, dh = q.shape
     if k.shape != q.shape or v.shape != q.shape or i_pre.shape != (B, S) \
             or f_pre.shape != (B, S):
-        raise ValueError(f"mlstm_chunk: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, i_pre {tuple(i_pre.shape)}, "
                          f"f_pre {tuple(f_pre.shape)}")
     tensors = [q, k, v, i_pre, f_pre]
     if state is not None:
         C0, n0, m0 = state
         if C0.shape != (B, dh, dh) or n0.shape != (B, dh) or m0.shape != (B,):
-            raise ValueError(f"mlstm_chunk: state shapes C {tuple(C0.shape)}, n "
+            raise ValueError(f"{name}: state shapes C {tuple(C0.shape)}, n "
                              f"{tuple(n0.shape)}, m {tuple(m0.shape)} for {(B, S, dh)}")
         tensors += [C0, n0, m0]
     for t in tensors:
         if t.dtype != torch.float32:
-            raise TypeError(f"mlstm_chunk: the kernel takes fp32, got {t.dtype}")
+            raise TypeError(f"{name}: the kernel takes fp32, got {t.dtype}")
     if S < 1 or dh % COLS or dh > MAX_DH:
-        raise ValueError(f"mlstm_chunk: S={S}, dh={dh}: the kernel takes S >= 1 and dh a "
+        raise ValueError(f"{name}: S={S}, dh={dh}: the kernel takes S >= 1 and dh a "
                          f"multiple of {COLS}, at most {MAX_DH}")
-    build.require_cuda("mlstm_chunk", *tensors)
+    build.require_cuda(name, *tensors)
     if any(t.data_ptr() % 16 for t in tensors[:3] + tensors[5:6]):
-        raise ValueError("mlstm_chunk: q, k, v and C0 must be 16-byte aligned (the kernel "
+        raise ValueError(f"{name}: q, k, v and C0 must be 16-byte aligned (the kernel "
                          "reads their rows as float4)")
+    return tensors
+
+
+def mlstm_chunk_cuda(q, k, v, i_pre, f_pre, state: Optional[State] = None):
+    """The kernel launch: q/k/v (B, S, dh), i_pre/f_pre (B, S) and the
+    optional state (C (B, dh, dh), n (B, dh), m (B,)), all fp32 and
+    contiguous on one CUDA device; dh a multiple of 32, at most 1024.
+    Returns (y, (C, n, m)). One call is three launches (the scores, the
+    state's tiles, the outputs) and counts once."""
+    _check_inputs("mlstm_chunk", q, k, v, i_pre, f_pre, state)
+    B, S, dh = q.shape
     dev = q.device
     nc, nd = len(chunk_lengths(S)), -(-dh // TILE)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -82,6 +91,50 @@ def mlstm_chunk_cuda(q, k, v, i_pre, f_pre, state: Optional[State] = None):
     return y, (C, n, m)
 
 
+def mlstm_chunk_bwd_cuda(q, k, v, i_pre, f_pre, state: Optional[State], y, dy, dC=None,
+                         dn=None, dm=None):
+    """The backward kernel's launch: the forward's inputs (as
+    :func:`mlstm_chunk_cuda` takes them), its output y, and the gradients
+    of y (B, S, dh) and of the final C, n, m (each may be None: zero).
+    Returns (dq, dk, dv, di_pre, df_pre, dstate), dstate (dC0, dn0, dm0)
+    when a state was passed, else None. One call is six launches (the
+    chunks' starting states, the scores, the rows, the reverse sweep of
+    dC, the input gradients, the gates) and counts once; it is
+    deterministic (no atomics)."""
+    tensors = _check_inputs("mlstm_chunk_bwd", q, k, v, i_pre, f_pre, state)
+    B, S, dh = q.shape
+    dy = torch.zeros_like(y) if dy is None else dy
+    finals = [t for t in (dC, dn, dm) if t is not None]
+    for t, want in ((y, q.shape), (dy, q.shape), (dC, (B, dh, dh)), (dn, (B, dh)), (dm, (B,))):
+        if t is not None and (tuple(t.shape) != tuple(want) or t.dtype != torch.float32):
+            raise ValueError(f"mlstm_chunk_bwd: a gradient of shape {tuple(t.shape)} "
+                             f"({t.dtype}) where fp32 {tuple(want)} is due")
+    build.require_cuda("mlstm_chunk_bwd", *tensors, y, dy, *finals)
+    if dy.data_ptr() % 16:
+        raise ValueError("mlstm_chunk_bwd: dy must be 16-byte aligned")
+    lib = build.library()
+    ws = torch.empty((int(lib.sct_mlstm_chunk_bwd_workspace(B, S, dh)),),
+                     dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    di, df = torch.empty_like(i_pre), torch.empty_like(f_pre)
+    dstate = None
+    if state is not None:
+        dstate = (torch.empty_like(state[0]), torch.empty_like(state[1]),
+                  torch.empty_like(state[2]))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    st = state if state is not None else (None, None, None)
+    ds = dstate if dstate is not None else (None, None, None)
+    err = lib.sct_mlstm_chunk_bwd(
+        *(ptr(t) for t in (q, k, v, i_pre, f_pre, *st, y, dy, dC, dn, dm, ws, dq, dk, dv, di, df,
+                           *ds)), B, S, dh, build.stream_of(q))
+    build.check(err, "mlstm_chunk_bwd")
+    build.LAUNCHES["mlstm_chunk_bwd"] += 1
+    return dq, dk, dv, di, df, dstate
+
+
 def _forward(q, k, v, i_pre, f_pre, state):
     if q.device.type == "cpu":
         return mlstm_chunk_ref(q, k, v, i_pre, f_pre, state)
@@ -92,21 +145,40 @@ def _forward(q, k, v, i_pre, f_pre, state):
     raise ValueError(f"mlstm_chunk: no kernel for device {q.device}")
 
 
+def _backward(q, k, v, i_pre, f_pre, state, y, dy, dC, dn, dm):
+    if q.device.type == "cpu":
+        return mlstm_chunk_bwd_ref(q, k, v, i_pre, f_pre, state, y, dy, dC, dn, dm,
+                                   chunk=CHUNK)
+    if q.device.type == "cuda":
+        def c(t):
+            return None if t is None else t.contiguous()
+
+        st = tuple(c(t) for t in state) if state is not None else None
+        return mlstm_chunk_bwd_cuda(c(q), c(k), c(v), c(i_pre), c(f_pre), st, c(y), c(dy),
+                                    c(dC), c(dn), c(dm))
+    raise ValueError(f"mlstm_chunk: no kernel for device {q.device}")
+
+
 class _MLSTMChunk(torch.autograd.Function):
-    """The forward under autograd; serving-only until the training slice,
-    so its backward raises."""
+    """The forward under autograd. It keeps its inputs and y; the backward
+    rebuilds the chunks' starting states itself. Gradients of outputs no
+    loss reads arrive as None (the final state in training) and cost
+    nothing."""
 
     @staticmethod
     def forward(ctx, q, k, v, i_pre, f_pre, C0, n0, m0):
+        ctx.set_materialize_grads(False)
         state = (C0, n0, m0) if C0 is not None else None
         y, (C, n, m) = _forward(q, k, v, i_pre, f_pre, state)
+        ctx.save_for_backward(q, k, v, i_pre, f_pre, C0, n0, m0, y)
         return y, C, n, m
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise TypeError(
-            "mlstm_chunk has no backward yet: training the ssm_lm family needs a "
-            "hand-written backward kernel (the training slice)")
+    def backward(ctx, dy, dC, dn, dm):
+        q, k, v, i_pre, f_pre, C0, n0, m0, y = ctx.saved_tensors
+        state = (C0, n0, m0) if C0 is not None else None
+        dq, dk, dv, di, df, dstate = _backward(q, k, v, i_pre, f_pre, state, y, dy, dC, dn, dm)
+        return (dq, dk, dv, di, df, *(dstate if dstate is not None else (None,) * 3))
 
 
 def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_pre: torch.Tensor,

@@ -101,12 +101,14 @@ def _rms_scale(yr) -> float:
     return rms if rms > 0.0 else 1.0
 
 
-def assert_scaled_close(y, yr, tol: Tol, err_msg: str = "") -> None:
+def assert_scaled_close(y, yr, tol: Tol, err_msg: str = "",
+                        scale: Optional[float] = None) -> None:
     """``y`` and ``yr`` agree within ``tol`` after both are divided by
-    the root mean square of ``yr`` (1 when ``yr`` is all zeros)."""
+    ``scale``, by default the root mean square of ``yr`` (1 when ``yr`` is
+    all zeros)."""
     y = np.asarray(y, np.float32)
     yr = np.asarray(yr, np.float32)
-    scale = _rms_scale(yr)
+    scale = _rms_scale(yr) if scale is None else scale
     np.testing.assert_allclose(y / scale, yr / scale, rtol=tol.rtol, atol=tol.atol,
                                err_msg=f"{err_msg} (outputs scaled by 1/{scale:g})")
 
@@ -224,6 +226,43 @@ def mlstm_inputs(B: int, S: int, dh: int, profile: str, seed: int = 0, device="c
     if with_state:
         _, state = mlstm_chunk_ref(*(x[:, :P] for x in t))
     return (*(x[:, P:].contiguous() for x in t), state)
+
+
+NOISE_FACTOR = 4
+
+
+def noise_scale(yr, yr_alt, tol: Tol, factor: float = NOISE_FACTOR) -> float:
+    """The scale an error against the plain version ``yr`` is divided by:
+    its RMS, or ``factor`` times its distance to ``yr_alt`` (the same plain
+    version with its sums taken in another order) over the rung's atol,
+    where that is larger. The second is for an output that is zero in
+    exact arithmetic and rounding noise in fp32 (the mLSTM's dq and dk at
+    one token, where y_t = v_t whatever q and k are): its RMS is the noise,
+    and any two orders disagree by all of it."""
+    yr = np.asarray(yr, np.float32)
+    if not yr.size:
+        return 1.0
+    diff = float(np.max(np.abs(yr - np.asarray(yr_alt, np.float32))))
+    return max(_rms_scale(yr), factor * diff / tol.atol)
+
+
+def mlstm_bwd_reordered(q, k, v, i_pre, f_pre, state, y, dy, dC=None, dn=None, dm=None):
+    """The plain mLSTM backward with the head dimension reversed on the way
+    in and back on the way out: the same gradients, every fp32 sum over dh
+    taken in another order (for :func:`noise_scale`). Returns the list
+    (dq, dk, dv, di, df[, dC0, dn0, dm0])."""
+    from repro_torch.kernels.mlstm_ref import mlstm_chunk_bwd_ref
+
+    def flip(t, dims):
+        return None if t is None else torch.flip(t, dims)
+
+    st = None if state is None else (flip(state[0], (1, 2)), flip(state[1], (1,)), state[2])
+    g = mlstm_chunk_bwd_ref(*(flip(t, (2,)) for t in (q, k, v)), i_pre, f_pre, st,
+                            flip(y, (2,)), flip(dy, (2,)), flip(dC, (1, 2)), flip(dn, (1,)), dm)
+    out = [flip(t, (2,)) for t in g[:3]] + list(g[3:5])
+    if g[5] is not None:
+        out += [flip(g[5][0], (1, 2)), flip(g[5][1], (1,)), g[5][2]]
+    return out
 
 
 MAMBA_PROFILES = ("unit", "underflow")

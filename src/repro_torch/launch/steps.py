@@ -21,7 +21,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[SCTOptimizer] = None,
     policy sets the forward's compute dtype (legacy: ``cfg.dtype`` over
     the fp32 masters). Metrics are 0-d tensors: ``loss``, ``ce_loss``,
     ``aux_loss``. Microbatching and rank telemetry are not ported, nor is
-    training a family other than ``dense_lm`` (``models/lm.py:SUPPORT``)."""
+    training the hybrid or moe_lm family (``models/lm.py:SUPPORT``): the
+    port trains dense_lm and ssm_lm (xlstm, whose mLSTM layers run the
+    chunkwise kernel forward and its hand-written backward)."""
     require_family(cfg, "train")
     if microbatches != 1:
         raise NotImplementedError("microbatched gradient accumulation is not ported")

@@ -3,6 +3,10 @@ reference's ``launch/train.py`` on one device).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm2-1.7b \\
       --reduced --steps 20 --batch 8 --seq 64 --ckpt-dir /tmp/run1 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b \\
+      --reduced --steps 2 --device cpu
+
+The port trains the dense_lm and ssm_lm (xlstm) families.
 
 Without ``--device`` the run is on the CUDA device, and raises when
 there is none. ``--dump-spec`` prints the resolved RunSpec JSON (the

@@ -54,7 +54,7 @@ Params = Dict[str, Any]
 # what the port runs, by family: parameter init and the forward (with its
 # loss value), serving (prefill and decode), training (gradients)
 SUPPORT = {"dense_lm": ("init", "forward", "serve", "train"),
-           "ssm_lm": ("init", "forward", "serve"),
+           "ssm_lm": ("init", "forward", "serve", "train"),
            "hybrid": ("init", "forward", "serve"),
            "moe_lm": ("init", "forward", "serve")}
 
@@ -63,10 +63,6 @@ def require_family(cfg: ModelConfig, path: str) -> None:
     """Raise ``NotImplementedError`` unless the port runs ``path`` (one of
     init, forward, serve, train) for ``cfg``'s family."""
     if path not in SUPPORT.get(cfg.family, ()):
-        if cfg.family == "ssm_lm" and path == "train":
-            raise NotImplementedError(
-                "training the ssm_lm family is the next slice of the port: it needs "
-                "hand-written backward kernels for the mLSTM chunk and the sLSTM scan")
         if cfg.family == "hybrid" and path == "train":
             raise NotImplementedError(
                 "training the hybrid family is not ported yet: it needs a hand-written "

@@ -9,6 +9,8 @@ which returns the final recurrent state with the outputs, so one call
 serves the forward and the prefill. The recurrent decode step updates
 the state in place (its C is dh x dh fp32 a head: no second copy per
 step). The sLSTM is plain torch: its scan is a Python loop over time.
+Training differentiates the mLSTM through the chunk kernel's
+hand-written backward and the sLSTM's loop by autograd.
 
 SCT applies to the surrounding up/down projections only (the recurrent
 cell matrices are dynamics-coupled), as in the reference.

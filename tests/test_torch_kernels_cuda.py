@@ -2,8 +2,9 @@
 card: the spectral matmul (and its autograd), its int8 variant, the
 paged GQA decode and its cold-tier variant, the absorbed-MLA paged
 decode and its cold-tier variant, the flash-attention forward and
-backward, the chunkwise mLSTM and the selective scan; and the reduced
-xlstm, jamba and deepseek engines on the card. Every test here needs a GPU and skips without one
+backward, the chunkwise mLSTM (forward and backward) and the selective
+scan; the reduced xlstm's training step, and the reduced xlstm, jamba and
+deepseek engines on the card. Every test here needs a GPU and skips without one
 (the kernels have no CPU mode). The file imports neither JAX nor the reference
 package, so it runs on a machine with CUDA and no JAX:
 
@@ -44,8 +45,8 @@ from repro_torch.kernels.paged_ref import (  # noqa: E402
     paged_mla_decode_ref,
 )
 from repro_torch.kernels.mlstm_chunk import CHUNK as MLSTM_KERNEL_CHUNK  # noqa: E402
-from repro_torch.kernels.mlstm_chunk import mlstm_chunk  # noqa: E402
-from repro_torch.kernels.mlstm_ref import mlstm_chunk_ref  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_bwd_cuda  # noqa: E402
+from repro_torch.kernels.mlstm_ref import mlstm_chunk_bwd_ref, mlstm_chunk_ref  # noqa: E402
 from repro_torch.kernels.mamba_ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_cuda  # noqa: E402
 from repro_torch.kernels.ref import spectral_matmul_q8_ref, spectral_matmul_ref  # noqa: E402
@@ -57,14 +58,18 @@ from repro_torch.kernels.testing import (  # noqa: E402
     SPECTRAL_Q8_SHAPES,
     SPECTRAL_SHAPES,
     assert_kernel_matches,
+    assert_scaled_close,
     gqa_inputs,
     make_block_table,
     mamba_inputs,
     mamba_model_layout,
     mla_inputs,
+    mlstm_bwd_reordered,
     mlstm_inputs,
+    noise_scale,
     ragged_seq_lens,
     scale_profile,
+    tolerance_for,
 )
 
 pytestmark = pytest.mark.cuda
@@ -88,6 +93,10 @@ MLA = [(3, 4, 16, 8, 4, 6), (4, 20, 32, 12, 3, 5), (2, 16, 512, 64, 16, 4),
 # xlstm-1.3b's 1024
 MLSTM = ([(B, S, 32) for B in (1, 4) for S in (1, 37, 64, 300)]
          + [(4, 160, 1024), (1, 256, 1024), (1, 257, 1024), (1, 1000, 1024)])
+# (B, S, dh) of the mLSTM backward: one token, a ragged chunk, one and two
+# chunks (the second ragged), the reduced head width and xlstm-1.3b's 1024
+MLSTM_BWD = ([(B, S, 32) for B in (1, 4) for S in (1, 37, 256, 300)]
+             + [(2, 160, 1024), (1, 300, 1024), (1, 1000, 1024)])
 # (b, S, di, ds) of the selective scan: one token, ragged channels and
 # steps, jamba's prefill (di 8192, ds 16), every state width it is built for
 MAMBA = [(1, 1, 128, 16), (2, 37, 200, 16), (1, 160, 8192, 16), (2, 300, 96, 4),
@@ -613,6 +622,84 @@ def test_mlstm_chunk_kernel_refuses_what_it_cannot_run(cuda):
     q, k, v, i, f, _ = mlstm_inputs(1, 8, 48, "unit", device=cuda)
     with pytest.raises(ValueError):
         mlstm_chunk(q, k, v, i, f)
+
+
+def _mlstm_grads(g):
+    """(dq, dk, dv, di, df) and, when a state was passed, (dC0, dn0, dm0)."""
+    return list(g[:5]) + (list(g[5]) if g[5] is not None else [])
+
+
+@pytest.mark.parametrize("finals", [False, True], ids=["dy", "dy+dstate"])
+@pytest.mark.parametrize("with_state", [False, True], ids=["empty", "state"])
+@pytest.mark.parametrize("profile", MLSTM_PROFILES)
+@pytest.mark.parametrize("case", MLSTM_BWD, ids=lambda c: "x".join(map(str, c)))
+def test_mlstm_chunk_bwd_kernel_vs_plain(cuda, case, profile, with_state, finals):
+    """Every gradient of the backward kernel against its plain version at
+    the fp32 rung, with and without an initial state and gradients of the
+    final state; one launch a call, and two calls give the same bits. The
+    error is scaled by the plain version's RMS or, for a gradient that is
+    zero in exact arithmetic (dq and dk at one token; a state dominated by
+    one token), by its rounding noise (``noise_scale``)."""
+    B, S, dh = case
+    q, k, v, i, f, state = mlstm_inputs(B, S, dh, profile, seed=S, device=cuda,
+                                        with_state=with_state)
+    y, fin = mlstm_chunk(q, k, v, i, f, state)
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    dy = torch.randn(y.shape, generator=gen, device=cuda)
+    dfin = ([torch.randn(t.shape, generator=gen, device=cuda) for t in fin] if finals
+            else [None] * 3)
+    before = LAUNCHES["mlstm_chunk_bwd"]
+    got = _mlstm_grads(mlstm_chunk_bwd_cuda(q, k, v, i, f, state, y, dy, *dfin))
+    assert LAUNCHES["mlstm_chunk_bwd"] == before + 1
+    again = _mlstm_grads(mlstm_chunk_bwd_cuda(q, k, v, i, f, state, y, dy, *dfin))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = _mlstm_grads(mlstm_chunk_bwd_ref(q, k, v, i, f, state, y, dy, *dfin))
+    alt = mlstm_bwd_reordered(q, k, v, i, f, state, y, dy, *dfin)
+    assert len(got) == len(ref) == len(alt) == (8 if with_state else 5)
+    rung = tolerance_for(torch.float32)
+    for name, g, r, a in zip(("dq", "dk", "dv", "di", "df", "dC0", "dn0", "dm0"), got, ref, alt):
+        r, a = r.cpu().numpy(), a.cpu().numpy()
+        assert_scaled_close(g.cpu().numpy(), r, rung, f"mlstm_chunk_bwd {name} {case} {profile}",
+                            scale=noise_scale(r, a, rung))
+
+
+def test_mlstm_chunk_autograd_on_cuda_runs_the_backward_kernel(cuda):
+    """Under autograd on CUDA tensors the wrapper's backward is the kernel:
+    one launch, and the gradients of autograd through the plain forward."""
+    q, k, v, i, f, state = mlstm_inputs(2, 300, 64, "unit", seed=5, device=cuda,
+                                        with_state=True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, i, f, *state)]
+    dy = torch.randn((2, 300, 64), generator=torch.Generator(device=cuda).manual_seed(1),
+                     device=cuda)
+    LAUNCHES.clear()
+    y, _ = mlstm_chunk(*leaves[:5], tuple(leaves[5:]))
+    got = torch.autograd.grad((y * dy).sum(), leaves)
+    assert LAUNCHES["mlstm_chunk"] == 1 and LAUNCHES["mlstm_chunk_bwd"] == 1
+    plain = [t.clone().requires_grad_() for t in (q, k, v, i, f, *state)]
+    yr, _ = mlstm_chunk_ref(*plain[:5], tuple(plain[5:]), chunk=MLSTM_KERNEL_CHUNK, ragged=True)
+    ref = torch.autograd.grad((yr * dy).sum(), plain)
+    for name, g, r in zip(("dq", "dk", "dv", "di", "df", "dC0", "dn0", "dm0"), got, ref):
+        assert_kernel_matches(lambda: g, lambda: r, (), dtype=torch.float32, label=name)
+
+
+def test_xlstm_training_on_cuda(cuda):
+    """Reduced xlstm trains on the card: a step runs the mLSTM kernel twice
+    a layer (forward and remat recompute) and its backward once; losses
+    finite, the factors on the manifold."""
+    from repro_torch.api import ModelSpec, RunSpec, Trainer, TrainSpec
+    from repro_torch.core.tree import max_orthogonality_error
+
+    spec = RunSpec(model=ModelSpec("xlstm-1.3b", reduced=True),
+                   train=TrainSpec(steps=2, batch=2, seq=300, lr=1e-3))
+    trainer = Trainer(spec, device=cuda)
+    n_mlstm = trainer.cfg.n_layers // trainer.cfg.slstm_every * (trainer.cfg.slstm_every - 1)
+    for _ in range(2):
+        LAUNCHES.clear()
+        loss = float(trainer.step()["loss"])
+        assert np.isfinite(loss)
+        assert LAUNCHES["mlstm_chunk"] == 2 * n_mlstm
+        assert LAUNCHES["mlstm_chunk_bwd"] == n_mlstm
+    assert float(max_orthogonality_error(trainer.params)) < 1e-4
 
 
 def test_xlstm_engine_on_cuda(cuda):

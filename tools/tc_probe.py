@@ -502,10 +502,10 @@ def mamba_mode(torch, cs, args):
                                                label=f"mamba {name} {(b, S, di, ds)} {dtype} "
                                                      f"{profile} {layout}")
                             worst = max(worst, e.max_scaled)
-            n_kernels = cs.kernels_a_call(torch, lambda: mamba_scan(*a))
-            if n_kernels != 1.0:
-                raise AssertionError(f"mamba {(b, S, di, ds)}: {n_kernels} device kernels a "
-                                     "call on the model's layout")
+            work = cs.kernels_a_call(torch, lambda: mamba_scan(*a))
+            if work != {"kernel": 1}:
+                raise AssertionError(f"mamba {(b, S, di, ds)}: {work} a call on the model's "
+                                     "layout, not one kernel")
             print(f"[mamba] {(b, S, di, ds)} plan {scan_plan(b, S, di, ds)}: fp32 and bf16, "
                   f"both profiles, contiguous and the model's layout match at the fp32 rung, "
                   f"deterministic, one device kernel a call; max scaled {worst:.3e}")
@@ -523,18 +523,32 @@ def mamba_mode(torch, cs, args):
         plain = (f"{cs.time_cold(torch, lambda: mamba_scan_ref(*model)):.4f}" if S < 1000
                  else "not timed")
         nbytes = 2 * (3 * S * 8192 + 2 * S * 16 + 8192 * 16 + 8192) + 4 * 8192 * 16
-        n_kernels = cs.kernels_a_call(torch, lambda: mamba_scan(*model))
+        work = cs.kernels_a_call(torch, lambda: mamba_scan(*model))
         print(f"[time] mamba_scan (1, {S}, 8192, 16) bf16: kernel alone {alone:.4f} ms, op on "
-              f"the model's layout {op:.4f} ({n_kernels} device kernels a call), plain {plain}, "
+              f"the model's layout {op:.4f} ({work} a call), plain {plain}, "
               f"bound "
               f"{nbytes / cs.HBM_BYTES_PER_S * 1e3:.4f} (bytes)")
     # how often a profile of the scan comes back empty
     base = mamba_inputs(1, cs.MLSTM_PREFILL_S, 8192, 16, "unit", dtype=bf, seed=cs.SEED + 12,
                         device="cuda")
     model = mamba_view(torch, *base)
-    counts = [cs.kernels_a_call(torch, lambda: mamba_scan(*model), tries=1) for _ in range(20)]
-    print(f"[profile] kernels a scan call over 20 profiles of 5 calls: {counts}")
+    counts = [profiled_kernels(torch, cs, lambda: mamba_scan(*model)) for _ in range(20)]
+    print(f"[profile] kernel records of 5 scan calls in each of 20 profiles: {counts}")
     mamba_floors(torch, cs, ((cs.MLSTM_PREFILL_S, 8192, 16), (4096, 8192, 16)))
+
+
+def profiled_kernels(torch, cs, fn, calls: int = 5) -> int:
+    """The device kernel records of one profile of ``calls`` calls of
+    ``fn()`` (the profiler drops some now and then)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(n for _, n, _ in cs.device_rows(torch, prof))
 
 
 def q8_checks(torch, cs, gen, spectral_matmul_q8):
