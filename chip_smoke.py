@@ -170,7 +170,7 @@ Phases (any failure exits non-zero and prints no result line):
     final state: every gradient at the fp32 rung (scaled by the plain
     version's RMS or, where the gradient is rounding noise in fp32, by
     that noise: ``kernels/testing.py:noise_scale``); two calls give the
-    same bits;
+    same bits; the worst case is named;
 25. (T) train xlstm-1.3b at full width cut to 16 blocks (2 periods: 14
     mLSTM + 2 sLSTM; d_model 2048, 4 mLSTM heads of 1024, vocab 50304,
     rank 128, cholesky_qr2 retraction, remat, bf16 compute over fp32
@@ -186,7 +186,8 @@ Phases (any failure exits non-zero and prints no result line):
 26. (R) resume reduced xlstm from its step-3 checkpoint on the card:
     losses of steps 4-6 and the final parameters bit-identical;
 27. time the mLSTM backward (#9b) and forward (#9) at the training shape
-    (B 8, S 4096, dh 1024) against their plain versions.
+    (B 8, S 4096, dh 1024) against their plain versions, each beside its
+    bound at the fp32 rate and at the rates of the passes it makes.
 
 The ``kernels`` line has one entry per kernel: the nine TPU kernels' ports
 and, as their own entries, the flash backward and the mLSTM backward.
@@ -194,9 +195,10 @@ Every entry carries
 ``max_scaled_err``: the
 largest error of its checks divided by the reference's RMS, the figure
 the ladder's rung bounds (``max_abs_err`` and ``max_err`` are unscaled).
-The MLA decodes and the mLSTM, which split fp32 operands into parts for
-the tensor cores, add ``bound_tc_ms``: the least time at the rate of the
-passes they make (``bound_ms`` counts their work at the fp32 rate).
+The MLA decodes and the mLSTM forward and backward, which split fp32
+operands into parts for the tensor cores, add ``bound_tc_ms``: the least
+time at the rate of the passes they make (``bound_ms`` counts their work
+at the fp32 rate; the backward's fp64 scores at the fp64 tensor cores').
 
 The last line is ``{"ok": true, "device": {...}}``. The script needs
 the repository around it: alone, or without a CUDA device, it fails.
@@ -216,7 +218,8 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM: HBM3 bandwidth and dense peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12,
+              "float64_tc": 67e12}
 SEED = 0
 SPIN_CYCLES = 1 << 21   # ~1 ms at the H100's 1.98 GHz: longer than queueing one call
 SM_CLOCK_HZ = 1.98e9    # the H100 SXM's boost clock, for the exp unit's floor
@@ -1022,7 +1025,7 @@ def phase_mlstm_bwd_kernels(torch):
                                              tolerance_for)
 
     rung = tolerance_for(torch.float32)
-    errs, cases, floored, worst_rms = {}, 0, 0, 0.0
+    errs, cases, floored, worst_rms, worst = {}, 0, 0, 0.0, ""
     names = ("dq", "dk", "dv", "di", "df", "dC0", "dn0", "dm0")
     for dh in MLSTM_BWD_DH:
         for B in MLSTM_BWD_B:
@@ -1055,6 +1058,9 @@ def phase_mlstm_bwd_kernels(torch):
                                     floored += 1
                                 else:
                                     worst_rms = max(worst_rms, by_rms)
+                                if scaled > errs.get("mlstm_chunk_bwd", (0.0, 0.0))[1]:
+                                    worst = (f"{name} at B={B} S={S} dh={dh} {profile} "
+                                             f"state={with_state} dstate={finals}")
                                 note(errs, "mlstm_chunk_bwd", (e, scaled))
                             cases += 1
                             del g1, g2, got, again, r, ref, alt
@@ -1064,7 +1070,7 @@ def phase_mlstm_bwd_kernels(torch):
           f"cases (dh {list(MLSTM_BWD_DH)}, B {list(MLSTM_BWD_B)}, S {list(MLSTM_BWD_S)}, gate "
           f"profiles {list(MLSTM_PROFILES)}, with and without an initial state and gradients "
           f"of the final state), two calls the same bits; max scaled error "
-          f"{errs['mlstm_chunk_bwd'][1]:.3e} (of the gradients scaled by their RMS "
+          f"{errs['mlstm_chunk_bwd'][1]:.3e}, {worst} (of the gradients scaled by their RMS "
           f"{worst_rms:.3e}; {floored} gradients are rounding noise and scaled by it)")
     torch.cuda.synchronize()
     return errs
@@ -1251,6 +1257,19 @@ def mlstm_train_work(B, S, dh, *, backward):
     return flops, nbytes
 
 
+def mlstm_bwd_bound_tc(B, S, dh):
+    """The least time of the mLSTM backward at the rate of the passes it
+    makes, in s: its dense and triangle products as three tf32 products
+    each and its two score products in fp64, both on the tensor cores (one
+    after the other: the two kinds share the units), or its bytes where
+    those take longer (``mlstm_train_work``'s count)."""
+    flops, nbytes = mlstm_train_work(B, S, dh, backward=True)
+    scores = 2 * B * sum(2 * (T * (T + 1) // 2) * dh
+                         for T in (min(256, S - c0) for c0 in range(0, S, 256)))
+    return max(3 * (flops - scores) / PEAK_FLOPS["tf32"] + scores / PEAK_FLOPS["float64_tc"],
+               nbytes / HBM_BYTES_PER_S)
+
+
 def phase_xlstm_train_timing(torch, cfg, launches_fwd, launches_bwd, errs):
     """The mLSTM backward kernel (#9b) and the forward (#9) at the training
     shape (B = 2 x 4 heads, S 4096, dh 1024, the empty state, no gradient
@@ -1277,6 +1296,7 @@ def phase_xlstm_train_timing(torch, cfg, launches_fwd, launches_bwd, errs):
     for g, r in zip(got[:5], ref[:5]):
         add_err(bwd, g, r)
     bwd["flops"], bwd["bytes"] = mlstm_train_work(B, S, dh, backward=True)
+    bwd["bound_tc_ms"] = mlstm_bwd_bound_tc(B, S, dh) * 1e3
     del got, ref
     fwd = {"ms": time_cold(torch, lambda: mlstm_chunk(q, k, v, i, f), iters=20),
            "plain_ms": time_cold(torch, lambda: mlstm_chunk_ref(q, k, v, i, f, chunk=CHUNK,

@@ -81,6 +81,8 @@ constexpr float kNegInit = -1e30f;
 
 using sct::mlstm::block_max;
 using sct::mlstm::chunk_stats;
+using sct::mlstm::mma_tf32;
+using sct::mlstm::split_tf32;
 
 // ---------------------------------------------------------------- scores --
 // part[b][s][c][t][j] = sum over dims of slice s of q[t] . k[j], chunk c, for
@@ -174,24 +176,6 @@ struct alignas(16) CarrySmem {
   float cs[kCT][kCT + 4];
   float qT[kCT][64 + 4];
 };
-
-// x = big + small, both tf32 (10 explicit significand bits each): 22 of
-// x's 24 bits; the three products big.big + big.small + small.big then
-// carry every product to ~2^-21, summed in fp32 (3xTF32)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  const float r = x - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(r));
-}
-
-// c (16 x 8 fp32) += a (16 x 8 tf32, row) . b (8 x 8 tf32, col)
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // grid (column tiles, row tiles, B): block (et, dt, b) owns
 // C[b][dt*128 .. +128, et*128 .. +128]; warp (wm, wn) holds rows

@@ -38,33 +38,63 @@
 //      training shape, 3.6 GB for a remat period's seven layers); here they
 //      live only during this call;
 //   2. scores: S = q k^T and dy v^T for every chunk's lower triangle, 64 x 64
-//      tiles with the whole dh reduction in the block;
-//   3. rows: one block a chunk, a warp a row: the stabilisers, den, and
+//      tiles with the whole dh reduction in the block, summed in fp64 on the
+//      fp64 tensor cores (mma.m16n8k8);
+//   3. rows: four blocks a chunk, a warp a row: the stabilisers, den, and
 //      the rows of dS and P / den written over S and dy v^T (zeros above the
-//      diagonal), G's row and column sums;
+//      diagonal), G's row sums and the blocks' shares of its column sums;
 //   4. dstate: the reverse sweep of dC over the chunks, a block a 128 x 128
-//      tile holding its tile in registers (8 x 8 a thread, fp32 FMA),
-//      recording every chunk's dC1 and dn1 and <dC1, C0> + <dn1, n0>;
-//   5. inputs: dq, dk and dv, 64 x 64 output tiles, each the chunk's
-//      triangle product plus the carried state's product (fp32 FMA, 16-deep
-//      shared-memory stages), with the per-tile dots the gates need;
+//      tile held in wgmma accumulators, recording every chunk's dC1 and dn1
+//      and <dC1, C0> + <dn1, n0>; the update q dnum^T on the tensor cores;
+//   5. inputs: dq, dk and dv, 128 x 128 tiles, each the carried state's
+//      product and then the chunk's triangle product in one chain of stages
+//      on the tensor cores, with the per-row dots the gates need;
 //   6. gates: one block a head, walking the chunks in reverse: the argmax
 //      routing, the m chain, the fp64 suffix sums, di and df.
 //
 // What bounds it: operations. Per chunk and head, with T tokens and the
-// causal pairs p = T (T + 1) / 2: the five triangle products (S, dy v^T, dS
-// k, dS^T q, P^T dnum: 5 p dh multiply-adds), the carried state's four (q
-// dnum^T into dC, C0 dnum, dC1 v, dC1^T k: 4 T dh^2, where C0 and dC1 are
-// not empty) and the state pass's one (T dh^2, all chunks but the last);
-// at xlstm-1.3b's training shape (B = 2 x 4 heads, S = 4096, dh = 1024,
-// the empty state, no gradient of the final state) 3.7e11 flops, 5.5 ms at
-// the fp32 rate of 67 TFLOP/s; the bytes (q, k, v, y, dy in, dq, dk, dv
-// out) take 0.32 ms. This
-// first version runs the state pass as the forward does (3xTF32 on the
-// tensor cores), the two score products in fp64 and the rest in fp32, all
-// outside the tensor cores but the state pass.
+// causal pairs p = T (T + 1) / 2: the two score products (S, dy v^T: 2 p
+// dh multiply-adds), the three triangle products (dS k, dS^T q, P^T dnum: 3
+// p dh), the carried state's four (q dnum^T into dC, C0 dnum, dC1 v, dC1^T
+// k: 4 T dh^2, where C0 and dC1 are not empty) and the state pass's one (T
+// dh^2, all chunks but the last). At xlstm-1.3b's training shape (B = 2 x 4
+// heads, S = 4096, dh = 1024, the empty state, no gradient of the final
+// state) that is 3.7e11 flops: 5.45 ms at the fp32 rate of 67 TFLOP/s, and
+// 2.37 ms at the rates of the passes this kernel makes (every product but
+// the scores as three tf32 products at 495 TFLOP/s, the scores in fp64 at
+// 67); the bytes (q, k, v, y, dy in, dq, dk, dv out) take 0.32 ms.
+//
+// Which unit runs what, and why:
+//   * tensor cores in tf32, three products (3xTF32): the state pass (#9's
+//     kernel), the dC update and all six products of the input gradients.
+//     Each fp32 operand is split into a tf32 big and small part (22 of its
+//     24 bits; the split on the integer pipe, which the conversion
+//     instruction's rate would bound), and big . big + big . small + small
+//     . big carry every product to ~2^-21. The tensor cores' own sums
+//     truncate, so every 32-deep stage is summed from zero and added to the
+//     fp32 tile once: the products' error stays that of fp32 arithmetic
+//     (tests/test_torch_mlstm_bwd_geometry.py emulates both).
+//   * wgmma (sm_90a), not mma.sync: a warpgroup takes 64 rows x 128 columns
+//     (m64n128k8), A's parts from registers (each warp loads and splits its
+//     own rows), B's from shared memory, split once a stage into the K-major
+//     core layout that tf32 wgmma needs whatever the operand's orientation
+//     in memory (the six products read A and B along k, m or n). The raw
+//     rows of stage s + 3 are in flight (cp.async) and stage s + 1's B is
+//     split between the k-steps of stage s's products.
+//   * fp64 tensor cores: the two score products, summed exactly enough to be
+//     rounded once, as the plain version sums them.
+//   * CUDA cores: the rows, the gates, dn and the per-row dots, in fp32 (the
+//     gates' suffix sums in fp64).
+// A carried-state product whose factor is zero by construction is skipped
+// (kernels/mlstm_chunk.py:bwd_plan, tested on the CPU): chunk 0's C0 without
+// a state (dq's dy C0^T and the update only dC0 reads), the last chunk's dC1
+// without a gradient of the final C (dk's v dC1^T, dv's k dC1); it would add
+// exact zeros.
+#include <type_traits>
+
 #include "common.cuh"
 #include "mlstm.cuh"
+#include "mma.cuh"
 
 extern "C" int sct_mlstm_states(const void* k, const void* v, const void* i_pre,
                                 const void* f_pre, const void* C0, const void* n0,
@@ -75,15 +105,25 @@ namespace {
 
 using sct::mlstm::block_max;
 using sct::mlstm::chunk_stats;
+using sct::mlstm::split_tf32_int;
+using sct::mlstm::wgmma_tf32_n128;
+using sct::mma::cp_async16;
+using sct::mma::cp_async_commit;
+using sct::mma::cp_async_wait;
+using sct::mma::fence_regs;
+using sct::mma::wgmma_commit;
+using sct::mma::wgmma_desc;
+using sct::mma::wgmma_fence;
+using sct::mma::wgmma_wait;
 
 constexpr int kT = 256;         // chunk length (the forward's)
 constexpr int kThreads = 256;   // every kernel: a token of a chunk a thread in the statistics
 constexpr int kST = 64;         // score tile
 constexpr int kSK = 32;         // dims a score stage holds
 constexpr int kCT = 128;        // dC tile: dh rows and value columns
-constexpr int kJS = 32;         // tokens a dC stage holds
-constexpr int kGT = 64;         // gradient tile: rows and columns
-constexpr int kGK = 16;         // reduction depth a gradient stage holds
+constexpr int kGT = 128;        // gradient tile: rows and columns
+constexpr int kKS = 32;         // reduction depth a tensor-core stage holds
+constexpr int kRowSplit = 4;    // blocks that share a chunk's rows in the rows pass
 constexpr int kMaxDh = 1024;
 constexpr float kNegInit = -1e30f;
 
@@ -121,20 +161,35 @@ __device__ __forceinline__ float share_of(float x, float y) {
 }
 
 // ---------------------------------------------------------------- scores --
+// c (16 x 8 fp64) += a (16 x 8, row) . b (8 x 8, col) on the fp64 tensor
+// cores (sm_90's m16n8k8: twice m8n8k4's rate); lane 4 g + t holds a =
+// {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]}, b = {B[t][g], B[t+4][g]}, c
+// = {C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]}
+__device__ __forceinline__ void mma_f64(double* c, const double* a, double b0, double b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
 // buf[b][c][t][j] = sum over dh of a[t] . bm[j] for the 64 x 64 tiles (ti >=
 // tj) of chunk c's lower triangle: blockIdx.y 0 takes (q, k) into sbuf, 1
-// takes (dy, v) into pbuf. The sums run in fp64 and are rounded once: the
-// products of fp32 values are exact there, so any order of the sum rounds
-// to the same fp32 value (dP = (dy . v - dy . y) / den cancels where a
-// row's weight sits on one token, and then takes no error from the order).
-// grid (chunks * 10, 2, B); a block past its chunk's rows returns. Thread
-// (tx, ty) takes rows ty + 16 r and columns tx + 16 s (r, s < 4).
+// takes (dy, v) into pbuf. The sums run in fp64 (mma.m16n8k8 on the fp64
+// tensor cores) and are rounded once: the products of fp32 values are
+// exact there, so any order of the sum rounds to the same fp32 value (dP =
+// (dy . v - dy . y) / den cancels where a row's weight sits on one token,
+// and then takes no error from the order). grid (chunks * 10, 2, B); a block
+// past its chunk's rows returns. Rows of both operands stream through two
+// cp.async stages of 32 dims (rows 36 floats apart: a warp's fragment reads
+// fall on 32 distinct banks); warp (wm, wn) holds rows 32 wm .. + 32 and
+// columns 16 wn .. + 16 as 2 x 2 accumulator tiles.
 __global__ void __launch_bounds__(kThreads)
 bwd_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ dy, const float* __restrict__ v,
                   float* __restrict__ sbuf, float* __restrict__ pbuf, int S, int dh, int nc) {
-  __shared__ __align__(16) float as[kST][kSK + 4];
-  __shared__ __align__(16) float bs[kST][kSK + 4];
+  __shared__ __align__(16) float as[2][kST][kSK + 4];
+  __shared__ __align__(16) float bs[2][kST][kSK + 4];
   const int c = blockIdx.x / 10, which = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   int ti = 0, rest = blockIdx.x % 10;
   while (rest > ti) rest -= ++ti;
@@ -143,56 +198,72 @@ bwd_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (ti * kST >= tc) return;
   const float* A = which ? dy : q;
   const float* Bm = which ? v : k;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
   const int rq = ti * kST, rk = tj * kST;
   const size_t row0 = (size_t)b * S + t0;
-  double acc[4][4] = {};
-  for (int d0 = 0; d0 < dh; d0 += kSK) {     // dh is a multiple of 32
+  auto stage = [&](int d0, int buf) {
     for (int e = tid; e < 2 * kST * kSK / 4; e += kThreads) {
       const bool is_b = e >= kST * kSK / 4;
       const int f = is_b ? e - kST * kSK / 4 : e;
       const int r = f / (kSK / 4), d4 = 4 * (f % (kSK / 4));
       const int row = (is_b ? rk : rq) + r;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row < tc)
-        x = *reinterpret_cast<const float4*>((is_b ? Bm : A) + (row0 + row) * dh + d0 + d4);
-      *reinterpret_cast<float4*>(is_b ? &bs[r][d4] : &as[r][d4]) = x;
+      const bool ok = row < tc;
+      const float* src = (is_b ? Bm : A) + (ok ? (row0 + row) * dh + d0 + d4 : 0);
+      cp_async16(is_b ? &bs[buf][r][d4] : &as[buf][r][d4], src, ok);
     }
+  };
+  double acc[2][2][4] = {};
+  const int nst = dh / kSK;                    // dh is a multiple of 32
+  stage(0, 0);
+  cp_async_commit();
+  for (int st = 0; st < nst; ++st) {
+    const int buf = st & 1;
+    if (st + 1 < nst) stage((st + 1) * kSK, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
 #pragma unroll
-    for (int dd = 0; dd < kSK; dd += 4) {
-      float4 a[4], bb[4];
+    for (int kk = 0; kk < kSK; kk += 8) {
+      double bv[2][2];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        a[r] = *reinterpret_cast<const float4*>(&as[ty + 16 * r][dd]);
-        bb[r] = *reinterpret_cast<const float4*>(&bs[tx + 16 * r][dd]);
+      for (int ni = 0; ni < 2; ++ni) {
+        const int n = 16 * wn + 8 * ni + g;
+        bv[ni][0] = bs[buf][n][kk + t4];
+        bv[ni][1] = bs[buf][n][kk + t4 + 4];
       }
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int mi = 0; mi < 2; ++mi) {
+        const int m = 32 * wm + 16 * mi + g;
+        const double av[4] = {as[buf][m][kk + t4], as[buf][m + 8][kk + t4],
+                              as[buf][m][kk + t4 + 4], as[buf][m + 8][kk + t4 + 4]};
 #pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          acc[r][s] = fma(static_cast<double>(a[r].x), static_cast<double>(bb[s].x), acc[r][s]);
-          acc[r][s] = fma(static_cast<double>(a[r].y), static_cast<double>(bb[s].y), acc[r][s]);
-          acc[r][s] = fma(static_cast<double>(a[r].z), static_cast<double>(bb[s].z), acc[r][s]);
-          acc[r][s] = fma(static_cast<double>(a[r].w), static_cast<double>(bb[s].w), acc[r][s]);
-        }
+        for (int ni = 0; ni < 2; ++ni) mma_f64(acc[mi][ni], av, bv[ni][0], bv[ni][1]);
+      }
     }
     __syncthreads();
   }
   float* out = (which ? pbuf : sbuf) + ((size_t)b * nc + c) * kT * kT;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
-      out[(size_t)(rq + ty + 16 * r) * kT + rk + tx + 16 * s] = static_cast<float>(acc[r][s]);
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(out + (size_t)(rq + 32 * wm + 16 * mi + g + 8 * h) * kT + rk +
+                                   16 * wn + 8 * ni + 2 * t4) =
+            make_float2(static_cast<float>(acc[mi][ni][2 * h]),
+                        static_cast<float>(acc[mi][ni][2 * h + 1]));
 }
 
 // ------------------------------------------------------------------ rows --
-// grid (chunks, B): warp w takes the rows t = w, w + 8, ... of the chunk.
-// In: sbuf = q k^T, pbuf = dy v^T. Out: sbuf = dS, pbuf = P / den (both 0
-// for j > t), and per token ce = e / den, ud = e dden_raw, rowg = sum_j G,
-// dmf = the clamp's share of M's gradient, gi = sum_t G (the column sums),
-// wa (the end state's weights); per chunk decay0.
+// grid (chunks, B, kRowSplit): block (c, b, r) takes the rows t = r mod
+// kRowSplit of chunk c, warp w the rows r + kRowSplit (w + 8 i). In: sbuf
+// = q k^T, pbuf = dy v^T. Out: sbuf = dS, pbuf = P / den (both 0 for j >
+// t), and per token ce = e / den, ud = e dden_raw, rowg = sum_j G, dmf =
+// the clamp's share of M's gradient, gi[r] = the block's share of sum_t G
+// (the column sums: the gates kernel adds the kRowSplit shares in order);
+// by the blocks r = 0, wa (the end state's weights) and per chunk decay0.
 __global__ void __launch_bounds__(kThreads)
 bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ y,
                 const float* __restrict__ dy, const float* __restrict__ i_pre,
@@ -206,8 +277,8 @@ bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ y,
   __shared__ float fsc[kThreads / 32];
   __shared__ float ns[kMaxDh];
   __shared__ float colp[kThreads / 32][kT];
-  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nc = gridDim.x;
+  const int c = blockIdx.x, b = blockIdx.y, r = blockIdx.z, tid = threadIdx.x, lane = tid & 31;
+  const int warp = tid >> 5, nc = gridDim.x;
   const int t0 = c * kT, tc = min(kT, S - t0);
   const size_t row0 = (size_t)b * S + t0, hist = (size_t)b * nc + c;
   for (int d = tid; d < dh; d += kThreads) ns[d] = n_hist[hist * dh + d];
@@ -218,12 +289,12 @@ bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ y,
   // the end state's weights, as the forward's state pass computes them
   const float a_j = tid < tc ? (btot - bc[tid]) + ii[tid] : kNegInit;
   const float m_new = fmaxf(btot + m0, block_max(a_j, fsc));
-  if (tid < tc) wa[row0 + tid] = expf(a_j - m_new);
-  if (tid == 0) decay[hist] = expf((btot + m0) - m_new);
+  if (r == 0 && tid < tc) wa[row0 + tid] = expf(a_j - m_new);
+  if (r == 0 && tid == 0) decay[hist] = expf((btot + m0) - m_new);
 
   float* sb = sbuf + hist * kT * kT;
   float* pb = pbuf + hist * kT * kT;
-  for (int t = warp; t < tc; t += kThreads / 32) {
+  for (int t = r + kRowSplit * warp; t < tc; t += kRowSplit * (kThreads / 32)) {
     const float bt = bc[t], inter = bt + m0;
     float* srow = sb + (size_t)t * kT;
     float* prow = pb + (size_t)t * kT;
@@ -284,27 +355,133 @@ bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ y,
   if (tid < tc) {
     float cg = colp[0][tid];
     for (int w = 1; w < kThreads / 32; ++w) cg += colp[w][tid];
-    gi[row0 + tid] = cg;
+    gi[(size_t)r * gridDim.y * S + row0 + tid] = cg;
   }
+}
+
+// ------------------------------------------------- 3xTF32 tiles, shared --
+// A raw stage holds kKS depths of a 128-wide tile of one operand X, indexed
+// (r, k) with r the tile's row (A's m, B's n) and k the reduction. kK: X(r,
+// k) = X[r * ld + k] (k contiguous), staged s[r * kStrK + k - k0]; else X(r,
+// k) = X[k * ld + r], staged s[(k - k0) * kStrMN + r]. A 16-byte piece is
+// copied (cp.async) when its r < rvalid and its k < kvalid (at the piece's
+// first element), else zero-filled. The strides put a warp's reads of (r0 +
+// r % 8, k0 + k % 4) on 32 distinct banks in either layout: r * 36 + k = 4
+// (r % 8) + k % 4, k * 136 + r = 8 (k % 4) + r % 8 (mod 32).
+constexpr int kStrK = kKS + 4;
+constexpr int kStrMN = kGT + 8;
+constexpr int kStageFloats = kGT * kStrK > kKS * kStrMN ? kGT * kStrK : kKS * kStrMN;
+constexpr int kRaw = 4;         // raw stages: s + 3 in flight while s, s + 1 and s + 2 wait
+// B's split stage: the tf32 big or small parts of a raw stage, K-major for
+// the tensor cores: core matrix (n / 8, k / 4), 8 rows x 4 k (16 bytes), at
+// float 32 (16 (k / 4) + n / 8), its element (n % 8, k % 4) at + 4 (n % 8)
+// + k % 4: k-neighbour cores kCoreLbo bytes apart, n-neighbours kCoreSbo; a
+// k-step of 8 is two cores along k, 1024 floats
+constexpr int kSplitFloats = kGT * kKS;
+constexpr int kCoreLbo = 2048, kCoreSbo = 128;
+
+template <bool kK>
+__device__ __forceinline__ void stage_tile(float* s, const float* __restrict__ X, size_t ld,
+                                           int rvalid, int k0, int kvalid) {
+  for (int e = threadIdx.x; e < kGT * kKS / 4; e += kThreads) {
+    const int r = kK ? e / (kKS / 4) : 4 * (e % (kGT / 4));
+    const int kk = kK ? 4 * (e % (kKS / 4)) : e / (kGT / 4);
+    const int k = k0 + kk;
+    const bool ok = r < rvalid && k < kvalid;
+    const float* src = ok ? X + (kK ? (size_t)r * ld + k : (size_t)k * ld + r) : X;
+    cp_async16(kK ? s + r * kStrK + kk : s + kk * kStrMN + r, src, ok);
+  }
+}
+
+template <bool kK>
+__device__ __forceinline__ float staged(const float* s, int r, int k) {
+  return kK ? s[r * kStrK + k] : s[k * kStrMN + r];
+}
+
+// A quarter of B's raw stage (orientation kK) split into its big and small
+// tf32 parts in the K-major core layout: warp w takes cores 16 w + 4 q ..
+// + 4, a lane an element of each (the writes on 128 contiguous bytes a
+// core). The caller fences the writes for the tensor cores' reads
+// (fence_async) before the barrier that hands the stage over.
+template <bool kK>
+__device__ __forceinline__ void split_b(float* big, float* small, const float* raw, int q) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, rn = lane >> 2, rk = lane & 3;
+  constexpr int kCores = kGT * kKS / 32 / (kThreads / 32);
+#pragma unroll
+  for (int i = 0; i < kCores / 4; ++i) {
+    const int core = warp * kCores + q * (kCores / 4) + i;
+    uint32_t hi, lo;
+    split_tf32_int(staged<kK>(raw, 8 * (core & 15) + rn, 4 * (core >> 4) + rk), hi, lo);
+    big[32 * core + lane] = __uint_as_float(hi);
+    small[32 * core + lane] = __uint_as_float(lo);
+  }
+}
+
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A stage's product for this warpgroup's 64 rows and all 128 columns, in
+// part (from zero), per k-step small . big, big . small and big . big
+// (3xTF32); A's parts in registers (a k-step a row of ab / as), B's in
+// shared memory. wg_begin fences the registers, wg_step issues k-step
+// kk's three products, wg_end commits and waits. The caller puts the next
+// stage's loads and split between the steps (on the H100 that measured
+// faster than issuing all twelve products first).
+__device__ __forceinline__ void wg_begin(float* part, uint32_t (&ab)[kKS / 8][4],
+                                         uint32_t (&as)[kKS / 8][4]) {
+  fence_regs<64>(part);
+  fence_regs<kKS / 8>(ab);
+  fence_regs<kKS / 8>(as);
+  wgmma_fence();
+}
+
+__device__ __forceinline__ void wg_step(float* part, const uint32_t* ab, const uint32_t* as,
+                                        const float* big, const float* small, int kk) {
+  const uint64_t db = wgmma_desc(big + 1024 * kk, kCoreLbo, kCoreSbo);
+  const uint64_t ds = wgmma_desc(small + 1024 * kk, kCoreLbo, kCoreSbo);
+  wgmma_tf32_n128(part, as, db, kk > 0);
+  wgmma_tf32_n128(part, ab, ds, 1);
+  wgmma_tf32_n128(part, ab, db, 1);
+}
+
+__device__ __forceinline__ void wg_end(float* part, uint32_t (&ab)[kKS / 8][4],
+                                       uint32_t (&as)[kKS / 8][4]) {
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs<64>(part);
+  fence_regs<kKS / 8>(ab);
+  fence_regs<kKS / 8>(as);
 }
 
 // ---------------------------------------------------------------- dstate --
 // grid (column tiles, row tiles, B): block (et, dt, b) owns dC[b][dt*128 ..
-// +128, et*128 .. +128] and walks the chunks in reverse. Thread (tx, ty)
-// holds rows {4ty .. +3, 64 + 4ty .. +3} and columns {4tx .. +3, 64 + 4tx ..
-// +3}; the blocks of the first column tile carry dn. Before chunk c's
-// update the block records dC1 (dC_hist), dn1 (dn_hist) and its share of
-// <dC1, C_c> + <dn1, n_c> (dd_part[b][c][dt * nd + et]).
-struct alignas(16) DStateSmem {
-  float qs[kJS][kCT + 4];
-  float ys[kJS][kCT + 4];
+// +128, et*128 .. +128] and walks the chunks in reverse; warpgroup wg holds
+// rows 64 wg .. + 64 and all 128 columns in the wgmma accumulator layout
+// (element 4 j + e of warp w, lane 4 g + t: row 64 wg + 16 w + g + 8 (e /
+// 2), column 8 j + 2 t + e % 2). Before chunk c's update the block records
+// dC1 (dC_hist), dn1 (dn_hist) and its share of <dC1, C_c> + <dn1, n_c>
+// (dd_part[b][c][dt * nd + et]). The update dC = decay0 dC + sum_t (ce_t
+// q_t) dy_t^T runs on the tensor cores (wgmma, 3xTF32), a 32-token stage at
+// a time into a partial tile that is added to dC in fp32 (the tensor cores'
+// own sums truncate, and dC is carried over every chunk). The stages run
+// across the chunks' boundaries: stage s + 3's q and dy rows are in flight
+// (cp.async) and stage s + 1's dy is split for the tensor cores while they
+// run stage s; each warp takes its q fragments (times ce) into registers.
+// The blocks of the first column tile carry dn (fp32, a thread a dim, in
+// token order). Chunk 0's update runs only for dC0.
+struct alignas(128) DStateSmem {
+  float big[2][kSplitFloats];         // dy split for the tensor cores
+  float small[2][kSplitFloats];
+  float qs[kRaw][kKS][kStrMN];        // q rows of a stage, this tile's dims
+  float ys[kRaw][kKS][kStrMN];        // dy rows, this tile's columns
   float ce[kT];
   float ud[kT];
   float dns[kCT];
   float red[kThreads / 32];
 };
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 bwd_dstate_kernel(const float* __restrict__ q, const float* __restrict__ dy,
                   const float* __restrict__ ce, const float* __restrict__ ud,
                   const float* __restrict__ decay, const float* __restrict__ C_hist,
@@ -312,104 +489,135 @@ bwd_dstate_kernel(const float* __restrict__ q, const float* __restrict__ dy,
                   const float* __restrict__ dn_in, float* __restrict__ dC_hist,
                   float* __restrict__ dn_hist, float* __restrict__ dd_part,
                   float* __restrict__ dC0, float* __restrict__ dn0, int S, int dh) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   DStateSmem& sm = *reinterpret_cast<DStateSmem*>(smem_raw);
   const int et = blockIdx.x, dt = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int m0 = 64 * (warp >> 2) + 16 * (warp & 3);     // this warp's first row
   const int nd = gridDim.x, nc = (S + kT - 1) / kT;
   const int d0 = dt * kCT, e0 = et * kCT;
   const bool keeps_n = et == 0;
-  auto row_of = [&](int i) { return i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4; };
-  auto col_of = [&](int j) { return j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4; };
-  float acc[8][8];
+  // the stages: chunk nc - 1's first, down to chunk c_lo's last
+  const int c_lo = dC0 != nullptr ? 0 : 1;
+  const int ns_last = (S - (nc - 1) * kT + kKS - 1) / kKS;
+  const int n_stages = nc - 1 >= c_lo ? ns_last + (nc - 1 - c_lo) * (kT / kKS) : 0;
+  auto issue = [&](int s) {
+    const int c = s < ns_last ? nc - 1 : nc - 2 - (s - ns_last) / (kT / kKS);
+    const int st = s < ns_last ? s : (s - ns_last) % (kT / kKS);
+    const size_t row = (size_t)b * S + c * kT + st * kKS;
+    const int tn = min(kT, S - c * kT) - st * kKS;
+    stage_tile<false>(&sm.qs[s % kRaw][0][0], q + row * dh + d0, dh, dh - d0, 0, tn);
+    stage_tile<false>(&sm.ys[s % kRaw][0][0], dy + row * dh + e0, dh, dh - e0, 0, tn);
+  };
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < kRaw - 1; ++i) {
+    if (i < n_stages) issue(i);
+    cp_async_commit();
+  }
+
+  float acc[64], part[64];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int d = d0 + row_of(i), col = e0 + col_of(j);
-      acc[i][j] = dC_in && d < dh && col < dh ? dC_in[((size_t)b * dh + d) * dh + col] : 0.f;
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = d0 + m0 + g + 8 * (e >> 1), col = e0 + 8 * j + 2 * t4 + (e & 1);
+      acc[4 * j + e] =
+          dC_in && d < dh && col < dh ? dC_in[((size_t)b * dh + d) * dh + col] : 0.f;
     }
   if (keeps_n && tid < kCT)
     sm.dns[tid] = dn_in && d0 + tid < dh ? dn_in[(size_t)b * dh + d0 + tid] : 0.f;
+  cp_async_wait<kRaw - 3>();                 // stages 0 and 1 in
   __syncthreads();
+  if (n_stages > 0)
+    for (int q4 = 0; q4 < 4; ++q4) split_b<false>(sm.big[0], sm.small[0], &sm.ys[0][0][0], q4);
+  fence_async();
+  __syncthreads();
+  int s = 0;
   for (int c = nc - 1; c >= 0; --c) {
     const int t0 = c * kT, tc = min(kT, S - t0);
     const size_t row0 = (size_t)b * S + t0, hist = (size_t)b * nc + c;
-    float part = 0.f;
+    float dpart = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int d = d0 + row_of(i), col = e0 + col_of(j);
+      for (int h = 0; h < 2; ++h) {
+        const int d = d0 + m0 + g + 8 * h, col = e0 + 8 * j + 2 * t4;
         if (d < dh && col < dh) {
           const size_t o = (hist * dh + d) * dh + col;
-          dC_hist[o] = acc[i][j];
-          part = fmaf(acc[i][j], C_hist[o], part);
+          *reinterpret_cast<float2*>(dC_hist + o) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          const float2 cv = *reinterpret_cast<const float2*>(C_hist + o);
+          dpart = fmaf(acc[4 * j + 2 * h], cv.x, dpart);
+          dpart = fmaf(acc[4 * j + 2 * h + 1], cv.y, dpart);
         }
       }
     if (keeps_n && tid < kCT && d0 + tid < dh) {
       dn_hist[hist * dh + d0 + tid] = sm.dns[tid];
-      part = fmaf(sm.dns[tid], n_hist[hist * dh + d0 + tid], part);
+      dpart = fmaf(sm.dns[tid], n_hist[hist * dh + d0 + tid], dpart);
     }
-    part = warp_sum(part);
-    if (lane == 0) sm.red[warp] = part;
-    if (tid < tc) {
-      sm.ce[tid] = ce[row0 + tid];
-      sm.ud[tid] = ud[row0 + tid];
-    }
+    dpart = warp_sum(dpart);
+    if (lane == 0) sm.red[warp] = dpart;
+    sm.ce[tid] = tid < tc ? ce[row0 + tid] : 0.f;
+    sm.ud[tid] = tid < tc ? ud[row0 + tid] : 0.f;
     __syncthreads();
     if (tid == 0) {
-      float s = sm.red[0];
-      for (int w = 1; w < kThreads / 32; ++w) s += sm.red[w];
-      dd_part[hist * nd * nd + dt * nd + et] = s;
+      float x = sm.red[0];
+      for (int w = 1; w < kThreads / 32; ++w) x += sm.red[w];
+      dd_part[hist * nd * nd + dt * nd + et] = x;
     }
+    if (c < c_lo) break;
     const float dec = decay[hist];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= dec;
+    for (int i = 0; i < 64; ++i) acc[i] *= dec;
     float nacc = 0.f;
-    for (int j0 = 0; j0 < tc; j0 += kJS) {
-      for (int e = tid; e < 2 * kJS * kCT / 4; e += kThreads) {
-        const bool is_y = e >= kJS * kCT / 4;
-        const int f = is_y ? e - kJS * kCT / 4 : e;
-        const int j = f / (kCT / 4), c4 = 4 * (f % (kCT / 4));
-        const int t = j0 + j, col = (is_y ? e0 : d0) + c4;
-        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (t < tc && col < dh)
-          x = *reinterpret_cast<const float4*>((is_y ? dy : q) + (row0 + t) * dh + col);
-        *reinterpret_cast<float4*>(is_y ? &sm.ys[j][c4] : &sm.qs[j][c4]) = x;
-      }
-      __syncthreads();
-      const int jn = min(kJS, tc - j0);
-      for (int j = 0; j < jn; ++j) {
-        const float cj = sm.ce[j0 + j];
-        const float4 a0 = *reinterpret_cast<const float4*>(&sm.qs[j][4 * ty]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&sm.qs[j][64 + 4 * ty]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&sm.ys[j][4 * tx]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&sm.ys[j][64 + 4 * tx]);
-        const float a[8] = {cj * a0.x, cj * a0.y, cj * a0.z, cj * a0.w,
-                            cj * a1.x, cj * a1.y, cj * a1.z, cj * a1.w};
-        const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int st = 0; st * kKS < tc; ++st, ++s) {
+      // stage s: its q fragments (times ce) to registers; its products issued a
+      // k-step at a time, stage s + kRaw - 1's rows sent for and stage s + 1's
+      // dy split between them
+      const float(*qs)[kStrMN] = sm.qs[s % kRaw];
+      uint32_t ab[kKS / 8][4], as[kKS / 8][4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(a[i], bb[jj], acc[i][jj]);
+      for (int kk = 0; kk < kKS / 8; ++kk) {
+        const int k = 8 * kk + t4;
+        const float c0 = sm.ce[st * kKS + k], c1 = sm.ce[st * kKS + k + 4];
+        split_tf32_int(c0 * qs[k][m0 + g], ab[kk][0], as[kk][0]);
+        split_tf32_int(c0 * qs[k][m0 + g + 8], ab[kk][1], as[kk][1]);
+        split_tf32_int(c1 * qs[k + 4][m0 + g], ab[kk][2], as[kk][2]);
+        split_tf32_int(c1 * qs[k + 4][m0 + g + 8], ab[kk][3], as[kk][3]);
       }
-      if (keeps_n && tid < kCT)
-        for (int j = 0; j < jn; ++j) nacc = fmaf(sm.ud[j0 + j], sm.qs[j][tid], nacc);
-      __syncthreads();
+      wg_begin(part, ab, as);
+#pragma unroll
+      for (int kk = 0; kk < kKS / 8; ++kk) {
+        wg_step(part, ab[kk], as[kk], sm.big[s & 1], sm.small[s & 1], kk);
+        if (kk == 0 && s + kRaw - 1 < n_stages) issue(s + kRaw - 1);   // into stage s - 1's
+        if (s + 1 < n_stages)
+          split_b<false>(sm.big[(s + 1) & 1], sm.small[(s + 1) & 1], &sm.ys[(s + 1) % kRaw][0][0],
+                         kk);
+      }
+      cp_async_commit();
+      if (keeps_n && tid < kCT) {
+        const int jn = min(kKS, tc - st * kKS);
+        for (int j = 0; j < jn; ++j) nacc = fmaf(sm.ud[st * kKS + j], qs[j][tid], nacc);
+      }
+      wg_end(part, ab, as);
+      fence_async();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      cp_async_wait<kRaw - 3>();             // stage s + 2's rows are in
+      __syncthreads();                       // stage s + 1 split; stage s's buffers read
     }
     if (keeps_n && tid < kCT) sm.dns[tid] = dec * sm.dns[tid] + nacc;
     __syncthreads();
   }
   if (dC0 != nullptr) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int d = d0 + row_of(i), col = e0 + col_of(j);
-        if (d < dh && col < dh) dC0[((size_t)b * dh + d) * dh + col] = acc[i][j];
+      for (int h = 0; h < 2; ++h) {
+        const int d = d0 + m0 + g + 8 * h, col = e0 + 8 * j + 2 * t4;
+        if (d < dh && col < dh)
+          *reinterpret_cast<float2*>(dC0 + ((size_t)b * dh + d) * dh + col) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
   }
   if (dn0 != nullptr && keeps_n && tid < kCT && d0 + tid < dh)
@@ -417,116 +625,195 @@ bwd_dstate_kernel(const float* __restrict__ q, const float* __restrict__ dy,
 }
 
 // ---------------------------------------------------------------- inputs --
-// acc[r][s] += sum over kk in [k0, k1) of A(4ty + r, kk) B(kk, 4tx + s) for
-// one 64 x 64 tile; A(m, kk) is A[m * lda + kk] with kARC (the reduction
-// runs along A's rows in memory), else A[kk * lda + m]; B(kk, n) is
-// B[n * ldb + kk] with kBRC, else B[kk * ldb + n]. Rows m >= mvalid,
-// columns n >= nvalid and depths kk >= k1 read as 0.
-template <bool kARC, bool kBRC>
-__device__ __forceinline__ void tile_product(float (&acc)[4][4], const float* __restrict__ A,
-                                             int lda, int mvalid, const float* __restrict__ Bm,
-                                             int ldb, int nvalid, int k0, int k1,
-                                             float (*As)[kGT + 4], float (*Bs)[kGT + 4]) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  for (int kb = k0; kb < k1; kb += kGK) {
-    for (int e = tid; e < kGK * kGT; e += kThreads) {
-      const int am = kARC ? e / kGK : e % kGT, ak = kARC ? e % kGK : e / kGT;
-      const int bn = kBRC ? e / kGK : e % kGT, bk = kBRC ? e % kGK : e / kGT;
-      float x = 0.f, z = 0.f;
-      if (am < mvalid && kb + ak < k1)
-        x = kARC ? A[(size_t)am * lda + kb + ak] : A[(size_t)(kb + ak) * lda + am];
-      if (bn < nvalid && kb + bk < k1)
-        z = kBRC ? Bm[(size_t)bn * ldb + kb + bk] : Bm[(size_t)(kb + bk) * ldb + bn];
-      As[ak][am] = x;
-      Bs[bk][bn] = z;
-    }
-    __syncthreads();
+// grid (chunks * 2 row tiles * column tiles, 3, B): blockIdx.y 0 writes a
+// 128 x 128 tile of dq (rows t, columns d), 1 of dk (rows j, columns d), 2
+// of dv (rows j, columns e). Each tile is the carried state's product
+// followed by the chunk's triangle product, one chain of kKS-deep stages,
+// each operand staged in its own orientation:
+//   dq: dy C0^T (A k-contiguous, B k-contiguous), then dS k over j < the
+//       tile's last row (A k-, B n-contiguous);
+//   dk: v dC1^T (k-, k-), then dS^T q over t >= the tile's first row (m-,
+//       n-contiguous);
+//   dv: k dC1 (k-, n-), then (P / den)^T dy over t >= the first row (m-,
+//       n-).
+// Every stage runs on the tensor cores (wgmma, 3xTF32): stage s + 3's rows
+// are in flight (cp.async) and stage s + 1's B is split into the tensor
+// cores' K-major layout while they run stage s; each warp takes its A
+// fragments into registers. Warpgroup wg takes rows 64 wg .. + 64 and all
+// 128 columns into a partial tile, added to the tile in fp32 (the tensor
+// cores' own sums truncate). After the state product the tile becomes the
+// carried state's term (dq: ce_t (dy C0^T) + ud_t n0; dk: wa_j (v dC1^T +
+// dn1); dv: wa_j (k dC1)), and dq and dk write, for each row, the tile's
+// share of q_t . (that term) (dint_part) and of k_j . (dk's) (da_part), one
+// slot per column tile; the triangle's stages are added after. A state
+// product whose factor is zero by construction (chunk 0's C0 without a
+// state; the last chunk's dC1 without a gradient of the final C) is
+// skipped: it would add exact zeros.
+struct alignas(128) InputsSmem {
+  float big[2][kSplitFloats];         // B split for the tensor cores
+  float small[2][kSplitFloats];
+  float a[kRaw][kStageFloats];        // raw stages
+  float b[kRaw][kStageFloats];
+};
+
+struct InputsArgs {
+  const float *q, *k, *v, *dy, *sbuf, *pbuf, *C_hist, *n_hist, *dC_hist, *dn_hist, *ce, *ud,
+      *wa;
+  float *dq, *dk, *dv, *dint_part, *da_part;
+  int S, dh, has_state, has_dC;
+};
+
+// this warp's A fragments of a raw stage (rows m0 + g, m0 + g + 8), split
+template <bool kK>
+__device__ __forceinline__ void load_a(uint32_t (&ab)[kKS / 8][4], uint32_t (&as)[kKS / 8][4],
+                                       const float* raw, int m0, int g, int t4) {
 #pragma unroll
-    for (int kk = 0; kk < kGK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][4 * ty]);
-      const float4 bb = *reinterpret_cast<const float4*>(&Bs[kk][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(av[r], bv[s], acc[r][s]);
-    }
-    __syncthreads();
+  for (int kk = 0; kk < kKS / 8; ++kk) {
+    split_tf32_int(staged<kK>(raw, m0 + g, 8 * kk + t4), ab[kk][0], as[kk][0]);
+    split_tf32_int(staged<kK>(raw, m0 + g + 8, 8 * kk + t4), ab[kk][1], as[kk][1]);
+    split_tf32_int(staged<kK>(raw, m0 + g, 8 * kk + t4 + 4), ab[kk][2], as[kk][2]);
+    split_tf32_int(staged<kK>(raw, m0 + g + 8, 8 * kk + t4 + 4), ab[kk][3], as[kk][3]);
   }
 }
 
-// grid (chunks * 4 row tiles * column tiles, 3, B): blockIdx.y 0 writes a
-// tile of dq (rows t, columns d), 1 of dk (rows j, columns d), 2 of dv
-// (rows j, columns e). dq and dk also write, for each row, the tile's share
-// of q_t . (dq's carried-state term) (dint_part) and of k_j . (dk's) (da_part),
-// one slot per column tile.
-__global__ void __launch_bounds__(kThreads)
-bwd_inputs_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dy,
-                  const float* __restrict__ sbuf, const float* __restrict__ pbuf,
-                  const float* __restrict__ C_hist, const float* __restrict__ n_hist,
-                  const float* __restrict__ dC_hist, const float* __restrict__ dn_hist,
-                  const float* __restrict__ ce, const float* __restrict__ ud,
-                  const float* __restrict__ wa, float* __restrict__ dq, float* __restrict__ dk,
-                  float* __restrict__ dv, float* __restrict__ dint_part,
-                  float* __restrict__ da_part, int S, int dh) {
-  __shared__ __align__(16) float As[kGK][kGT + 4];
-  __shared__ __align__(16) float Bs[kGK][kGT + 4];
+// kSA / kSB: the state product's A / B k-contiguous; kTA / kTB the triangle's
+template <int kWhich, bool kSA, bool kSB, bool kTA, bool kTB>
+__device__ __forceinline__ void inputs_tile(const InputsArgs& p, InputsSmem& sm) {
+  const int dh = p.dh, S = p.S;
   const int ndt = (dh + kGT - 1) / kGT, nc = (S + kT - 1) / kT, nrt = kT / kGT;
   const int ct = blockIdx.x % ndt, rt = (blockIdx.x / ndt) % nrt, c = blockIdx.x / (ndt * nrt);
-  const int which = blockIdx.y, b = blockIdx.z, tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int b = blockIdx.z, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3, m0 = 64 * (warp >> 2) + 16 * (warp & 3);
   const int t0 = c * kT, tc = min(kT, S - t0), r0 = rt * kGT, c0 = ct * kGT;
   if (r0 >= tc) return;
-  const int mvalid = min(kGT, tc - r0), nvalid = min(kGT, dh - c0);
+  const int mvalid = min(kGT, tc - r0), nvalid = dh - c0;
   const size_t row0 = (size_t)b * S + t0, hist = (size_t)b * nc + c;
-  const float* sb = sbuf + hist * kT * kT;
-  const float* pb = pbuf + hist * kT * kT;
-  float acc[4][4] = {}, st[4][4] = {};
-  if (which == 0) {            // dS k over j < the tile's last row; dy C0^T
-    tile_product<true, false>(acc, sb + (size_t)r0 * kT, kT, mvalid, k + row0 * dh + c0, dh,
-                              nvalid, 0, min(tc, r0 + kGT), As, Bs);
-    tile_product<true, true>(st, dy + (row0 + r0) * dh, dh, mvalid,
-                             C_hist + (hist * dh + c0) * dh, dh, nvalid, 0, dh, As, Bs);
-  } else if (which == 1) {     // dS^T q over t >= the tile's first row; v dC1^T
-    tile_product<false, false>(acc, sb + r0, kT, mvalid, q + row0 * dh + c0, dh, nvalid, r0,
-                               tc, As, Bs);
-    tile_product<true, true>(st, v + (row0 + r0) * dh, dh, mvalid,
-                             dC_hist + (hist * dh + c0) * dh, dh, nvalid, 0, dh, As, Bs);
-  } else {                     // (P / den)^T dy over t >= the tile's first row; k dC1
-    tile_product<false, false>(acc, pb + r0, kT, mvalid, dy + row0 * dh + c0, dh, nvalid, r0,
-                               tc, As, Bs);
-    tile_product<true, false>(st, k + (row0 + r0) * dh, dh, mvalid,
-                              dC_hist + hist * dh * dh + c0, dh, nvalid, 0, dh, As, Bs);
-  }
-  float* out = which == 0 ? dq : (which == 1 ? dk : dv);
-  const float* x = which == 0 ? q : k;
-  const float* nvec = (which == 0 ? n_hist : dn_hist) + hist * dh;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int m = 4 * ty + r;
-    const bool live = m < mvalid;
-    const size_t tok = row0 + r0 + m;
-    const float sr = live ? (which == 0 ? ce[tok] : wa[tok]) : 0.f;
-    const float ur = live && which == 0 ? ud[tok] : 0.f;
-    float part = 0.f;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int n = 4 * tx + s;
-      if (!live || n >= nvalid) continue;
-      const int col = c0 + n;
-      float sv;
-      if (which == 0) sv = sr * st[r][s] + ur * nvec[col];
-      else if (which == 1) sv = sr * (st[r][s] + nvec[col]);
-      else sv = sr * st[r][s];
-      out[tok * dh + col] = acc[r][s] + sv;
-      if (which < 2) part = fmaf(x[tok * dh + col], sv, part);
+  // the state product over dh, then the triangle: dq over j in [0, min(tc,
+  // r0 + 128)), dk and dv over t in [r0, tc)
+  const bool live = kWhich == 0 ? (p.has_state || c > 0) : (p.has_dC || c < nc - 1);
+  const int tk0 = kWhich == 0 ? 0 : r0, tk1 = kWhich == 0 ? min(tc, r0 + kGT) : tc;
+  const int ns = live ? dh / kKS : 0;
+  const int ntot = ns + (tk1 - tk0 + kKS - 1) / kKS;
+  // (the operands' addresses are rebuilt from p at each use: fewer live registers)
+  auto issue = [&](int s) {
+    float* as = sm.a[s % kRaw];
+    float* bs = sm.b[s % kRaw];
+    if (s < ns) {
+      const float* sa = (kWhich == 0 ? p.dy : kWhich == 1 ? p.v : p.k) + (row0 + r0) * dh;
+      const float* sb = kWhich == 0 ? p.C_hist + (hist * dh + c0) * dh
+                      : kWhich == 1 ? p.dC_hist + (hist * dh + c0) * dh
+                                    : p.dC_hist + hist * dh * dh + c0;
+      stage_tile<kSA>(as, sa, dh, mvalid, s * kKS, dh);
+      stage_tile<kSB>(bs, sb, dh, nvalid, s * kKS, dh);
+    } else {
+      const float* scores = (kWhich == 2 ? p.pbuf : p.sbuf) + hist * kT * kT;
+      const float* ta = kWhich == 0 ? scores + (size_t)r0 * kT : scores + r0;
+      const float* tb = (kWhich == 0 ? p.k : kWhich == 1 ? p.q : p.dy) + row0 * dh + c0;
+      const int k0 = tk0 + (s - ns) * kKS;
+      // dS's rows hold zeros past the diagonal up to kT: dq's A reads them
+      stage_tile<kTA>(as, ta, kT, mvalid, k0, kWhich == 0 ? kT : tk1);
+      stage_tile<kTB>(bs, tb, dh, nvalid, k0, tk1);
     }
-    if (which < 2) {           // the 16 lanes of a row: tx is the lane's low four bits
+  };
+  auto split = [&](int s, int q4) {
+    if (s < ns) split_b<kSB>(sm.big[s & 1], sm.small[s & 1], sm.b[s % kRaw], q4);
+    else split_b<kTB>(sm.big[s & 1], sm.small[s & 1], sm.b[s % kRaw], q4);
+  };
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-      if (tx == 0 && live) (which == 0 ? dint_part : da_part)[tok * ndt + ct] = part;
+  for (int i = 0; i < kRaw - 1; ++i) {
+    if (i < ntot) issue(i);
+    cp_async_commit();
+  }
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  // the carried state's term over the tile, and the rows' dots for the gates
+  // (a warp holds all 128 columns of its rows: four lanes a row)
+  auto state_term = [&]() {
+    const float* nvec = (kWhich == 0 ? p.n_hist : p.dn_hist) + hist * dh + c0;
+    const float* x = (kWhich == 0 ? p.q : p.k) + (row0 + r0) * dh + c0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + g + 8 * h;
+      const bool row_ok = m < mvalid;
+      const size_t tok = row0 + r0 + m;
+      const float sr = row_ok ? (kWhich == 0 ? p.ce[tok] : p.wa[tok]) : 0.f;
+      const float ur = row_ok && kWhich == 0 ? p.ud[tok] : 0.f;
+      float dot = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int x2 = 0; x2 < 2; ++x2) {
+          const int n = 8 * j + 2 * t4 + x2;
+          float& a = acc[4 * j + 2 * h + x2];
+          if (!row_ok || n >= nvalid) {
+            a = 0.f;
+            continue;
+          }
+          if (kWhich == 0) a = sr * a + ur * nvec[n];
+          else if (kWhich == 1) a = sr * (a + nvec[n]);
+          else a = sr * a;
+          if (kWhich < 2) dot = fmaf(x[(size_t)m * dh + n], a, dot);
+        }
+      if (kWhich < 2) {
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+        if (t4 == 0 && row_ok) (kWhich == 0 ? p.dint_part : p.da_part)[tok * ndt + ct] = dot;
+      }
+    }
+  };
+  cp_async_wait<kRaw - 3>();                 // stages 0 and 1 in
+  __syncthreads();
+  for (int q4 = 0; q4 < 4; ++q4) split(0, q4);
+  fence_async();
+  __syncthreads();
+  // stage s: its A fragments to registers; its products issued a k-step at a
+  // time, stage s + kRaw - 1's rows sent for and stage s + 1's B split
+  // between them; the partial added in fp32 at the end of each stage
+  auto stage = [&](int s, auto tri) {
+    constexpr bool kTri = decltype(tri)::value;
+    uint32_t ab[kKS / 8][4], as[kKS / 8][4];
+    load_a<kTri ? kTA : kSA>(ab, as, sm.a[s % kRaw], m0, g, t4);
+    wg_begin(part, ab, as);
+#pragma unroll
+    for (int kk = 0; kk < kKS / 8; ++kk) {
+      wg_step(part, ab[kk], as[kk], sm.big[s & 1], sm.small[s & 1], kk);
+      if (kk == 0 && s + kRaw - 1 < ntot) issue(s + kRaw - 1);   // into stage s - 1's buffers
+      if (s + 1 < ntot) split(s + 1, kk);
+    }
+    cp_async_commit();
+    wg_end(part, ab, as);
+    fence_async();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    cp_async_wait<kRaw - 3>();               // stage s + 2's rows are in
+    __syncthreads();                         // stage s + 1 split; stage s's buffers read
+  };
+  for (int s = 0; s < ns; ++s) stage(s, std::false_type{});
+  state_term();
+  for (int s = ns; s < ntot; ++s) stage(s, std::true_type{});
+  float* out = (kWhich == 0 ? p.dq : kWhich == 1 ? p.dk : p.dv) + (row0 + r0) * dh + c0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + g + 8 * h;
+    if (m >= mvalid) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = 8 * j + 2 * t4;
+      if (n < nvalid)
+        *reinterpret_cast<float2*>(out + (size_t)m * dh + n) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) bwd_inputs_kernel(const InputsArgs p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  InputsSmem& sm = *reinterpret_cast<InputsSmem*>(smem_raw);
+  if (blockIdx.y == 0) inputs_tile<0, true, true, true, false>(p, sm);
+  else if (blockIdx.y == 1) inputs_tile<1, true, true, false, false>(p, sm);
+  else inputs_tile<2, true, false, false, false>(p, sm);
 }
 
 // ----------------------------------------------------------------- gates --
@@ -579,7 +866,9 @@ bwd_gates_kernel(const float* __restrict__ i_pre, const float* __restrict__ f_pr
       float cs = 0.f;
       for (int t = j; t < tc; ++t)
         if ((bc[t] - bc[j]) + ii[j] == rmax[t]) cs += rshare[t];
-      dcol = gi[row0 + j] + cs;
+      float gs = gi[row0 + j];              // the row blocks' shares, in order
+      for (int x = 1; x < kRowSplit; ++x) gs += gi[(size_t)x * gridDim.x * S + row0 + j];
+      dcol = gs + cs;
       for (int x = 0; x < ndt; ++x) da += da_part[(row0 + j) * ndt + x];
       a_j = (btot - bc[j]) + ii[j];
     }
@@ -658,7 +947,7 @@ inline Workspace carve(float* base, int B, int S, int dh) {
   w.ud = take(tok);
   w.rowg = take(tok);
   w.dmf = take(tok);
-  w.gi = take(tok);
+  w.gi = take(tok * kRowSplit);
   w.wa = take(tok);
   w.dint_part = take(tok * ndt);
   w.da_part = take(tok * ndt);
@@ -706,9 +995,9 @@ extern "C" int sct_mlstm_chunk_bwd(const void* q, const void* k, const void* v,
                                                               S, dh, nc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_rows_kernel<<<dim3(nc, B), kThreads, 0, st>>>(qf, yf, gf, ip, fp, w.n_hist, w.mprev,
-                                                     w.sbuf, w.pbuf, w.ce, w.ud, w.rowg, w.dmf,
-                                                     w.gi, w.wa, w.decay, S, dh);
+  bwd_rows_kernel<<<dim3(nc, B, kRowSplit), kThreads, 0, st>>>(
+      qf, yf, gf, ip, fp, w.n_hist, w.mprev, w.sbuf, w.pbuf, w.ce, w.ud, w.rowg, w.dmf, w.gi, w.wa,
+      w.decay, S, dh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = sct::allow_smem(bwd_dstate_kernel, sizeof(DStateSmem));
@@ -719,10 +1008,14 @@ extern "C" int sct_mlstm_chunk_bwd(const void* q, const void* k, const void* v,
       static_cast<float*>(dn0), S, dh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_inputs_kernel<<<dim3(nc * (kT / kGT) * ndt, 3, B), kThreads, 0, st>>>(
-      qf, kf, vf, gf, w.sbuf, w.pbuf, w.C_hist, w.n_hist, w.dC_hist, w.dn_hist, w.ce, w.ud, w.wa,
-      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), w.dint_part,
-      w.da_part, S, dh);
+  const InputsArgs args{qf, kf, vf, gf, w.sbuf, w.pbuf, w.C_hist, w.n_hist, w.dC_hist,
+                        w.dn_hist, w.ce, w.ud, w.wa, static_cast<float*>(dq),
+                        static_cast<float*>(dk), static_cast<float*>(dv), w.dint_part,
+                        w.da_part, S, dh, C0 != nullptr, dC != nullptr};
+  err = sct::allow_smem(bwd_inputs_kernel, sizeof(InputsSmem));
+  if (err != cudaSuccess) return err;
+  bwd_inputs_kernel<<<dim3(nc * (kT / kGT) * ndt, 3, B), kThreads, sizeof(InputsSmem), st>>>(
+      args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_gates_kernel<<<B, kThreads, 0, st>>>(ip, fp, w.mprev, w.rowg, w.gi, w.dmf, w.dint_part,

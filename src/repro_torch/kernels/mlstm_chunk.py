@@ -9,7 +9,7 @@ The tensor's device decides: CPU tensors run the plain versions
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,6 +29,104 @@ def chunk_lengths(S: int) -> list:
     return [min(CHUNK, S - c0) for c0 in range(0, S, CHUNK)]
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+# the backward (csrc/mlstm_chunk_bwd.cu)
+GRAD_TILE = 128       # dq / dk / dv tiles and dC tiles, rows and columns (kGT, kCT)
+STAGE_DEPTH = 32      # reduction depth of a tensor-core stage (kKS)
+ROW_SPLIT = 4         # blocks that share a chunk's rows in the rows pass (kRowSplit)
+GRADS = ("dq", "dk", "dv")
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel covers (B, S, dh), as
+    ``csrc/mlstm_chunk_bwd.cu`` computes it from its arguments.
+
+    The input gradients: block (x, y, z) of ``inputs_grid`` writes gradient
+    ``GRADS[y]`` of head z, chunk x // (row_tiles * col_tiles), row tile
+    (x // col_tiles) % row_tiles, column tile x % col_tiles
+    (:func:`inputs_block`): a ``GRAD_TILE``-square tile; a tile past its
+    chunk's rows writes nothing. Each tile runs its carried-state product
+    (dh / ``STAGE_DEPTH`` stages) where ``state_products[y][c]``, then its
+    triangle. The dC sweep: block (x, y, z) of ``dstate_grid`` owns dC rows
+    y and columns x (tiles) of head z, walks the chunks in reverse and runs
+    the update of the chunks in ``updates``. A product is skipped exactly
+    where its factor is zero by construction: chunk 0's C0 when no state is
+    passed (dq's dy C0^T, and the update that only dC0 would read) and the
+    last chunk's dC1 when no gradient of the final C is (dk's v dC1^T, dv's
+    k dC1). The rows pass: block (c, b, r) of ``rows_grid`` takes chunk c's
+    rows t = r mod ``ROW_SPLIT`` (:func:`rows_of`)."""
+
+    chunks: Tuple[int, ...]
+    row_tiles: int
+    col_tiles: int
+    scores_grid: Tuple[int, int, int]
+    rows_grid: Tuple[int, int, int]
+    inputs_grid: Tuple[int, int, int]
+    dstate_grid: Tuple[int, int, int]
+    state_products: Tuple[Tuple[bool, ...], ...]
+    updates: Tuple[int, ...]
+    inputs_smem: int
+    dstate_smem: int
+    workspace_floats: int
+
+
+def bwd_plan(B: int, S: int, dh: int, *, has_state: bool, has_dC: bool) -> BwdPlan:
+    """The backward kernel's plan for (B, S, dh), with or without an
+    initial state and a gradient of the final C."""
+    chunks = tuple(chunk_lengths(S))
+    nc = len(chunks)
+    rows, cols = CHUNK // GRAD_TILE, -(-dh // GRAD_TILE)
+    dq = tuple(has_state or c > 0 for c in range(nc))
+    dkv = tuple(has_dC or c < nc - 1 for c in range(nc))
+    updates = tuple(c for c in range(nc) if has_state or c > 0)
+    # four raw stages of both operands and two of B's tf32 parts, rounded to 128 bytes
+    # (the kernel's InputsSmem and DStateSmem)
+    stage = max(GRAD_TILE * (STAGE_DEPTH + 4), STAGE_DEPTH * (GRAD_TILE + 8))
+    split = 2 * 2 * GRAD_TILE * STAGE_DEPTH
+    inputs_smem = -(-4 * (4 * 2 * stage + split) // 128) * 128
+    dstate_smem = -(-4 * (4 * 2 * STAGE_DEPTH * (GRAD_TILE + 8) + split + 2 * CHUNK
+                         + GRAD_TILE + 8) // 128) * 128
+
+    def r64(n):
+        return -(-n // 64) * 64
+
+    # the scratch arrays of the kernel's carve(), each rounded up to 64 floats
+    tok = B * S
+    workspace = (2 * r64(B * nc * dh * dh) + 2 * r64(B * nc * dh) + 2 * r64(B * nc)
+                 + 2 * r64(B * nc * CHUNK * CHUNK) + 5 * r64(tok) + r64(ROW_SPLIT * tok)
+                 + 2 * r64(tok * cols) + r64(B * nc * cols * cols))
+    return BwdPlan(chunks=chunks, row_tiles=rows, col_tiles=cols,
+                   scores_grid=(nc * 10, 2, B), rows_grid=(nc, B, ROW_SPLIT),
+                   inputs_grid=(nc * rows * cols, 3, B),
+                   dstate_grid=(cols, cols, B), state_products=(dq, dkv, dkv), updates=updates,
+                   inputs_smem=inputs_smem, dstate_smem=dstate_smem,
+                   workspace_floats=workspace)
+
+
+def rows_of(plan: BwdPlan, c: int, r: int, warp: int) -> range:
+    """The rows of chunk c that warp ``warp`` of the rows pass's block r
+    takes, in its order (8 warps a block)."""
+    return range(r + ROW_SPLIT * warp, plan.chunks[c], ROW_SPLIT * 8)
+
+
+def inputs_block(plan: BwdPlan, x: int) -> Tuple[int, int, int]:
+    """(chunk, row tile, column tile) of the input gradients' block x."""
+    return (x // (plan.row_tiles * plan.col_tiles), (x // plan.col_tiles) % plan.row_tiles,
+            x % plan.col_tiles)
+
+
+def plan_macs(plan: BwdPlan, dh: int) -> int:
+    """Multiply-adds of one head that the plan runs, as these inputs need
+    them: the five triangle products, the carried-state products and dC
+    updates it does not skip, and the state pass (every chunk's update but
+    the last's)."""
+    macs = 0
+    for c, T in enumerate(plan.chunks):
+        macs += 5 * T * (T + 1) // 2 * dh
+        macs += sum(live[c] for live in plan.state_products) * T * dh * dh
+        macs += (c in plan.updates) * T * dh * dh
+        macs += (c < len(plan.chunks) - 1) * T * dh * dh
+    return macs
 
 
 def _check_inputs(name, q, k, v, i_pre, f_pre, state):
@@ -99,8 +197,8 @@ def mlstm_chunk_bwd_cuda(q, k, v, i_pre, f_pre, state: Optional[State], y, dy, d
     Returns (dq, dk, dv, di_pre, df_pre, dstate), dstate (dC0, dn0, dm0)
     when a state was passed, else None. One call is six launches (the
     chunks' starting states, the scores, the rows, the reverse sweep of
-    dC, the input gradients, the gates) and counts once; it is
-    deterministic (no atomics)."""
+    dC, the input gradients, the gates: :func:`bwd_plan`) and counts once;
+    it is deterministic (no atomics)."""
     tensors = _check_inputs("mlstm_chunk_bwd", q, k, v, i_pre, f_pre, state)
     B, S, dh = q.shape
     dy = torch.zeros_like(y) if dy is None else dy
@@ -112,9 +210,11 @@ def mlstm_chunk_bwd_cuda(q, k, v, i_pre, f_pre, state: Optional[State], y, dy, d
     build.require_cuda("mlstm_chunk_bwd", *tensors, y, dy, *finals)
     if dy.data_ptr() % 16:
         raise ValueError("mlstm_chunk_bwd: dy must be 16-byte aligned")
+    plan = bwd_plan(B, S, dh, has_state=state is not None, has_dC=dC is not None)
     lib = build.library()
-    ws = torch.empty((int(lib.sct_mlstm_chunk_bwd_workspace(B, S, dh)),),
-                     dtype=torch.float32, device=q.device)
+    if int(lib.sct_mlstm_chunk_bwd_workspace(B, S, dh)) != plan.workspace_floats:
+        raise RuntimeError("mlstm_chunk_bwd: the kernel's workspace differs from its plan's")
+    ws = torch.empty((plan.workspace_floats,), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     di, df = torch.empty_like(i_pre), torch.empty_like(f_pre)
     dstate = None

@@ -45,7 +45,11 @@ from repro_torch.kernels.paged_ref import (  # noqa: E402
     paged_mla_decode_ref,
 )
 from repro_torch.kernels.mlstm_chunk import CHUNK as MLSTM_KERNEL_CHUNK  # noqa: E402
-from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_bwd_cuda  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import (  # noqa: E402
+    bwd_plan,
+    mlstm_chunk,
+    mlstm_chunk_bwd_cuda,
+)
 from repro_torch.kernels.mlstm_ref import mlstm_chunk_bwd_ref, mlstm_chunk_ref  # noqa: E402
 from repro_torch.kernels.mamba_ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_cuda  # noqa: E402
@@ -640,6 +644,25 @@ def test_mlstm_chunk_bwd_kernel_vs_plain(cuda, case, profile, with_state, finals
     error is scaled by the plain version's RMS or, for a gradient that is
     zero in exact arithmetic (dq and dk at one token; a state dominated by
     one token), by its rounding noise (``noise_scale``)."""
+    _check_mlstm_bwd(cuda, case, profile, with_state, finals)
+
+
+@pytest.mark.parametrize("finals", [False, True], ids=["dy", "dy+dstate"])
+@pytest.mark.parametrize("with_state", [False, True], ids=["empty", "state"])
+def test_mlstm_chunk_bwd_kernel_at_training_shape(cuda, with_state, finals):
+    """xlstm-1.3b's training shape (B 8 = 2 x 4 heads, S 4096, dh 1024)
+    down every skip path of the kernel's plan: chunk 0's dy C0^T without a
+    state, the last chunk's v dC1^T and k dC1 without a gradient of the
+    final C, each run where its factor is not zero; held as the smaller
+    cases are."""
+    case = (8, 4096, 1024)
+    plan = bwd_plan(*case, has_state=with_state, has_dC=finals)
+    assert plan.state_products[0][0] == with_state
+    assert plan.state_products[1][-1] == plan.state_products[2][-1] == finals
+    _check_mlstm_bwd(cuda, case, "unit", with_state, finals)
+
+
+def _check_mlstm_bwd(cuda, case, profile, with_state, finals):
     B, S, dh = case
     q, k, v, i, f, state = mlstm_inputs(B, S, dh, profile, seed=S, device=cuda,
                                         with_state=with_state)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, by ablation, on one GPU: the bf16 flash
 backward (or forward), the absorbed-MLA or GQA paged decode, or the
-chunkwise mLSTM, or the selective scan.
+chunkwise mLSTM or its backward, or the selective scan.
 
-    python3 tools/flash_bwd_ablate.py [--fwd | --mla | --gqa | --mlstm | --mamba] [--src DIR]
+    python3 tools/flash_bwd_ablate.py [--fwd | --mla | --gqa | --mlstm | --mlstm-bwd | --mamba]
+                                      [--src DIR] [--only NAME,NAME,...]
 
 Copies the port into ``src/repro_torch/_build/ablate/<variant>/`` (git-ignored)
 with one part of the two backward kernels (``csrc/flash_attention.cu``,
@@ -69,6 +70,26 @@ update's big x big tf32 product alone, of three), ``out_no_stats`` (no
 chunk statistics), ``out_no_w`` (no gated scores), ``out_no_gemm`` (no
 (w.S) @ v).
 
+``--mlstm-bwd`` takes parts out of the mLSTM backward
+(``csrc/mlstm_chunk_bwd.cu``) and prints the call's cold-L2 median and each
+of its six launches' device time (``torch.profiler``, five calls, the L2
+flushed before each) at xlstm-1.3b's training shape (B 8 = 2 x 4 heads,
+S 4096, dh 1024, the empty state, no gradient of the final state):
+``no_carried`` (the input gradients' carried-state products dy C0^T,
+v dC1^T and k dC1 left out), ``no_triangle`` (their three triangle
+products left out), ``no_dc_update`` (the reverse sweep's q dnum^T update
+of dC left out), ``scores_fp32`` (the two score products summed in fp32,
+not fp64) and ``skeleton`` (all four). Of the tensor-core design (both
+products as wgmma stages) it takes out ``no_wgmma`` (no product is
+issued), ``no_split`` (no stage is split for the tensor cores),
+``no_loads`` (no raw stage is copied after the first two), ``no_flush``
+(the partial tiles are not added) and ``skeleton`` (the first three), and
+adds ``one_pass`` (big . big alone, of the three tf32 products),
+``raw_3`` (three raw stages, the next but one sent for a stage
+ahead; the base has four)
+and ``near_loads`` (every stage copies the rows of the first 64 depths
+again: the same copies, served by the caches).
+
 ``--mamba`` takes parts out of the selective scan (``csrc/mamba_scan.cu``)
 and times the kernel alone (contiguous B and C, A and D in fp32) at jamba's
 prompt (b 1, S 160, di 8192, d_state 16, bf16) and at S 4096, cold-L2
@@ -87,7 +108,8 @@ and adds ``empty``, ``states_2`` /
 = exp2f(dt (A log2 e)) in place of the accurate expf(dt A): what the exp's
 instruction slots cost).
 
-The variants compute wrong results: they are timings only. Needs no JAX.
+``--only`` builds and times the named variants alone. The variants compute
+wrong results: they are timings only. Needs no JAX.
 """
 from __future__ import annotations
 
@@ -102,6 +124,7 @@ ROOT = Path(__file__).resolve().parent.parent
 SRC = "src/repro_torch/csrc/flash_attention.cu"
 MLA_SRC = "src/repro_torch/csrc/paged_mla_decode.cu"
 MLSTM_SRC = "src/repro_torch/csrc/mlstm_chunk.cu"
+MLSTM_BWD_SRC = "src/repro_torch/csrc/mlstm_chunk_bwd.cu"
 GQA_SRC = "src/repro_torch/csrc/paged_decode.cu"
 MAMBA_SRC = "src/repro_torch/csrc/mamba_scan.cu"
 PLAN_SRC = "src/repro_torch/kernels/mamba_scan.py"
@@ -310,6 +333,60 @@ def mlstm_variants(src: str) -> dict:
     return out
 
 
+def mlstm_bwd_variants(src: str) -> dict:
+    """{name: patched mlstm_chunk_bwd.cu}, for the design the source holds."""
+    if "tile_product<true, true>(st," in src:            # the CUDA-core design
+        a = src.index("bwd_scores_kernel(const float*")
+        b = src.index("// " + "-" * 66 + " rows --")
+        parts = {
+            "no_carried": [("tile_product<true, true>(st,",
+                            "if (false) tile_product<true, true>(st,"),
+                           ("tile_product<true, false>(st,",
+                            "if (false) tile_product<true, false>(st,")],
+            "no_triangle": [("tile_product<true, false>(acc,",
+                             "if (false) tile_product<true, false>(acc,"),
+                            ("tile_product<false, false>(acc,",
+                             "if (false) tile_product<false, false>(acc,")],
+            "no_dc_update": [("for (int j = 0; j < jn; ++j) {\n        const float cj",
+                              "for (int j = 0; j < 0; ++j) {\n        const float cj")],
+        }
+
+        def scores_fp32(s):
+            s = _sub(s, a, b, "double acc[4][4] = {};", "float acc[4][4] = {};")
+            return _sub(s, a, b, "static_cast<double>(", "(")
+        out = {"base": src}
+        out.update({name: _patch(src, subs) for name, subs in parts.items()})
+        out["scores_fp32"] = scores_fp32(src)
+        out["skeleton"] = scores_fp32(_patch(src, [sub for subs in parts.values() for sub in subs]))
+        return out
+    if "wg_step(" not in src:
+        raise SystemExit("ablate: mlstm_chunk_bwd.cu holds no known design")
+    # the tensor-core design: both products of the dC sweep and the input
+    # gradients as wgmma stages (raw rows in flight, the next stage split
+    # while the tensor cores run this one)
+    passes = ("  wgmma_tf32_n128(part, as, db, kk > 0);\n"
+              "  wgmma_tf32_n128(part, ab, ds, 1);\n"
+              "  wgmma_tf32_n128(part, ab, db, 1);\n")
+    parts = {
+        "no_wgmma": [(passes, "  (void)db; (void)ds;\n")],
+        "no_split": [("  for (int i = 0; i < kCores / 4; ++i) {",
+                      "  for (int i = 0; i < 0; ++i) {")],
+        "no_loads": [("if (kk == 0 && s + kRaw - 1 < n_stages) issue(s + kRaw - 1);", ";"),
+                     ("if (kk == 0 && s + kRaw - 1 < ntot) issue(s + kRaw - 1);", ";")],
+        "no_flush": [("acc[i] += part[i];", "(void)part[i];")],
+    }
+    out = {"base": src}
+    out.update({name: _patch(src, subs) for name, subs in parts.items()})
+    out["one_pass"] = _patch(src, [(passes, "  (void)ds;\n"
+                                            "  wgmma_tf32_n128(part, ab, db, kk > 0);\n")])
+    out["raw_3"] = _patch(src, [("constexpr int kRaw = 4;", "constexpr int kRaw = 3;")])
+    out["near_loads"] = _patch(src, [("    const int k = k0 + kk;\n",
+                                      "    const int k = (k0 & 63) + kk;\n")])
+    out["skeleton"] = _patch(src, [sub for name in ("no_wgmma", "no_split", "no_loads")
+                                   for sub in parts[name]])
+    return out
+
+
 def mamba_variants(src: str, tree: Path) -> dict:
     """{name: patched mamba_scan.cu}, for the design the source holds; a
     variant that patches other files of ``tree`` is {path: text}."""
@@ -414,6 +491,38 @@ print(f"call {ms:.4f} ms; " + ", ".join(f"{k} {t:.4f}" for k, t in sorted(rows.i
 '''
 
 
+# the six launches of the mLSTM backward, by a piece of their kernels' names
+MLSTM_BWD_TIMER = r'''
+import sys
+sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2])
+import torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_bwd_cuda
+from repro_torch.kernels.testing import mlstm_inputs
+q, k, v, i, f, _ = mlstm_inputs(8, 4096, 1024, "unit", seed=cs.SEED + 12, device="cuda")
+y, _ = mlstm_chunk(q, k, v, i, f)
+dy = torch.randn(y.shape, generator=torch.Generator(device="cuda").manual_seed(cs.SEED + 13),
+                 device="cuda")
+args = (q, k, v, i, f, None, y, dy, None, None, None)
+ms = cs.time_cold(torch, lambda: mlstm_chunk_bwd_cuda(*args), iters=10)
+flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(5):
+        flush.zero_()
+        mlstm_chunk_bwd_cuda(*args)
+    torch.cuda.synchronize()
+parts = ("mlstm_state", "bwd_scores", "bwd_rows", "bwd_dstate", "bwd_inputs", "bwd_gates")
+rows = {}
+for t, c, key in cs.device_rows(torch, prof):
+    for name in parts:
+        if name in key:
+            rows[name] = rows.get(name, 0.0) + t / 5
+print(f"call {ms:.4f} ms; " + ", ".join(f"{n} {rows.get(n, 0.0):.4f}" for n in parts)
+      + f" (sum {sum(rows.values()):.4f})")
+'''
+
+
 MLA_TIMER = r'''
 import sys
 sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2])
@@ -495,9 +604,10 @@ def main() -> int:
     argv = sys.argv[1:]
     fwd, mla, mlstm, gqa, mamba = ("--fwd" in argv, "--mla" in argv, "--mlstm" in argv,
                                    "--gqa" in argv, "--mamba" in argv)
+    mlstm_bwd = "--mlstm-bwd" in argv
     tree = Path(argv[argv.index("--src") + 1]).resolve().parent if "--src" in argv else ROOT
-    path = (MLA_SRC if mla else MLSTM_SRC if mlstm else GQA_SRC if gqa else
-            MAMBA_SRC if mamba else SRC)
+    path = (MLA_SRC if mla else MLSTM_SRC if mlstm else MLSTM_BWD_SRC if mlstm_bwd else
+            GQA_SRC if gqa else MAMBA_SRC if mamba else SRC)
     src = (tree / path).read_text()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
@@ -507,10 +617,15 @@ def main() -> int:
         table, timer = gqa_variants(src), GQA_TIMER
     elif mlstm:
         table, timer = mlstm_variants(src), MLSTM_TIMER
+    elif mlstm_bwd:
+        table, timer = mlstm_bwd_variants(src), MLSTM_BWD_TIMER
     elif mamba:
         table, timer = mamba_variants(src, tree), MAMBA_TIMER
     else:
         table, timer = (fwd_variants(src), FWD_TIMER) if fwd else (variants(src), TIMER)
+    if "--only" in argv:                      # a comma-separated subset of the variants
+        keep = argv[argv.index("--only") + 1].split(",")
+        table = {name: table[name] for name in keep}
     for name, patched in table.items():
         dst = OUT / name
         shutil.rmtree(dst, ignore_errors=True)

@@ -4,9 +4,9 @@ spectral matmul and the int8 one on bf16 activations
 (``csrc/spectral_matmul_tc.cu``), and the bf16 flash forward and backward
 (``csrc/flash_attention.cu``, the ``*_tc_kernel``s).
 
-    PYTHONPATH=src python3 tools/tc_probe.py [--fwd] [--q8] [--mla] [--mlstm] [--gqa]
-                                             [--mamba] [--quick | --split] [--time-only]
-                                             [--src DIR]
+    PYTHONPATH=src python3 tools/tc_probe.py [--fwd] [--q8] [--mla] [--mlstm] [--mlstm-bwd]
+                                             [--gqa] [--mamba] [--quick | --split]
+                                             [--time-only] [--src DIR]
 
 With no mode flag: the bf16 spectral kernel and the flash backward. It
 builds the kernels, prints each kernel's registers and spills, holds both
@@ -40,8 +40,20 @@ bits, the cold kernel with no page flagged the hot one's bits; its launch
 geometry and time at ``chip_smoke.py``'s timed shapes. ``--mlstm``: the
 chunkwise mLSTM (``csrc/mlstm_chunk.cu``) against its plain version in the
 kernel's chunks (S 1 to 1000, dh 32 and 1024, both gate profiles, with and
-without a state), two calls the same bits; its time at the xlstm prefill
-shape (B 4, S 160, dh 1024) and with a state. ``--gqa``: the paged GQA
+without a state), two calls the same bits, and a digest of each case's
+bits (to hold two trees' bits equal); its time at the xlstm prefill shape
+(B 4, S 160, dh 1024) and with a state. ``--mlstm-bwd``: the mLSTM
+backward (``csrc/mlstm_chunk_bwd.cu``) against its plain version at the
+card tests' cases and at xlstm-1.3b's training shape (B 8, S 4096, dh
+1024), both gate profiles, with and without a state and gradients of the
+final state (every skip path of the plan), at the fp32 rung scaled as
+``chip_smoke.py``'s phase K scales it, two calls the same bits, and at
+phase K's worst case each gradient of kernel and plain version against the
+plain version in fp64; its time
+at the training shape (empty state, no gradient of the final state):
+the call's cold-L2 median and each of its six launches' device time; and
+the rates of ``tools/mma_floors.cu`` (mma.sync in tf32, wgmma in tf32,
+mma.sync in fp64 at three shapes, each on a full card). ``--gqa``: the paged GQA
 decode, hot and cold (``csrc/paged_decode.cu``), against its plain versions
 at every case of the card tests (256- and 600-page tables among them;
 ragged lengths, a null slot, fp32 and bf16 q, p_cold 0/0.5/1): two calls
@@ -66,6 +78,7 @@ can be timed in one call. Needs no JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import subprocess
 import sys
 from pathlib import Path
@@ -396,8 +409,11 @@ def mlstm_mode(torch, cs, args):
                         worst = max(worst, e.max_scaled)
                         if not torch.equal(g, g2):
                             raise AssertionError(f"mlstm {name} {(B, S, dh)}: two calls differ")
+                    digest = hashlib.sha256()
+                    for t in (y, *got):
+                        digest.update(t.cpu().numpy().tobytes())
                     print(f"[mlstm] {(B, S, dh)} {profile} state={with_state}: match, "
-                          f"deterministic; max scaled {worst:.3e}")
+                          f"deterministic; max scaled {worst:.3e}; bits {digest.hexdigest()[:16]}")
         torch.cuda.synchronize()
     if args.quick:
         return
@@ -411,6 +427,149 @@ def mlstm_mode(torch, cs, args):
               f"plain {pl:.4f}")
         if args.split:
             profile_split(torch, cs, lambda: mlstm_chunk(q, k, v, i, f, st))
+
+
+# the six launches of the mLSTM backward, by a piece of their kernels' names
+MLSTM_BWD_LAUNCHES = ("mlstm_state", "bwd_scores", "bwd_rows", "bwd_dstate", "bwd_inputs",
+                      "bwd_gates")
+
+
+def mma_floors(torch, cs):
+    """Build ``tools/mma_floors.cu`` and print each tensor-core path's rate
+    on a full card: mma.sync in tf32, wgmma in tf32, mma.sync in fp64 (three
+    shapes)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.spectral_matmul import _sm_count
+
+    src = ROOT / "tools" / "mma_floors.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    out = build.BUILD_DIR / "probe" / f"libmma_floors_{digest}.so"
+    if not out.is_file():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                        "-shared", "-Xcompiler", "-fPIC", "-o", str(out), str(src)], check=True)
+    lib = ctypes.CDLL(str(out))
+    lib.floor_mma.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    st = torch.cuda.current_stream().cuda_stream
+    blocks, iters = 2 * _sm_count(0), 2048
+    sink = torch.empty(blocks * 256, device="cuda")
+    # flops of one call: 8 warps x 16 m16n8k8, 2 warpgroups x 4 m64n128k8,
+    # 8 warps x 8 m8n8k4, each an iteration
+    work = {"mma.sync tf32": (0, 8 * 16 * 16 * 8 * 8 * 2),
+            "wgmma tf32": (1, 2 * 4 * 64 * 128 * 8 * 2),
+            "mma.sync fp64 m8n8k4": (2, 8 * 8 * 8 * 8 * 4 * 2),
+            "mma.sync fp64 m16n8k8": (3, 8 * 8 * 16 * 8 * 8 * 2),
+            "mma.sync fp64 m16n8k16": (4, 8 * 8 * 16 * 8 * 16 * 2)}
+    for name, (kind, flops) in work.items():
+        ms = cs.time_cold(torch, lambda: lib.floor_mma(sink.data_ptr(), kind, blocks, iters, st))
+        print(f"[floor] {name}: {blocks * iters * flops / ms / 1e9:.1f} TFLOP/s ({ms:.4f} ms, "
+              f"{blocks} x 256 threads)")
+
+
+def mlstm_bwd_vs_fp64(torch, cs):
+    """At phase K's worst case and one at xlstm's head width: each gradient's
+    largest error over its RMS, of the kernel and of the plain version in
+    fp32, against the plain version evaluated in fp64 (a gradient whose fp32
+    plain version is itself that far from fp64 cannot be held closer)."""
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_bwd_cuda
+    from repro_torch.kernels.mlstm_ref import mlstm_chunk_bwd_ref
+    from repro_torch.kernels.testing import mlstm_inputs
+
+    def f64(t):
+        return None if t is None else t.double()
+
+    for B, S, dh, profile, with_state, finals in ((8, 4096, 32, "unit", True, False),
+                                                  (1, 300, 1024, "unit", True, True)):
+        q, k, v, i, f, state = mlstm_inputs(B, S, dh, profile, seed=cs.SEED + S, device="cuda",
+                                            with_state=with_state)
+        y, fin = mlstm_chunk(q, k, v, i, f, state)
+        dy, dfin = cs.mlstm_bwd_cotangents(torch, y, fin, finals, cs.SEED + S)
+        a = (q, k, v, i, f, state, y, dy, *dfin)
+        got, ref = mlstm_chunk_bwd_cuda(*a), mlstm_chunk_bwd_ref(*a)
+        exact = mlstm_chunk_bwd_ref(*(f64(t) for t in a[:5]),
+                                    tuple(f64(t) for t in state) if state else None,
+                                    *(f64(t) for t in a[6:]))
+        for name, g, r, x in zip(("dq", "dk", "dv", "di", "df"), got, ref, exact):
+            rms = float(r.pow(2).mean().sqrt())
+            print(f"[fp64] {(B, S, dh)} {profile} state={with_state} dstate={finals} {name}: "
+                  f"kernel {float((g.double() - x).abs().max()) / rms:.3e}, plain fp32 "
+                  f"{float((r.double() - x).abs().max()) / rms:.3e}, kernel vs plain "
+                  f"{float((g - r).abs().max()) / rms:.3e} (of the RMS)")
+        del q, k, v, i, f, state, y, fin, got, ref, exact
+        torch.cuda.empty_cache()
+
+
+def mlstm_bwd_mode(torch, cs, args):
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_bwd_cuda
+    from repro_torch.kernels.mlstm_ref import mlstm_chunk_bwd_ref
+    from repro_torch.kernels.testing import (MLSTM_PROFILES, mlstm_bwd_reordered, mlstm_inputs,
+                                             tolerance_for)
+
+    rung = tolerance_for(torch.float32)
+    names = ("dq", "dk", "dv", "di", "df", "dC0", "dn0", "dm0")
+    cases = ([(B, S, 32) for B in (1, 4) for S in (1, 37, 256, 300)]
+             + [(2, 160, 1024), (1, 300, 1024), (1, 1000, 1024), (8, 4096, 1024)])
+    for B, S, dh in cases if not args.time_only else ():
+        for profile in MLSTM_PROFILES:
+            for with_state in (False, True):
+                q, k, v, i, f, state = mlstm_inputs(B, S, dh, profile, seed=S, device="cuda",
+                                                    with_state=with_state)
+                y, fin = mlstm_chunk(q, k, v, i, f, state)
+                for finals in (False, True):
+                    dy, dfin = cs.mlstm_bwd_cotangents(torch, y, fin, finals, S)
+                    a = (q, k, v, i, f, state, y, dy, *dfin)
+                    g1, g2 = mlstm_chunk_bwd_cuda(*a), mlstm_chunk_bwd_cuda(*a)
+                    got = list(g1[:5]) + (list(g1[5]) if with_state else [])
+                    again = list(g2[:5]) + (list(g2[5]) if with_state else [])
+                    if not all(torch.equal(x, z) for x, z in zip(got, again)):
+                        raise AssertionError(f"mlstm_bwd {(B, S, dh)}: two calls differ")
+                    r = mlstm_chunk_bwd_ref(*a)
+                    ref = list(r[:5]) + (list(r[5]) if with_state else [])
+                    alt = mlstm_bwd_reordered(*a)
+                    worst, which = 0.0, ""
+                    for name, g, rr, al in zip(names, got, ref, alt):
+                        _, scaled, _ = cs.check_noise_scaled(
+                            torch, g, rr, al, rung, f"mlstm_bwd {name} {(B, S, dh)} {profile} "
+                            f"state={with_state} dstate={finals}")
+                        if scaled > worst:
+                            worst, which = scaled, name
+                    print(f"[mlstm_bwd] {(B, S, dh)} {profile} state={with_state} "
+                          f"dstate={finals}: match, deterministic; max scaled {worst:.3e} "
+                          f"({which})")
+                    del g1, g2, got, again, r, ref, alt
+                del q, k, v, i, f, state, y, fin
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        mlstm_bwd_vs_fp64(torch, cs)
+    if args.quick:
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    mma_floors(torch, cs)
+    q, k, v, i, f, _ = mlstm_inputs(8, 4096, 1024, "unit", seed=cs.SEED + 12, device="cuda")
+    y, _ = mlstm_chunk(q, k, v, i, f)
+    dy = torch.randn(y.shape, generator=torch.Generator(device="cuda").manual_seed(cs.SEED + 13),
+                     device="cuda")
+    a = (q, k, v, i, f, None, y, dy, None, None, None)
+    ms = cs.time_cold(torch, lambda: mlstm_chunk_bwd_cuda(*a), iters=20)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            flush.zero_()
+            mlstm_chunk_bwd_cuda(*a)
+        torch.cuda.synchronize()
+    rows = dict.fromkeys(MLSTM_BWD_LAUNCHES, 0.0)
+    for t, _, key in cs.device_rows(torch, prof):
+        for name in MLSTM_BWD_LAUNCHES:
+            if name in key:
+                rows[name] += t / 5
+    flops, nbytes = cs.mlstm_train_work(8, 4096, 1024, backward=True)
+    print(f"[time] mlstm_chunk_bwd (8, 4096, 1024), empty state, no final gradient: call "
+          f"{ms:.4f} ms cold L2; a launch " + ", ".join(f"{n} {t:.4f}" for n, t in rows.items())
+          + f"; bound {flops / cs.PEAK_FLOPS['float32'] * 1e3:.4f} (fp32), "
+          f"{cs.mlstm_bwd_bound_tc(8, 4096, 1024) * 1e3:.4f} (3xTF32 and fp64 tensor cores)")
 
 
 def mamba_view(torch, u, dt, B, C, A, D, dt_rank=256):
@@ -629,6 +788,7 @@ def main() -> int:
     ap.add_argument("--q8", action="store_true", help="the int8 spectral matmul in bf16")
     ap.add_argument("--mla", action="store_true", help="the absorbed-MLA decode")
     ap.add_argument("--mlstm", action="store_true", help="the chunkwise mLSTM")
+    ap.add_argument("--mlstm-bwd", action="store_true", help="the chunkwise mLSTM's backward")
     ap.add_argument("--gqa", action="store_true", help="the paged GQA decode")
     ap.add_argument("--mamba", action="store_true", help="the selective scan")
     ap.add_argument("--quick", action="store_true", help="checks only")
@@ -664,6 +824,10 @@ def main() -> int:
     if args.mamba:
         print_ptxas(build, ("mamba_scan.cu",))
         mamba_mode(torch, cs, args)
+        return 0
+    if args.mlstm_bwd:
+        print_ptxas(build, ("mlstm_chunk_bwd.cu",))
+        mlstm_bwd_mode(torch, cs, args)
         return 0
     if args.mla or args.mlstm:
         if args.mla:
