@@ -10,7 +10,8 @@ Phases (any failure exits non-zero and prints no result line):
    under the tolerance ladder (fp32 5e-5, bf16 5e-2, on outputs scaled
    by the reference's RMS), at the main paths' shapes in bf16 and fp32:
    the decode shapes, and the training shapes (flash forward and
-   backward, the spectral autograd Function at M = 8192); every bf16
+   backward, also at jamba's head dim 128, the spectral autograd Function
+   at M = 8192); every bf16
    spectral row of M in {37, 64, 8192} equals the row alone, bit for bit
    (bf16 runs on the tensor cores, fp32 on the CUDA cores); two paged GQA
    decode calls give the same bits and every slot's row equals the slot
@@ -175,22 +176,50 @@ Phases (any failure exits non-zero and prints no result line):
     mLSTM + 2 sLSTM; d_model 2048, 4 mLSTM heads of 1024, vocab 50304,
     rank 128, cholesky_qr2 retraction, remat, bf16 compute over fp32
     masters; batch 2 x 4096; random weights from seed 0) for 6 steps
-    through the calls ``Trainer.__init__`` makes, the launch counts zeroed
-    before each step and read after it: 28 ``mlstm_chunk`` (forward and
-    remat recompute), 14 ``mlstm_chunk_bwd`` and 64 ``spectral_matmul`` a
-    step; losses finite, orthogonality error <= 1e-4, every gradient leaf
-    finite and non-zero (read from each leaf's Adam first moment); warm
-    step (median of steps 3-6), tokens/s, peak memory, the sLSTM blocks'
-    share of the step, step 2's device time by family (under the
-    profiler);
+    through the calls ``Trainer.__init__`` makes (``train_cell``), the
+    launch counts zeroed before each step and read after it: 28
+    ``mlstm_chunk`` (forward and remat recompute), 14 ``mlstm_chunk_bwd``
+    and 64 ``spectral_matmul`` a step; losses finite, orthogonality error
+    <= 1e-4, every gradient leaf finite and non-zero (read from each
+    leaf's Adam first moment); warm step (median of steps 3-6), tokens/s,
+    peak memory, the sLSTM blocks' share of the step, step 2's device
+    time by family (under the profiler);
 26. (R) resume reduced xlstm from its step-3 checkpoint on the card:
     losses of steps 4-6 and the final parameters bit-identical;
 27. time the mLSTM backward (#9b) and forward (#9) at the training shape
     (B 8, S 4096, dh 1024) against their plain versions, each beside its
-    bound at the fp32 rate and at the rates of the passes it makes.
+    bound at the fp32 rate and at the rates of the passes it makes;
+28. (M) hold the selective scan's backward kernel (#8b) against its plain
+    version on the forward kernel's recorded states: b in {1, 2}, S in {1,
+    3, 31, 32, 33, 160, 1000} and 4096 at b 1, di in {128, 200, 8192} at
+    jamba's d_state 16, every other built d_state (4, 8, 32, 64) at b 2 and
+    di 200, fp32 and bf16, both dt profiles, with and without the final
+    state's gradient: du, ddt, dB, dC, dA and dD at the fp32 rung, two
+    calls the same bits; the forward with recording gives the bits of the
+    forward without and records the plain version's states; on the model's
+    layout under autograd one forward and one backward count a call, the
+    gradients the kernel's;
+29. (J) train jamba-v0.1-52b at full width cut to 8 layers (1 period: 7
+    mamba + 1 attention at offset 4, 4 MoE of 16 experts top-2 + 4
+    spectral SwiGLU MLPs; d_model 4096, 32/8 heads of 128, d_ff 14336, di
+    8192, d_state 16, vocab 65536, rank 256, cholesky_qr2 retraction,
+    capacity factor 1.25, remat, bf16 compute over fp32 masters; batch 2 x
+    4096; random weights from seed 0) for 6 steps through ``train_cell``:
+    14 ``mamba_scan``, 7 ``mamba_scan_bwd``, 2 ``flash_attention_fwd``, 1
+    ``flash_attention_bwd`` and 24 ``spectral_matmul`` a step, with phase
+    25's checks and records; then resume reduced jamba on the card bit for
+    bit (phase 7's check);
+30. time #8b and #8 with recording at the cell's mamba shape (b 2, S 4096,
+    di 8192, d_state 16, bf16, the model's layout) against their plain
+    versions, each beside its bound and the exp unit's floor; print #8b's
+    bf16 gap to the reference model's scan (not gated); time the flash
+    kernels at the cell's attention shape (head dim 128) against their
+    plain versions and SDPA, and print their outputs' gaps to SDPA's beside
+    the plain version's (not gated: SDPA rounds in bf16 inside).
 
 The ``kernels`` line has one entry per kernel: the nine TPU kernels' ports
-and, as their own entries, the flash backward and the mLSTM backward.
+and, as their own entries, the flash backward, the mLSTM backward and the
+selective scan's backward.
 Every entry carries
 ``max_scaled_err``: the
 largest error of its checks divided by the reference's RMS, the figure
@@ -228,10 +257,11 @@ SM_CLOCK_HZ = 1.98e9    # the H100 SXM's boost clock, for the exp unit's floor
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm2-1.7b", 2, 4096, 8
 ORTHO_LIMIT = 1e-4
 # flash kernel checks: (b, s, g, r, d) at the training shape, a grouped
-# layout at the same length, a ragged length, and the largest group (64
-# query heads a kv head: one position a query tile)
+# layout at the same length, a ragged length, the largest group (64 query
+# heads a kv head: one position a query tile), and jamba's attention layer
+# in training (32 heads over 8 kv heads of 128)
 FLASH_CHECKS = [(2, 4096, 32, 1, 64), (1, 4096, 8, 4, 64), (1, 1000, 4, 4, 64),
-                (1, 200, 1, 64, 64)]
+                (1, 200, 1, 64, 64), (2, 4096, 8, 4, 128)]
 
 # the full-width trace: (prompt_len, max_new_tokens), four per arrival wave
 TRACE = [(32, 16), (160, 32), (75, 24), (118, 20), (47, 28), (140, 18), (96, 32), (60, 24)]
@@ -265,7 +295,7 @@ MLSTM_PREFILL_S = 160           # the cell's longest prompt: the timed shape
 # the xlstm training cell: xlstm-1.3b at full width cut to 16 blocks (two
 # periods: 14 mLSTM + 2 sLSTM), batch 2 x train_4k's 4096 tokens
 XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 16, 2, 4096, 6
-XLSTM_PROFILED_STEP = 2         # warm (step 1 warms up), outside the median of steps 3-6
+TRAIN_PROFILED_STEP = 2         # warm (step 1 warms up), outside the median of steps 3-6
 # mLSTM backward checks: head widths, folded batch * heads (xlstm's
 # training batch: 2 x 4 heads), lengths (one token, a ragged chunk, one and
 # two chunks, four, the training length)
@@ -280,6 +310,15 @@ JAMBA_ARCH, JAMBA_CAPACITY = "jamba-v0.1-52b", 8.0
 # edge, jamba's 8192)
 MAMBA_B, MAMBA_S, MAMBA_DI = (1, 2), (1, 3, 37, 64, 160, 512, 1000), (128, 200, 8192)
 MAMBA_LONG_S = 4096             # a training length: the scan timed again there
+# selective-scan backward checks: lengths across the 32-step stretches (one
+# step, ragged, one and two stretches), the cell's longest prompt, long; the
+# training length at b 1 and di 8192; the other state widths at b 2, di 200
+MAMBA_BWD_S = (1, 3, 31, 32, 33, 160, 1000)
+MAMBA_BWD_WIDTHS, MAMBA_BWD_WIDTH_S = (4, 8, 32, 64), (1, 33, 160)
+# the jamba training cell: jamba-v0.1-52b at full width cut to 8 layers (one
+# period: 7 mamba + 1 attention, 4 MoE + 4 spectral-MLP layers), batch 2 x
+# train_4k's 4096 tokens, at the config's capacity factor (1.25)
+JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS = 8, 2, 4096, 6
 
 # the deepseek cell: deepseek-v3-671b at full width cut to 8 layers (the 3
 # dense + 5 MoE), at capacity factor n_experts / top_k, where a forward over
@@ -891,19 +930,20 @@ def phase_resume(torch, device, arch=TRAIN_ARCH):
     return {"losses": losses, "resumed": tail, "bit_identical": True}
 
 
-def phase_train_timing(torch, cfg, launches, errs):
-    """Kernel, plain and library times at the training shapes, in device
-    time only."""
+def time_flash(torch, b, s, h, g, d, gen, sdpa_gaps=False):
+    """The flash forward and backward against their plain versions and SDPA
+    at (b, s, h heads over g kv heads of d), causal, bf16, in device time
+    only: two calls of each give the same bits; with ``sdpa_gaps`` the
+    largest gaps of their outputs (out; dq, dk, dv) to SDPA's, over SDPA's
+    RMS, are printed beside the plain version's own (SDPA rounds in bf16
+    where the plain version does not: the gate is the plain version's).
+    Returns the (fwd, bwd) timing records."""
     import torch.nn.functional as F
-    from repro_torch.core.spectral import spectral_apply
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.flash_ref import flash_bwd_ref, flash_fwd_ref
-    from repro_torch.kernels.ops import spectral_matmul
-    from repro_torch.kernels.ref import spectral_matmul_ref
+    from repro_torch.kernels.testing import kernel_error
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     dt = torch.bfloat16
-    b, s, h, g, d = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     r = h // g
     q, k, v, do = flash_inputs(torch, b, s, g, r, d, dt, gen)
     out, m, l = flash_attention_fwd(q, k, v)
@@ -926,9 +966,9 @@ def phase_train_timing(torch, cfg, launches, errs):
         if not torch.equal(a, c):
             raise AssertionError(f"flash_attention_bwd {name}: two calls on the same inputs "
                                  "differ")
-    print("[kernels] flash_attention_fwd and flash_attention_bwd at the training shape: two "
-          "calls give the same bits")
-    del ref, first
+    print(f"[kernels] flash_attention_fwd and flash_attention_bwd at b={b} s={s} heads={h}/{g} "
+          f"d={d}: two calls give the same bits")
+    del ref
 
     # library yardstick: SDPA in its (b, h, s, d) layout, causal; the
     # backward alone is autograd.grad through a recorded SDPA forward
@@ -946,6 +986,30 @@ def phase_train_timing(torch, cfg, launches, errs):
         torch, lambda: torch.autograd.grad(oh, (qg, kg, vg), doh, retain_graph=True))
     bwd["library_fwd_bwd_ms"] = time_cold(torch, lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qg, kg, vg, is_causal=True), (qg, kg, vg), doh))
+    if sdpa_gaps:
+        # SDPA's gradients of the repeated kv heads, summed over each group
+        lq, lk, lv = torch.autograd.grad(oh, (qg, kg, vg), doh)
+
+        def back(t, grouped):
+            t = t.float().transpose(1, 2).reshape(b, s, g, r, d)
+            return t.sum(3) if grouped else t
+
+        plain = (flash_fwd_ref(q, k, v)[0], *flash_bwd_ref(q, k, v, out, m, l, do))
+        gaps, plain_gaps = [], []
+        for got, pl, lib in zip((out, *first), plain,
+                                (back(oh.detach(), False), back(lq, False), back(lk, True),
+                                 back(lv, True))):
+            lib = lib.cpu().numpy()
+            gaps.append(kernel_error(got.float().cpu().numpy(), lib).max_scaled)
+            plain_gaps.append(kernel_error(pl.float().cpu().numpy(), lib).max_scaled)
+        fwd["sdpa_scaled_gap"], bwd["sdpa_scaled_gap"] = gaps[0], max(gaps[1:])
+        fwd["plain_sdpa_scaled_gap"] = plain_gaps[0]
+        bwd["plain_sdpa_scaled_gap"] = max(plain_gaps[1:])
+        print(f"[kernels] flash at d={d} against SDPA, largest gaps over SDPA's RMS (not "
+              f"gated): out {gaps[0]:.3e} (the plain version's {plain_gaps[0]:.3e}), dq/dk/dv "
+              + "/".join(f"{x:.3e}" for x in gaps[1:]) + " (the plain version's "
+              + "/".join(f"{x:.3e}" for x in plain_gaps[1:]) + ")")
+        del lq, lk, lv, plain
     act = b * s * h * d * 2                                # one (b, s, h, d) bf16 tensor
     kv = b * s * g * d * 2
     stats = b * s * h * 4                                  # one (b, s, g, r) fp32 tensor
@@ -953,7 +1017,21 @@ def phase_train_timing(torch, cfg, launches, errs):
     fwd["bytes"] = 2 * act + 2 * kv + 2 * stats            # q, k, v in; out, m, l out
     bwd["flops"] = 2.5 * fwd["flops"]                      # S, dP, dV, dQ, dK
     bwd["bytes"] = 3 * act + 2 * kv + 2 * stats + act + 2 * kv   # q k v out do m l in; dq dk dv
-    del qh, kh, vh, qg, kg, vg, oh, doh, q, k, v, do, out, m, l
+    del qh, kh, vh, qg, kg, vg, oh, doh, q, k, v, do, out, m, l, first
+    return fwd, bwd
+
+
+def phase_train_timing(torch, cfg, launches, errs):
+    """Kernel, plain and library times at the training shapes, in device
+    time only."""
+    from repro_torch.core.spectral import spectral_apply
+    from repro_torch.kernels.ops import spectral_matmul
+    from repro_torch.kernels.ref import spectral_matmul_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    dt = torch.bfloat16
+    b, s, h, g, d = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    fwd, bwd = time_flash(torch, b, s, h, g, d, gen)
 
     # one MLP's up (d_model -> d_ff) and down (d_ff -> d_model) projection
     # in training, M = b * s rows
@@ -1082,24 +1160,27 @@ def xlstm_train_config():
     return get_config(XLSTM_ARCH).replace(n_layers=XLSTM_TRAIN_LAYERS)
 
 
-def phase_xlstm_training(torch, device):
-    """T: xlstm-1.3b at full width cut to 16 blocks through the calls
-    Trainer.__init__ makes (make_sct_optimizer, make_train_step,
-    init_model, SyntheticLMDataset), for XLSTM_TRAIN_STEPS steps with the
-    launch counts zeroed just before each and read just after."""
+def train_cell(torch, device, cfg, tag, what, b, s, steps, expect, profiled_step):
+    """A training cell at full width through the calls Trainer.__init__
+    makes (make_sct_optimizer, make_train_step, init_model,
+    SyntheticLMDataset): legacy precision (cfg's dtype over fp32 masters),
+    ``steps`` steps of b x s tokens, the launch counts zeroed just before
+    each step and required to equal ``expect`` just after it; step
+    ``profiled_step`` runs under the profiler (device kernels only), the
+    warm median reads steps 3 on. Losses finite, orthogonality error <=
+    ORTHO_LIMIT, every gradient leaf finite and non-zero: a non-finite
+    gradient makes every leaf's Adam first moment non-finite (through the
+    global norm's clip), and a leaf whose gradients were all zero keeps a
+    zero moment. Returns (record, final state)."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.checkpoint.store import flatten, unflatten
-    from repro_torch.core.tree import layer_slice, max_orthogonality_error
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.core.tree import max_orthogonality_error
     from repro_torch.data.synthetic import SyntheticLMDataset
     from repro_torch.kernels.build import LAUNCHES
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models.lm import n_periods
     from repro_torch.models.model import init_model, param_count
-    from repro_torch.nn import xlstm as xlstm_mod
     from repro_torch.optim import make_sct_optimizer
 
-    cfg = xlstm_train_config()
-    steps, b, s = XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ
     t0 = time.time()
     opt = make_sct_optimizer(cfg, lr=1e-3, warmup=min(100, steps // 10 + 1), total_steps=steps,
                              precision="legacy")
@@ -1108,13 +1189,9 @@ def phase_xlstm_training(torch, device):
     data = SyntheticLMDataset(vocab=cfg.vocab, seq_len=s, seed=SEED)
     torch.cuda.synchronize()
     n_params = param_count(state["params"])
-    n_mlstm = n_periods(cfg) * (cfg.slstm_every - 1)
-    n_slstm = n_periods(cfg)
-    print(f"[xlstm-train] {cfg.name} cut to {cfg.n_layers} blocks ({n_periods(cfg)} periods: "
-          f"{n_mlstm} mLSTM + {n_slstm} sLSTM): {n_params} parameters, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads (mLSTM head width {2 * cfg.d_model // cfg.n_heads}), vocab "
-          f"{cfg.vocab}, rank {cfg.sct.rank}, retraction {cfg.sct.retraction}, legacy "
-          f"({cfg.dtype} compute over fp32 masters), remat {cfg.remat}; batch {b} x {s}; init "
+    print(f"[{tag}] {what}: {n_params} parameters, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+          f"rank {cfg.sct.rank}, retraction {cfg.sct.retraction}, legacy ({cfg.dtype} compute "
+          f"over fp32 masters), remat {cfg.remat}; batch {b} x {s}; init "
           f"{time.time() - t0:.1f} s")
 
     def batch(i):
@@ -1123,20 +1200,13 @@ def phase_xlstm_training(torch, device):
                 "labels": torch.as_tensor(labels, device=device)}
 
     batches = [batch(i) for i in range(steps)]
-    # per step: the mLSTM kernel twice a layer (forward, remat recompute),
-    # its backward once; two spectral projections a block, forward and
-    # recompute (the spectral backward is plain GEMMs)
-    expect = {"mlstm_chunk": 2 * n_mlstm, "mlstm_chunk_bwd": n_mlstm,
-              "spectral_matmul": 4 * cfg.n_layers}
     torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, orthos = [], [], []
+    losses, step_ms, orthos, aux = [], [], [], []
     totals = {name: 0 for name in expect}
     for i in range(steps):
         torch.cuda.synchronize()
         LAUNCHES.clear()
-        # step 2 runs under the profiler (device kernels only: the sLSTM's
-        # loop makes ~750K of them); the warm median reads steps 3-6
-        with (profile(activities=[ProfilerActivity.CUDA]) if i == XLSTM_PROFILED_STEP - 1
+        with (profile(activities=[ProfilerActivity.CUDA]) if i == profiled_step - 1
               else contextlib.nullcontext()) as prof:
             t1 = time.perf_counter()
             state, metrics = step_fn(state, batches[i])
@@ -1146,21 +1216,22 @@ def phase_xlstm_training(torch, device):
         if prof is not None:
             t_exit = time.perf_counter()
             rows = device_rows_raw(torch, prof)
-            print(f"[xlstm-train] profiled step {i + 1}: the profiler's stop took "
+            print(f"[{tag}] profiled step {i + 1}: the profiler's stop took "
                   f"{(t_exit - t1) - ms / 1e3:.1f} s, its rows "
                   f"{time.perf_counter() - t_exit:.1f} s")
             wall_ms = ms
         launches = {name: LAUNCHES.get(name, 0) for name in expect}
         ortho = float(max_orthogonality_error(state["params"]))
-        print(f"[xlstm-train] step {i + 1}: loss {loss:.6f}, step {ms:.1f} ms, max "
-              f"orthogonality error {ortho:.3e}, launches {launches}")
+        print(f"[{tag}] step {i + 1}: loss {loss:.6f} (aux {float(metrics['aux_loss']):.4f}), "
+              f"step {ms:.1f} ms, max orthogonality error {ortho:.3e}, launches {launches}")
         if not math.isfinite(loss):
-            raise AssertionError(f"xlstm step {i + 1}: loss {loss}")
+            raise AssertionError(f"{tag} step {i + 1}: loss {loss}")
         if not ortho <= ORTHO_LIMIT:
-            raise AssertionError(f"xlstm step {i + 1}: orthogonality error {ortho}")
+            raise AssertionError(f"{tag} step {i + 1}: orthogonality error {ortho}")
         if launches != expect:
-            raise AssertionError(f"xlstm step {i + 1}: launches {launches}, expected {expect}")
+            raise AssertionError(f"{tag} step {i + 1}: launches {launches}, expected {expect}")
         losses.append(loss)
+        aux.append(float(metrics["aux_loss"]))
         step_ms.append(ms)
         orthos.append(ortho)
         for name in expect:
@@ -1169,21 +1240,62 @@ def phase_xlstm_training(torch, device):
     warm = sorted(step_ms[2:])
     warm_ms = (warm[len(warm) // 2 - 1] + warm[len(warm) // 2]) / 2
     tokens_per_s = b * s / (warm_ms / 1e3)
-    print(f"[xlstm-train] median warm step (steps 3-{steps}) {warm_ms:.1f} ms, "
-          f"{tokens_per_s:.1f} tokens/s; max_memory_allocated {peak_mem}; launches over "
-          f"{steps} steps {totals}")
-
-    # every gradient leaf was finite and non-zero: a non-finite gradient
-    # makes every leaf's Adam first moment non-finite (through the global
-    # norm's clip), and a leaf whose gradients were all zero keeps a zero
-    # moment (a pass of its own would cost another ~25 s step)
+    print(f"[{tag}] median warm step (steps 3-{steps}) {warm_ms:.1f} ms, {tokens_per_s:.1f} "
+          f"tokens/s; max_memory_allocated {peak_mem}; launches over {steps} steps {totals}")
     mu = flatten(state["opt"]["mu"])
     for path, m in mu.items():
         if not bool(torch.isfinite(m).all()) or float(m.abs().max()) == 0.0:
-            raise AssertionError(f"xlstm gradient of {path}: its first moment is finite "
+            raise AssertionError(f"{tag} gradient of {path}: its first moment is finite "
                                  f"{bool(torch.isfinite(m).all())}, max {float(m.abs().max())}")
-    print(f"[xlstm-train] all {len(mu)} parameter leaves got finite, non-zero gradients "
-          f"(their Adam first moments after {steps} steps)")
+    print(f"[{tag}] all {len(mu)} parameter leaves got finite, non-zero gradients (their Adam "
+          f"first moments after {steps} steps)")
+    busy_ms = sum(r[0] for r in rows)
+    print(f"[profile] {tag} step {profiled_step} ({b}x{s}): wall {wall_ms:.1f} ms under the "
+          f"profiler, device busy {busy_ms:.1f} ms ({100.0 * busy_ms / wall_ms:.1f}% of wall)")
+    for ms, count, key in rows[:20]:
+        print(f"[profile] {ms:10.3f} ms {count:7d}x  {key[:160]}")
+    split = step_split(rows)
+    print(f"[profile] one {tag} step's device ms by kernel family: " + ", ".join(
+        f"{name} {ms:.1f} ms ({count}x)" for name, (ms, count) in split.items()))
+    record = {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params, "batch": b, "seq": s,
+        "steps": steps, "losses": losses, "aux_losses": aux, "step_ms": step_ms,
+        "ortho": orthos, "warm_step_ms": warm_ms, "tokens_per_s": tokens_per_s,
+        "max_memory_allocated": peak_mem, "launches": totals, "launches_per_step": expect,
+        "profile": {"step": profiled_step, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                    "by_family": {name: ms for name, (ms, _) in split.items()},
+                    "top": [{"ms": ms, "launches": c, "kernel": key[:120]}
+                            for ms, c, key in rows[:20]]},
+    }
+    return record, state
+
+
+def phase_xlstm_training(torch, device):
+    """T: xlstm-1.3b at full width cut to 16 blocks through ``train_cell``,
+    then one sLSTM block's forward, recompute and backward on the host
+    clock."""
+    from repro_torch.checkpoint.store import flatten, unflatten
+    from repro_torch.core.tree import layer_slice
+    from repro_torch.models.lm import n_periods
+    from repro_torch.nn import xlstm as xlstm_mod
+
+    cfg = xlstm_train_config()
+    b, s = XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ
+    n_mlstm = n_periods(cfg) * (cfg.slstm_every - 1)
+    n_slstm = n_periods(cfg)
+    # per step: the mLSTM kernel twice a layer (forward, remat recompute),
+    # its backward once; two spectral projections a block, forward and
+    # recompute (the spectral backward is plain GEMMs)
+    expect = {"mlstm_chunk": 2 * n_mlstm, "mlstm_chunk_bwd": n_mlstm,
+              "spectral_matmul": 4 * cfg.n_layers}
+    # step 2 runs under the profiler (the sLSTM's loop makes ~750K kernels a
+    # step at 16 blocks); the warm median reads steps 3-6
+    record, state = train_cell(
+        torch, device, cfg, "xlstm-train",
+        f"{cfg.name} cut to {cfg.n_layers} blocks ({n_periods(cfg)} period(s): {n_mlstm} mLSTM "
+        f"+ {n_slstm} sLSTM), {cfg.n_heads} heads (mLSTM head width "
+        f"{2 * cfg.d_model // cfg.n_heads})", b, s, XLSTM_TRAIN_STEPS, expect,
+        TRAIN_PROFILED_STEP)
 
     # the sLSTM's scans: one block's forward, remat recompute and backward
     # on the host clock (a Python loop of small ops over the 4096 tokens;
@@ -1199,32 +1311,13 @@ def phase_xlstm_training(torch, device):
     torch.autograd.grad(out.float().sum(), [x, *leaves.values()], allow_unused=True)
     torch.cuda.synchronize()
     slstm_ms = (time.perf_counter() - t1) * 1e3
+    warm_ms = record["warm_step_ms"]
     print(f"[xlstm-train] one sLSTM block's forward + recompute + backward {slstm_ms:.1f} ms "
-          f"(host clock); the {n_slstm} blocks {n_slstm * slstm_ms:.1f} ms = "
+          f"(host clock); the {n_slstm} block(s) {n_slstm * slstm_ms:.1f} ms = "
           f"{100.0 * n_slstm * slstm_ms / warm_ms:.1f}% of the warm step")
-    del x, out, leaves, p, state, batches
-
-    busy_ms = sum(r[0] for r in rows)
-    print(f"[profile] xlstm training step {XLSTM_PROFILED_STEP} ({b}x{s}): wall "
-          f"{wall_ms:.1f} ms under the profiler, device busy {busy_ms:.1f} ms "
-          f"({100.0 * busy_ms / wall_ms:.1f}% of wall)")
-    for ms, count, key in rows[:20]:
-        print(f"[profile] {ms:10.3f} ms {count:7d}x  {key[:160]}")
-    split = step_split(rows)
-    print("[profile] one xlstm training step's device ms by kernel family (the backward's "
-          "state pass is the forward's state kernel, under mLSTM forward): " + ", ".join(
-              f"{name} {ms:.1f} ms ({count}x)" for name, (ms, count) in split.items()))
-    return {
-        "arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params, "batch": b, "seq": s,
-        "steps": steps, "losses": losses, "step_ms": step_ms, "ortho": orthos,
-        "warm_step_ms": warm_ms, "tokens_per_s": tokens_per_s,
-        "max_memory_allocated": peak_mem, "launches": totals, "launches_per_step": expect,
-        "slstm_block_ms": slstm_ms, "slstm_share": n_slstm * slstm_ms / warm_ms,
-        "profile": {"step": XLSTM_PROFILED_STEP, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                    "by_family": {name: ms for name, (ms, _) in split.items()},
-                    "top": [{"ms": ms, "launches": c, "kernel": key[:120]}
-                            for ms, c, key in rows[:20]]},
-    }
+    del x, out, leaves, p, state
+    record.update(slstm_block_ms=slstm_ms, slstm_share=n_slstm * slstm_ms / warm_ms)
+    return record
 
 
 def mlstm_train_work(B, S, dh, *, backward):
@@ -1318,6 +1411,253 @@ def phase_xlstm_train_timing(torch, cfg, launches_fwd, launches_bwd, errs):
     entry_fwd.update(bound_of(fwd, "float32"), shape=shape, max_abs_err=fwd["err"],
                      max_scaled_err=fwd["scaled"], launches=launches_fwd.get("mlstm_chunk", 0))
     return entry_bwd, entry_fwd
+
+
+def mamba_bwd_case(torch, args, finals, seed, errs, label):
+    """One selective-scan backward check on the card: the forward kernel
+    with recording (y and hT the bits of the launch without it, the
+    recorded states at the fp32 rung of the plain version's), then #8b
+    twice (the same bits) against its plain version on the same recorded
+    states, every gradient at the fp32 rung of the plain version's RMS."""
+    from repro_torch.kernels.mamba_ref import mamba_scan_bwd_ref, mamba_scan_fwd_ref
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd_cuda, mamba_scan_cuda
+    from repro_torch.kernels.testing import tolerance_for
+
+    rung = tolerance_for(torch.float32)
+    y, h, hs = mamba_scan_cuda(*args, record=True)
+    y0, h0 = mamba_scan_cuda(*args)
+    if not (torch.equal(y, y0) and torch.equal(h, h0)):
+        raise AssertionError(f"mamba_scan {label}: recording changed y or hT")
+    # (the reference as its own reordering: scaled by its RMS alone)
+    fwd_states = mamba_scan_fwd_ref(*args)[2]
+    note(errs, "mamba_scan", check_noise_scaled(torch, hs, fwd_states, fwd_states, rung,
+                                                f"mamba_scan recorded states {label}"))
+    del y0, h0
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+    dh = torch.randn(h.shape, generator=gen, device="cuda") if finals else None
+    got = mamba_scan_bwd_cuda(*args, hs, dy, dh)
+    again = mamba_scan_bwd_cuda(*args, hs, dy, dh)
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"mamba_scan_bwd {label}: two calls differ")
+    ref = mamba_scan_bwd_ref(*args, hs, dy, dh)
+    for name, g, r, x in zip(("du", "ddt", "dB", "dC", "dA", "dD"), got, ref, args):
+        if g.dtype != x.dtype or g.shape != x.shape:
+            raise AssertionError(f"mamba_scan_bwd {name} {label}: {g.dtype} {tuple(g.shape)}")
+        note(errs, "mamba_scan_bwd", check_noise_scaled(torch, g, r, r, rung,
+                                                        f"mamba_scan_bwd {name} {label}"))
+
+
+def phase_mamba_bwd_kernels(torch, cfg):
+    """M: the selective scan's backward kernel (#8b) and the forward's
+    recording against their plain versions over the sweep: b in MAMBA_B, S
+    in MAMBA_BWD_S, di in MAMBA_DI at jamba's d_state, and S 4096 at b 1, di
+    8192; the other built state widths at b 2, di 200; fp32 and bf16; both dt
+    profiles; with and without the final state's gradient; and on the
+    model's layout (A and D in u's dtype, B and C column views) under
+    autograd: one forward and one backward count, the gradients the
+    kernel's on the same inputs."""
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd_cuda, mamba_scan_cuda
+    from repro_torch.kernels.testing import MAMBA_PROFILES, mamba_inputs, mamba_model_layout
+
+    errs = {}
+    ds = cfg.mamba_d_state
+    shapes = ([(b, S, di, ds) for b in MAMBA_B for S in MAMBA_BWD_S for di in MAMBA_DI]
+              + [(1, MAMBA_LONG_S, cfg.mamba_expand * cfg.d_model, ds)]
+              + [(2, S, 200, w) for w in MAMBA_BWD_WIDTHS for S in MAMBA_BWD_WIDTH_S])
+    cases = 0
+    for b, S, di, w in shapes:
+        for profile in MAMBA_PROFILES:
+            base = mamba_inputs(b, S, di, w, profile, seed=SEED + S, device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                args = (*(t.to(dtype) for t in base[:4]), *base[4:])
+                for finals in (False, True):
+                    mamba_bwd_case(torch, args, finals, SEED + S + 1, errs,
+                                   f"b={b} S={S} di={di} ds={w} {dtype} {profile} "
+                                   f"dhT={finals}")
+                    cases += 1
+            del base, args
+        torch.cuda.empty_cache()
+    # the model's layout under autograd (jamba's prompt length and width)
+    di = cfg.mamba_expand * cfg.d_model
+    for dtype in (torch.float32, torch.bfloat16):
+        u, dt, B, C, A, D = mamba_inputs(2, MLSTM_PREFILL_S, di, ds, "unit", dtype=dtype,
+                                         seed=SEED + 15, device="cuda")
+        _, _, Bv, Cv, Am, Dm = mamba_model_layout(u, dt, B, C, A, D, dt_rank=cfg.mamba_dt_rank)
+        mamba_bwd_case(torch, (u, dt, Bv, Cv, Am, Dm), True, SEED + 16, errs,
+                       f"model layout {dtype}")
+        proj = Bv._base.detach().clone().requires_grad_()
+        _, Bp, Cp = torch.split(proj, [cfg.mamba_dt_rank, ds, ds], dim=-1)
+        leaves = [t.clone().requires_grad_() for t in (u, dt, Am, Dm)]
+        before = (LAUNCHES["mamba_scan"], LAUNCHES["mamba_scan_bwd"])
+        y, _ = mamba_scan(leaves[0], leaves[1], Bp, Cp, leaves[2], leaves[3])
+        dy = torch.randn(y.shape, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                         device="cuda").to(dtype)
+        grads = torch.autograd.grad(y, [*leaves, proj], dy)
+        if (LAUNCHES["mamba_scan"], LAUNCHES["mamba_scan_bwd"]) != (before[0] + 1,
+                                                                     before[1] + 1):
+            raise AssertionError("mamba_scan under autograd: not one forward and one backward")
+        _, _, hs = mamba_scan_cuda(u, dt, Bv, Cv, Am, Dm, record=True)
+        want = mamba_scan_bwd_cuda(u, dt, Bv, Cv, Am, Dm, hs, dy)
+        o = cfg.mamba_dt_rank
+        if not (all(torch.equal(g, w) for g, w in zip(grads[:4], (*want[:2], *want[4:])))
+                and torch.equal(grads[4][..., o:o + ds], want[2])
+                and torch.equal(grads[4][..., o + ds:], want[3])
+                and not bool(grads[4][..., :o].any())):
+            raise AssertionError(f"mamba_scan autograd on the model's layout {dtype}: the "
+                                 "gradients are not the kernel's")
+        cases += 1
+        del u, dt, B, C, A, D, Bv, Cv, Am, Dm, proj, leaves, grads, want, hs
+    print(f"[kernels] mamba_scan_bwd: every gradient (du, ddt, dB, dC, dA, dD) matches the "
+          f"plain version at the fp32 rung over {cases} cases (b {list(MAMBA_B)} x S "
+          f"{list(MAMBA_BWD_S)} x di {list(MAMBA_DI)} at d_state {ds}, S {MAMBA_LONG_S} at b 1 "
+          f"di {di}, d_state {list(MAMBA_BWD_WIDTHS)} at S {list(MAMBA_BWD_WIDTH_S)}; fp32 and "
+          f"bf16, dt profiles {list(MAMBA_PROFILES)}, with and without dhT; the model's layout "
+          f"under autograd), two calls the same bits; max scaled error "
+          f"{errs['mamba_scan_bwd'][1]:.3e}; mamba_scan with recording: y and hT the bits of "
+          f"the launch without, the recorded states within the fp32 rung (max scaled error "
+          f"{errs['mamba_scan'][1]:.3e})")
+    torch.cuda.synchronize()
+    return errs
+
+
+def jamba_train_config():
+    from repro_torch.config import get_config
+
+    return get_config(JAMBA_ARCH).replace(n_layers=JAMBA_TRAIN_LAYERS)
+
+
+def phase_jamba_training(torch, device):
+    """J: jamba-v0.1-52b at full width cut to 8 layers through
+    ``train_cell``, at the config's capacity factor 1.25."""
+    from repro_torch.models.lm import is_moe_layer, n_periods
+
+    cfg = jamba_train_config()
+    P = n_periods(cfg)
+    n_mamba, n_attn = P * (cfg.attn_every - 1), P
+    n_mlp = P * sum(not is_moe_layer(cfg, p) for p in range(cfg.attn_every))
+    # per step: the scan kernel twice a mamba layer (forward, remat
+    # recompute), its backward once; the flash forward twice an attention
+    # layer, its backward once; three spectral projections a dense MLP layer,
+    # forward and recompute (the spectral backward is plain GEMMs; the MoE's
+    # experts are batched GEMMs)
+    expect = {"mamba_scan": 2 * n_mamba, "mamba_scan_bwd": n_mamba,
+              "flash_attention_fwd": 2 * n_attn, "flash_attention_bwd": n_attn,
+              "spectral_matmul": 6 * n_mlp}
+    record, state = train_cell(
+        torch, device, cfg, "jamba-train",
+        f"{cfg.name} cut to {cfg.n_layers} layers ({P} period(s): {n_mamba} mamba + {n_attn} "
+        f"attention, {P * cfg.attn_every - n_mlp} MoE of {cfg.n_experts} experts top-"
+        f"{cfg.top_k} + {n_mlp} spectral MLP), heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, di {cfg.mamba_expand * cfg.d_model}, d_state "
+        f"{cfg.mamba_d_state}, capacity factor {cfg.capacity_factor}",
+        JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS, expect, TRAIN_PROFILED_STEP)
+    del state
+    return record
+
+
+def phase_jamba_train_timing(torch, cfg, launches, errs):
+    """The scan's backward (#8b) and its forward with recording (#8) at
+    jamba's training shape (b 2, S 4096, di 8192, d_state 16, bf16, the
+    model's layout, the empty final-state gradient) against their plain
+    versions, cold L2, in device time only, each beside its bound; the bf16
+    gap of #8b's gradients to the reference model's scan (h carried in
+    bf16), printed and not gated; and the flash kernels at jamba's
+    attention shape (head dim 128). No single PyTorch call computes either
+    scan: no library time."""
+    from repro_torch.kernels.mamba_ref import (mamba_scan_bwd_ref, mamba_scan_fwd_ref,
+                                               mamba_scan_twin_ref)
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd_cuda, mamba_scan_cuda
+    from repro_torch.kernels.testing import kernel_error, mamba_inputs, mamba_model_layout
+
+    b, S = JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ
+    di, ds = cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    args = mamba_model_layout(*mamba_inputs(b, S, di, ds, "unit", dtype=torch.bfloat16,
+                                            seed=SEED + 17, device="cuda"),
+                              dt_rank=cfg.mamba_dt_rank)
+    y, _, hs = mamba_scan_cuda(*args, record=True)
+    dy = torch.randn(y.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 18),
+                     device="cuda").to(y.dtype)
+    bwd = {"ms": time_cold(torch, lambda: mamba_scan_bwd_cuda(*args, hs, dy), iters=20),
+           # the plain version's loops launch thousands of kernels: timed as
+           # the host queues them, gaps included
+           "plain_ms": time_cold(torch, lambda: mamba_scan_bwd_ref(*args, hs, dy), iters=5,
+                                 spin_ahead=False),
+           "library_ms": None}
+    got, ref = mamba_scan_bwd_cuda(*args, hs, dy), mamba_scan_bwd_ref(*args, hs, dy)
+    for g, r in zip(got, ref):
+        add_err(bwd, g, r)
+    del ref
+    # bytes: u, dt, dy in (bf16), the recorded states in (fp32), du, ddt
+    # out (bf16), B, C, dB, dC, A, D, dA, dD; the kernel's own traffic adds
+    # the per-block partials of dB and dC written and read back (fp32).
+    # Operations, each product counted once. An element (b, t, d, s): the
+    # recomputed state (dt A, e h, du B, their sum), the reverse step (dy C,
+    # + r, e g, g (e h) with e h from the recompute, g B, q A, q dt, + dA),
+    # the two sums over a channel's states (g B, q A: ds - 1 adds each), the
+    # sums over the channels (dy h, g du: di - 1 adds each for a (b, t, s)).
+    # A (b, t, d): du = dt u, du's dt sum + dy D, ddt's + u sum, dD's dy u
+    # and add. The exp unit: one exp an element at 16 a clock an SM, at the
+    # 1.98 GHz boost
+    nblk = -(-di // 32)
+    bwd["bytes"] = (2 * 3 * b * S * di + 4 * hs.numel() + 2 * 2 * b * S * di
+                    + 2 * 4 * b * S * ds + 4 * 2 * (di * ds + di))
+    bwd["bound_scratch_ms"] = (bwd["bytes"] + 2 * 2 * 4 * b * nblk * S * ds) / HBM_BYTES_PER_S * 1e3
+    bwd["flops"] = b * S * di * (18 * ds + 6) - 2 * b * S * ds
+    bwd["bound_exp_ms"] = b * S * di * ds / (16 * sms * SM_CLOCK_HZ) * 1e3
+    # the reference model trains through its scan's twin, h carried in bf16:
+    # the gap of #8b's gradients to the twin's autograd, printed
+    leaves = [t.detach().clone().requires_grad_() for t in (args[0], args[1], args[2].contiguous(),
+                                                             args[3].contiguous(), args[4],
+                                                             args[5])]
+    yt, _ = mamba_scan_twin_ref(*leaves)
+    twin = torch.autograd.grad(yt, leaves, dy)
+    gaps = [kernel_error(g.float().cpu().numpy(), t.float().cpu().numpy()).max_scaled
+            for g, t in zip(got, twin)]
+    print(f"[kernels] mamba_scan_bwd vs the reference model's scan (h carried in bf16) at the "
+          f"training shape, not gated: max scaled gaps du/ddt/dB/dC/dA/dD "
+          + "/".join(f"{x:.2e}" for x in gaps))
+    bwd["twin_bf16_scaled_gaps"] = gaps
+    del leaves, yt, twin, got
+    fwd = {"ms": time_cold(torch, lambda: mamba_scan_cuda(*args, record=True), iters=20),
+           "plain_ms": time_cold(torch, lambda: mamba_scan_fwd_ref(*args), iters=5,
+                                 spin_ahead=False),
+           "library_ms": None}
+    yr, hr, hsr = mamba_scan_fwd_ref(*args)
+    for g, r in zip((y, hs), (yr, hsr)):
+        add_err(fwd, g, r)
+    del yr, hr, hsr
+    fwd["bytes"] = 2 * (3 * b * S * di + 2 * b * S * ds + di * ds + di) + 4 * (b * di * ds
+                                                                              + hs.numel())
+    fwd["flops"] = b * S * di * (6 * ds + 3)
+    fwd["bound_exp_ms"] = b * S * di * ds / (16 * sms * SM_CLOCK_HZ) * 1e3
+    del args, y, hs, dy
+    torch.cuda.empty_cache()
+    shape = (f"one jamba mamba layer in training: b={b} S={S} di={di} d_state={ds}, bf16 u/dt/"
+             f"B/C/dy, A and D in bf16, B and C column views, fp32 state")
+    entry_bwd = kernel_entry("mamba_scan_bwd", "src/repro_torch/csrc/mamba_scan_bwd.cu",
+                             "src/repro/nn/mamba.py:49", bwd, "float32",
+                             shape + "; replaces autodiff of the jnp scan (no TPU kernel); no "
+                             "library call computes it", launches, errs)
+    entry_fwd = {key: fwd[key] for key in ("ms", "plain_ms", "library_ms", "bound_exp_ms")}
+    entry_fwd.update(bound_of(fwd, "float32"), shape=shape + ", recording the states",
+                     max_abs_err=fwd["err"], max_scaled_err=fwd["scaled"],
+                     launches=launches.get("mamba_scan", 0))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    ffwd, fbwd = time_flash(torch, b, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, gen,
+                            sdpa_gaps=True)
+    fshape = (f"one jamba attention layer in training: b={b} s={S} heads={cfg.n_heads} "
+              f"kv_heads={cfg.n_kv_heads} d={cfg.head_dim}, causal, bf16")
+    flash = []
+    for name, t in (("flash_attention_fwd", ffwd), ("flash_attention_bwd", fbwd)):
+        e = {key: t[key] for key in ("ms", "plain_ms", "library_ms", "sdpa_scaled_gap",
+                                     "plain_sdpa_scaled_gap")}
+        e.update(bound_of(t, "bfloat16"), shape=fshape, max_abs_err=t["err"],
+                 max_scaled_err=t["scaled"], launches=launches.get(name, 0))
+        flash.append(e)
+    return entry_bwd, entry_fwd, flash
 
 
 def q8_inputs(torch, M, m, n, k, profile, dtype, gen):
@@ -2731,6 +3071,7 @@ def kernels_a_call(torch, fn) -> dict:
 # kernel families of a training step's profile, matched on the kernel's
 # name in order; the rest is "other" (copies, elementwise, reductions)
 STEP_FAMILIES = (("flash backward", ("flash_bwd",)), ("flash forward", ("flash_fwd",)),
+                 ("scan backward", ("mamba_scan_bwd",)), ("scan forward", ("mamba_scan",)),
                  ("mLSTM backward", ("bwd_scores", "bwd_rows", "bwd_dstate", "bwd_inputs",
                                      "bwd_gates")),
                  ("mLSTM forward", ("mlstm_scores", "mlstm_state", "mlstm_out")),
@@ -2738,7 +3079,10 @@ STEP_FAMILIES = (("flash backward", ("flash_bwd",)), ("flash forward", ("flash_f
                  ("QR retraction", ("geqr", "orgqr", "org2r", "orm2r", "ormqr", "larf",
                                     "householder")),
                  ("Cholesky retraction", ("potrf", "trsm", "syrk")),
-                 ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")))
+                 ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas")),
+                 # the MoE's routing, dispatch and gather (the embedding's
+                 # backward lands here too)
+                 ("MoE dispatch", ("index", "scatter", "gather", "sort", "cumsum", "radix")))
 
 
 def step_split(rows):
@@ -2799,7 +3143,8 @@ def kernel_entry(name, source, replaces, t, peak_key, shape, launches, errs):
         "library_ms": t["library_ms"], "shape": shape,
     }
     for key in ("library_fwd_bwd_ms", "bound_tc_ms", "bound_exp_ms", "long_ms",
-                "long_bound_ms", "long_bound_exp_ms", "kernels_a_call"):
+                "long_bound_ms", "long_bound_exp_ms", "kernels_a_call", "bound_scratch_ms",
+                "twin_bf16_scaled_gaps"):
         if key in t:
             entry[key] = t[key]
     return entry
@@ -2913,6 +3258,15 @@ def main() -> int:
         kernel_mlstm_bwd, mlstm_at_train = phase_xlstm_train_timing(
             torch, xlstm_train_config(), xlstm_train["launches"], xlstm_train["launches"], errs)
         lap("xlstm training timing")
+        merge_errs(errs, phase_mamba_bwd_kernels(torch, jamba_cfg))
+        lap("mamba backward checks")
+        jamba_train = phase_jamba_training(torch, device)
+        torch.cuda.empty_cache()
+        jamba_train["resume"] = phase_resume(torch, device, arch=JAMBA_ARCH)
+        lap("jamba training")
+        kernel_mamba_bwd, mamba_at_train, flash_hd128 = phase_jamba_train_timing(
+            torch, jamba_train_config(), jamba_train["launches"], errs)
+        lap("jamba training timing")
     except Exception:                            # every phase failure fails the run
         traceback.print_exc()
         return fail("a phase failed")
@@ -2930,7 +3284,14 @@ def main() -> int:
     kernels[0]["launches_deepseek"] = deepseek["launches"].get("spectral_matmul", 0)
     kernel_mlstm["launches_train"] = xlstm_train["launches"]["mlstm_chunk"]
     kernel_mlstm["at_train_shape"] = mlstm_at_train
-    kernels += kernels_int8 + [kernel_mlstm, kernel_mamba] + kernels_mla + [kernel_mlstm_bwd]
+    kernel_mamba["launches_train"] = jamba_train["launches"]["mamba_scan"]
+    kernel_mamba["at_train_shape"] = mamba_at_train
+    kernels[0]["launches_jamba_train"] = jamba_train["launches"]["spectral_matmul"]
+    for kern, at in zip(flash, flash_hd128):
+        kern["launches_jamba_train"] = at["launches"]
+        kern["at_hd128"] = at
+    kernels += (kernels_int8 + [kernel_mlstm, kernel_mamba] + kernels_mla
+                + [kernel_mlstm_bwd, kernel_mamba_bwd])
     for kern in kernels:                        # checks of later phases count too
         raw, scaled = errs.get(kern["name"], (0.0, 0.0))
         kern["max_err"] = max(kern["max_err"], raw)
@@ -2943,11 +3304,15 @@ def main() -> int:
                   launches=kernels_int8[0]["launches"]),
              dict(kernels[1]["at_hd128"], name="paged_gqa_decode (hd 128)",
                   launches=kernels[1]["launches_jamba"]),
-             dict(mlstm_at_train, name="mlstm_chunk (training shape)")]
+             dict(mlstm_at_train, name="mlstm_chunk (training shape)"),
+             dict(mamba_at_train, name="mamba_scan (training shape, recording)"),
+             dict(flash_hd128[0], name="flash_attention_fwd (jamba, hd 128)"),
+             dict(flash_hd128[1], name="flash_attention_bwd (jamba, hd 128)")]
     for kern in kernels + extra:
         lib = "none" if kern["library_ms"] is None else f"{kern['library_ms']:.4f} ms"
         beside = "".join(f", {key} {kern[key]:.4f}"
-                         for key in ("bf16_kernel_ms", "op_ms", "bound_tc_ms") if key in kern)
+                         for key in ("bf16_kernel_ms", "op_ms", "bound_tc_ms", "bound_exp_ms",
+                                     "bound_scratch_ms") if key in kern)
         print(f"[timing] {kern['name']}: {kern['ms']:.4f} ms kernel, "
               f"{kern['plain_ms']:.4f} ms plain, library {lib}, "
               f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}){beside}, "
@@ -2963,6 +3328,7 @@ def main() -> int:
     print(json.dumps({"deepseek_serving": deepseek}))
     print(json.dumps({"train": train}))
     print(json.dumps({"xlstm_train": xlstm_train}))
+    print(json.dumps({"jamba_train": jamba_train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,9 +34,10 @@ __all__ = ["Trainer", "log_metrics"]
 
 
 def log_metrics(step: int, metrics: Dict[str, float]) -> None:
-    """The CLI's train-log line."""
-    print(f"step {step:6d}  loss {metrics['loss']:.4f}  ce {metrics['ce_loss']:.4f}",
-          flush=True)
+    """The CLI's train-log line: the loss, its cross-entropy and its MoE
+    load-balance part (``aux``, 0 for a family without an MoE)."""
+    print(f"step {step:6d}  loss {metrics['loss']:.4f}  ce {metrics['ce_loss']:.4f}  "
+          f"aux {metrics.get('aux_loss', 0.0):.4f}", flush=True)
 
 
 class Trainer:

@@ -9,7 +9,12 @@
 // u, dt (b, S, di) contiguous and B, C (b, S, ds) in T (fp32 or bf16), B and
 // C with any batch and row stride (the model hands over column views of
 // x_proj's output); A (di, ds) and D (di,) in fp32 or in T, converted in
-// registers. Out: y (b, S, di) in T and the final state hT (b, di, ds) fp32.
+// registers. Out: y (b, S, di) in T and the final state hT (b, di, ds) fp32;
+// in training also, given a non-null hs, the state before every kRec-th step,
+// hs (b, ceil(S / kRec), di, ds) fp32, from which the backward
+// (mamba_scan_bwd.cu) recomputes the states it needs (kRec = 32 up to ds 16,
+// 512 / ds above: kernels/mamba_ref.py:record_steps). Recording writes and
+// computes nothing else: y and hT keep their bits, with or without it.
 // With h from zero:
 //   h_t = exp(dt_t * A) * h_{t-1} + (dt_t * u_t) * B_t
 //   y_t = sum_j h_t[., j] C_t[j] + u_t * D
@@ -57,12 +62,11 @@
 // plain version takes in the same order, so kernel and plain version agree
 // bit for bit where their exp does, and a bf16 y rounds from the same fp32
 // value.
-#include "common.cuh"
+#include "mamba.cuh"
+
+using namespace sct::mamba;
 
 namespace {
-
-constexpr int kChannels = 32;  // channels a block: one a lane
-constexpr int kTile = 32;      // time steps a staged tile
 
 // A thread's kN contiguous fp32 words from shared memory, as 16- or 8-byte
 // vectors.
@@ -82,26 +86,6 @@ __device__ __forceinline__ void load_words(const float* p, float (&out)[kN]) {
     }
   }
 }
-
-// The sum of kN values as a binary tree over neighbouring pairs, in place:
-// ((v0 + v1) + (v2 + v3)) + ... lands in v[0].
-template <int kN>
-__device__ __forceinline__ void tree_sum(float (&v)[kN]) {
-#pragma unroll
-  for (int w = 1; w < kN; w *= 2) {
-#pragma unroll
-    for (int i = 0; i + w < kN; i += 2 * w) v[i] = __fadd_rn(v[i], v[i + w]);
-  }
-}
-
-__device__ __forceinline__ float load_param(const void* p, size_t i, bool bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
-
-struct Strides {
-  long long b_batch, b_row, c_batch, c_row;  // of B and C, in elements
-};
 
 // The dynamic shared memory of a block: two input buffers of kTile steps,
 // each the (u, dt) pairs of the 32 channels, then the B and C rows; then
@@ -166,12 +150,14 @@ __device__ __forceinline__ void scan_steps(const float2* uv, const float* Bs, co
     if (s % kGroups == g) ys[(r0 + s) * kChannels + cl] = __fadd_rn(ps[s], __fmul_rn(ud[s].x, dd));
 }
 
-template <typename T, int kDs, int kStates>
+// kRecord: write the state before every kRec-th step into hs (training);
+// serving's build leaves the step loop as it was without it
+template <typename T, int kDs, int kStates, bool kRecord>
 __global__ void __launch_bounds__(kChannels * (kDs / kStates))
 mamba_scan_kernel(const T* __restrict__ u, const T* __restrict__ dt, const T* __restrict__ B,
                   const T* __restrict__ C, const void* __restrict__ A,
                   const void* __restrict__ D, bool ad_bf16, T* __restrict__ y,
-                  float* __restrict__ hT, int S, int di, Strides st) {
+                  float* __restrict__ hT, float* __restrict__ hs, int S, int di, Strides st) {
   constexpr int kGroups = kDs / kStates;                 // lanes a channel
   constexpr int kThreads = kChannels * kGroups;
   constexpr int kU = kStates >= 32 ? 1 : 32 / kStates;   // steps a group
@@ -181,7 +167,9 @@ mamba_scan_kernel(const T* __restrict__ u, const T* __restrict__ dt, const T* __
   constexpr int kLd = (kPiecesTile + kThreads - 1) / kThreads;  // u, dt pieces a thread stages
   constexpr int kBC = kTile * kDs / kThreads;            // B and C values a thread stages
   constexpr int kIn = in_words(kDs);
+  constexpr int kRec = rec_steps(kDs);
   static_assert(kBC * kThreads == kTile * kDs, "B and C words must split evenly");
+  static_assert(kTile % kRec == 0 && kRec % kU == 0, "recorded steps must start groups");
   extern __shared__ float4 smem_raw[];
   float* const sm = reinterpret_cast<float*>(smem_raw);
   float* const ys = sm + 2 * kIn;                          // [2][kTile][kChannels]
@@ -284,6 +272,15 @@ mamba_scan_kernel(const T* __restrict__ u, const T* __restrict__ dt, const T* __
     }
   };
 
+  // the state before step t into hs (training only)
+  const int nrec = (S + kRec - 1) / kRec;
+  auto record = [&](int t) {
+    if (!live) return;
+    float* const out = hs + (((size_t)bb * nrec + t / kRec) * di + c) * kDs + g * kStates;
+#pragma unroll
+    for (int i = 0; i < kStates; ++i) out[i] = h[i];
+  };
+
   fetch(0);
   stash(0);
   if (ntiles > 1) fetch(1);
@@ -298,9 +295,14 @@ mamba_scan_kernel(const T* __restrict__ u, const T* __restrict__ dt, const T* __
     const float* const Cs = Bs + kTile * kDs;
     float* const yk = ys + (k & 1) * kTile * kChannels;
     int r = 0;
-    for (; r + kU <= nt; r += kU)
+    for (; r + kU <= nt; r += kU) {
+      if (kRecord && r % kRec == 0) record(k * kTile + r);
       scan_steps<kU, kStates, kGroups, kDs>(uv, Bs, Cs, a, h, dd, yk, r, cl, g);
-    for (; r < nt; ++r) scan_steps<1, kStates, kGroups, kDs>(uv, Bs, Cs, a, h, dd, yk, r, cl, g);
+    }
+    for (; r < nt; ++r) {
+      if (kRecord && r % kRec == 0) record(k * kTile + r);
+      scan_steps<1, kStates, kGroups, kDs>(uv, Bs, Cs, a, h, dd, yk, r, cl, g);
+    }
     if (k + 1 < ntiles) {
       stash(k + 1);
       if (k + 2 < ntiles) fetch(k + 2);
@@ -323,18 +325,20 @@ mamba_scan_kernel(const T* __restrict__ u, const T* __restrict__ dt, const T* __
 
 template <typename T, int kDs, int kStates>
 cudaError_t launch_one(const void* u, const void* dt, const void* B, const void* C,
-                       const void* A, const void* D, bool ad_bf16, void* y, void* hT, int b,
-                       int S, int di, const Strides& st, int smem, cudaStream_t stream) {
+                       const void* A, const void* D, bool ad_bf16, void* y, void* hT,
+                       void* hs, int b, int S, int di, const Strides& st, int smem,
+                       cudaStream_t stream) {
   constexpr int kGroups = kDs / kStates;
   if (smem != smem_bytes(kDs)) return cudaErrorInvalidValue;
-  auto kernel = mamba_scan_kernel<T, kDs, kStates>;
+  auto kernel = hs != nullptr ? mamba_scan_kernel<T, kDs, kStates, true>
+                              : mamba_scan_kernel<T, kDs, kStates, false>;
   cudaError_t err = sct::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((di + kChannels - 1) / kChannels, b);
   kernel<<<grid, kChannels * kGroups, smem, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt), static_cast<const T*>(B),
-      static_cast<const T*>(C), A, D, ad_bf16, static_cast<T*>(y), static_cast<float*>(hT), S,
-      di, st);
+      static_cast<const T*>(C), A, D, ad_bf16, static_cast<T*>(y), static_cast<float*>(hT),
+      static_cast<float*>(hs), S, di, st);
   return cudaGetLastError();
 }
 
@@ -342,11 +346,13 @@ cudaError_t launch_one(const void* u, const void* dt, const void* B, const void*
 // (kernels/mamba_scan.py:STATES).
 template <typename T>
 cudaError_t launch(const void* u, const void* dt, const void* B, const void* C, const void* A,
-                   const void* D, bool ad_bf16, void* y, void* hT, int b, int S, int di, int ds,
-                   int states, const Strides& st, int smem, cudaStream_t stream) {
+                   const void* D, bool ad_bf16, void* y, void* hT, void* hs, int b, int S,
+                   int di, int ds, int states, const Strides& st, int smem,
+                   cudaStream_t stream) {
 #define SCT_SCAN(DS, NS)                                                                      \
   if (ds == DS && states == NS)                                                               \
-    return launch_one<T, DS, NS>(u, dt, B, C, A, D, ad_bf16, y, hT, b, S, di, st, smem, stream);
+    return launch_one<T, DS, NS>(u, dt, B, C, A, D, ad_bf16, y, hT, hs, b, S, di, st, smem,   \
+                                 stream);
   SCT_SCAN(4, 4)
   SCT_SCAN(8, 4)
   SCT_SCAN(16, 4)
@@ -358,21 +364,24 @@ cudaError_t launch(const void* u, const void* dt, const void* B, const void* C, 
 
 }  // namespace
 
+// hs may be null (serving); rec is the caller's steps between recorded
+// states, checked against the kernel's.
 extern "C" int sct_mamba_scan(const void* u, const void* dt, const void* B, const void* C,
-                              const void* A, const void* D, void* y, void* hT, int b, int S,
-                              int di, int ds, int states, int dtype, int ad_dtype,
-                              long long b_batch, long long b_row, long long c_batch,
-                              long long c_row, int smem, void* stream) {
+                              const void* A, const void* D, void* y, void* hT, void* hs, int b,
+                              int S, int di, int ds, int states, int rec, int dtype,
+                              int ad_dtype, long long b_batch, long long b_row,
+                              long long c_batch, long long c_row, int smem, void* stream) {
   if (b <= 0 || di <= 0) return cudaSuccess;
-  if (S <= 0 || (ad_dtype != sct::kFloat32 && ad_dtype != dtype)) return cudaErrorInvalidValue;
+  if (S <= 0 || (ad_dtype != sct::kFloat32 && ad_dtype != dtype) || rec != rec_steps(ds))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides strides{b_batch, b_row, c_batch, c_row};
   const bool ad_bf16 = ad_dtype == sct::kBFloat16;
   if (dtype == sct::kFloat32)
-    return launch<float>(u, dt, B, C, A, D, ad_bf16, y, hT, b, S, di, ds, states, strides, smem,
-                         st);
+    return launch<float>(u, dt, B, C, A, D, ad_bf16, y, hT, hs, b, S, di, ds, states, strides,
+                         smem, st);
   if (dtype == sct::kBFloat16)
-    return launch<__nv_bfloat16>(u, dt, B, C, A, D, ad_bf16, y, hT, b, S, di, ds, states,
+    return launch<__nv_bfloat16>(u, dt, B, C, A, D, ad_bf16, y, hT, hs, b, S, di, ds, states,
                                  strides, smem, st);
   return cudaErrorInvalidValue;
 }

@@ -34,7 +34,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("common.cu", "spectral_matmul.cu", "spectral_matmul_tc.cu", "spectral_matmul_q8.cu",
            "paged_decode.cu", "paged_mla_decode.cu", "flash_attention.cu", "mlstm_chunk.cu",
-           "mlstm_chunk_bwd.cu", "mamba_scan.cu")
+           "mlstm_chunk_bwd.cu", "mamba_scan.cu", "mamba_scan_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -149,8 +149,10 @@ def library() -> ctypes.CDLL:
             lib.sct_mlstm_chunk_bwd_workspace.restype = ll
             lib.sct_mlstm_chunk_bwd.argtypes = [p] * 22 + [i] * 3 + [p]
             lib.sct_mlstm_chunk_bwd.restype = i
-            lib.sct_mamba_scan.argtypes = [p] * 8 + [i] * 7 + [ll] * 4 + [i, p]
+            lib.sct_mamba_scan.argtypes = [p] * 9 + [i] * 8 + [ll] * 4 + [i, p]
             lib.sct_mamba_scan.restype = i
+            lib.sct_mamba_scan_bwd.argtypes = [p] * 19 + [i] * 8 + [ll] * 4 + [i, p]
+            lib.sct_mamba_scan_bwd.restype = i
             _lib = lib
         return _lib
 

@@ -1,14 +1,18 @@
 """Selective scan: the CUDA kernel (``csrc/mamba_scan.cu``), which
 replaces the JAX package's ``kernels/mamba_scan.py:52``
-``mamba_scan_pallas``, its launch plan and its wrapper.
+``mamba_scan_pallas``, its backward (``csrc/mamba_scan_bwd.cu``, which
+replaces differentiating the reference model's ``_ssm_scan`` under
+``jax.grad``), their launch plans and the wrapper.
 
-The tensor's device decides: CPU tensors run the plain version
-(``kernels/mamba_ref.py``), CUDA tensors launch the kernel or raise. On the
-model's path a scan is one launch: the kernel takes A and D in u's dtype
-and B and C as the column views of ``x_proj``'s output that
-``nn/mamba.py`` hands over. The kernel has no backward yet: under autograd
-the wrapper's backward raises ``TypeError`` (training the hybrid family is
-a later slice).
+The tensor's device decides: CPU tensors run the plain versions
+(``kernels/mamba_ref.py``), CUDA tensors launch the kernels or raise. On
+the model's path a scan is one launch: the kernel takes A and D in u's
+dtype and B and C as the column views of ``x_proj``'s output that
+``nn/mamba.py`` hands over. Under autograd the forward also records the
+state before every ``record_steps(ds)``-th step, and the backward
+recomputes the states between them: one backward call (two launches, the
+reverse walk and the reduction of its partials) returns every input's
+gradient in the input's dtype.
 """
 from __future__ import annotations
 
@@ -17,11 +21,16 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mamba_ref import mamba_scan_ref
+from repro_torch.kernels.mamba_ref import (
+    CHANNELS,
+    TILE,
+    mamba_scan_bwd_ref,
+    mamba_scan_fwd_ref,
+    mamba_scan_ref,
+    record_steps,
+)
 
 STATE_WIDTHS = (4, 8, 16, 32, 64)     # d_state values the kernel is built for
-CHANNELS = 32                         # channels a block, one a lane (csrc kChannels)
-TILE = 32                             # time steps a staged tile (csrc kTile)
 # states a thread, by d_state: a channel's states are split over
 # d_state / STATES[d_state] neighbouring lanes, contiguous states each
 STATES = {4: 4, 8: 4, 16: 4, 32: 8, 64: 16}
@@ -60,77 +69,162 @@ def scan_plan(b: int, S: int, di: int, ds: int) -> ScanPlan:
                     tiles=-(-S // TILE), smem_bytes=4 * words)
 
 
+def bwd_smem_bytes(ds: int) -> int:
+    """Shared memory of a backward block, fp32: u, dt, dy, du and ddt of
+    32 channels and B, C over a recorded stretch, and its states and exps
+    (32 channels x ds each a step)."""
+    R = record_steps(ds)
+    return 4 * R * (5 * CHANNELS + 2 * ds + 2 * CHANNELS * ds)
+
+
 def _require_rows(name: str, t: torch.Tensor) -> None:
     if t.device.type != "cuda" or t.stride(-1) != 1:
         raise ValueError(f"mamba_scan: {name} must be a CUDA tensor whose last axis is "
                          f"contiguous (got {t.device}, strides {t.stride()})")
 
 
-def mamba_scan_cuda(u, dt, B, C, A, D) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel launch: u/dt (b, S, di) contiguous and B/C (b, S, ds) with
-    a contiguous last axis (any batch and row stride), in one dtype (fp32 or
-    bf16); A (di, ds) and D (di,) contiguous, both fp32 or both u's dtype;
-    all on one CUDA device; S >= 1, ds in :data:`STATE_WIDTHS`. Returns (y
-    (b, S, di) in u.dtype, hT (b, di, ds) fp32)."""
+def _check(name, u, dt, B, C, A, D):
+    """Shapes, dtypes and devices of the scan's inputs (both kernels take
+    the same); returns (b, S, di, ds, the dtype code)."""
     b, S, di = u.shape
     ds = B.shape[-1]
     if (dt.shape != u.shape or B.shape != (b, S, ds) or C.shape != B.shape
             or A.shape != (di, ds) or D.shape != (di,)):
-        raise ValueError(f"mamba_scan: shapes u {tuple(u.shape)}, dt {tuple(dt.shape)}, "
+        raise ValueError(f"{name}: shapes u {tuple(u.shape)}, dt {tuple(dt.shape)}, "
                          f"B {tuple(B.shape)}, C {tuple(C.shape)}, A {tuple(A.shape)}, "
                          f"D {tuple(D.shape)}")
-    code = build.dtype_code(u, "mamba_scan")
+    code = build.dtype_code(u, name)
     if dt.dtype != u.dtype or B.dtype != u.dtype or C.dtype != u.dtype:
-        raise TypeError("mamba_scan: u, dt, B and C must share one dtype")
+        raise TypeError(f"{name}: u, dt, B and C must share one dtype")
     if A.dtype != D.dtype or A.dtype not in (torch.float32, u.dtype):
-        raise TypeError(f"mamba_scan: A and D must both be fp32 or both {u.dtype} "
+        raise TypeError(f"{name}: A and D must both be fp32 or both {u.dtype} "
                         f"(got {A.dtype}, {D.dtype})")
     if S < 1:
-        raise ValueError(f"mamba_scan: S={S}: the kernel takes S >= 1")
-    plan = scan_plan(b, S, di, ds)
-    build.require_cuda("mamba_scan", u, dt, A, D)
-    for name, t in (("B", B), ("C", C)):
-        _require_rows(name, t)
+        raise ValueError(f"{name}: S={S}: the kernel takes S >= 1")
+    build.require_cuda(name, u, dt, A, D)
+    for what, t in (("B", B), ("C", C)):
+        _require_rows(what, t)
         if t.device != u.device:
-            raise ValueError(f"mamba_scan: {name} on {t.device}, u on {u.device}")
+            raise ValueError(f"{name}: {what} on {t.device}, u on {u.device}")
+    return b, S, di, ds, code
+
+
+def mamba_scan_cuda(u, dt, B, C, A, D, *, record: bool = False):
+    """The kernel launch: u/dt (b, S, di) contiguous and B/C (b, S, ds) with
+    a contiguous last axis (any batch and row stride), in one dtype (fp32 or
+    bf16); A (di, ds) and D (di,) contiguous, both fp32 or both u's dtype;
+    all on one CUDA device; S >= 1, ds in :data:`STATE_WIDTHS`. Returns (y
+    (b, S, di) in u.dtype, hT (b, di, ds) fp32) and, with ``record``, the
+    states the backward starts from: hs (b, ceil(S / R), di, ds) fp32, the
+    state before every R-th step, R = ``record_steps(ds)`` (y and hT keep
+    their bits)."""
+    b, S, di, ds, code = _check("mamba_scan", u, dt, B, C, A, D)
+    plan = scan_plan(b, S, di, ds)
+    R = record_steps(ds)
     y = torch.empty_like(u)
     hT = torch.empty((b, di, ds), dtype=torch.float32, device=u.device)
+    hs = (torch.empty((b, -(-S // R), di, ds), dtype=torch.float32, device=u.device)
+          if record else None)
     err = build.library().sct_mamba_scan(
         u.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), A.data_ptr(), D.data_ptr(),
-        y.data_ptr(), hT.data_ptr(), b, S, di, ds, plan.states, code,
-        build.dtype_code(A, "mamba_scan"), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-        plan.smem_bytes, build.stream_of(u))
+        y.data_ptr(), hT.data_ptr(), None if hs is None else hs.data_ptr(), b, S, di, ds,
+        plan.states, R, code, build.dtype_code(A, "mamba_scan"), B.stride(0), B.stride(1),
+        C.stride(0), C.stride(1), plan.smem_bytes, build.stream_of(u))
     build.check(err, "mamba_scan")
     build.LAUNCHES["mamba_scan"] += 1
-    return y, hT
+    return (y, hT, hs) if record else (y, hT)
 
 
-def _forward(u, dt, B, C, A, D):
+def mamba_scan_bwd_cuda(u, dt, B, C, A, D, hs, dy, dhT=None):
+    """The backward kernel's launches: the forward's inputs (as
+    :func:`mamba_scan_cuda` takes them), its recorded states ``hs``, dy
+    (b, S, di) in u's dtype and the final state's gradient dhT (b, di, ds)
+    fp32 or None (zero). Returns (du, ddt, dB, dC, dA, dD): du, ddt, dB, dC
+    in u's dtype (dB, dC contiguous), dA, dD in A's. One call is two
+    launches (the reverse walk, the reduction of its per-block partials)
+    and counts once; it is deterministic (no atomics)."""
+    b, S, di, ds, code = _check("mamba_scan_bwd", u, dt, B, C, A, D)
+    plan = scan_plan(b, S, di, ds)
+    R = record_steps(ds)
+    want = {"hs": (hs, (b, -(-S // R), di, ds), torch.float32),
+            "dy": (dy, (b, S, di), u.dtype), "dhT": (dhT, (b, di, ds), torch.float32)}
+    for what, (t, shape, dtype) in want.items():
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype):
+            raise ValueError(f"mamba_scan_bwd: {what} {tuple(t.shape)} {t.dtype}, where "
+                             f"{dtype} {shape} is due")
+    build.require_cuda("mamba_scan_bwd", u, hs, dy, *([dhT] if dhT is not None else []))
+    nblk = plan.grid[0]
+    f32 = dict(dtype=torch.float32, device=u.device)
+    part_b = torch.empty((b, nblk, S, ds), **f32)
+    part_c = torch.empty_like(part_b)
+    part_a = torch.empty((b, di, ds), **f32)
+    part_d = torch.empty((b, di), **f32)
+    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    dB = torch.empty((b, S, ds), dtype=u.dtype, device=u.device)
+    dC = torch.empty_like(dB)
+    dA, dD = torch.empty_like(A), torch.empty_like(D)
+    err = build.library().sct_mamba_scan_bwd(
+        *(None if t is None else t.data_ptr() for t in (
+            u, dt, B, C, A, D, hs, dy, dhT, du, ddt, dB, dC, dA, dD, part_b, part_c, part_a,
+            part_d)),
+        b, S, di, ds, plan.states, R, code, build.dtype_code(A, "mamba_scan_bwd"), B.stride(0),
+        B.stride(1), C.stride(0), C.stride(1), bwd_smem_bytes(ds), build.stream_of(u))
+    build.check(err, "mamba_scan_bwd")
+    build.LAUNCHES["mamba_scan_bwd"] += 1
+    return du, ddt, dB, dC, dA, dD
+
+
+def _kernel_layout(u, dt, B, C, A, D):
+    """The inputs as the kernels take them. No copy or cast on the model's
+    layout: u and dt come contiguous, B and C as row views, A and D in u's
+    dtype."""
+    if A.dtype != D.dtype or A.dtype not in (torch.float32, u.dtype):
+        A, D = A.float(), D.float()
+    B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (B, C))
+    return u.contiguous(), dt.contiguous(), B, C, A.contiguous(), D.contiguous()
+
+
+def _forward(u, dt, B, C, A, D, record: bool = False):
     if u.device.type == "cpu":
-        return mamba_scan_ref(u, dt, B, C, A, D)
+        return (mamba_scan_fwd_ref if record else mamba_scan_ref)(u, dt, B, C, A, D)
     if u.device.type == "cuda":
-        # no copy or cast on the model's layout: u and dt come contiguous, B
-        # and C as row views, A and D in u's dtype
-        if A.dtype != D.dtype or A.dtype not in (torch.float32, u.dtype):
-            A, D = A.float(), D.float()
-        B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (B, C))
-        return mamba_scan_cuda(u.contiguous(), dt.contiguous(), B, C, A.contiguous(),
-                               D.contiguous())
+        return mamba_scan_cuda(*_kernel_layout(u, dt, B, C, A, D), record=record)
     raise ValueError(f"mamba_scan: no kernel for device {u.device}")
 
 
 class _MambaScan(torch.autograd.Function):
-    """The forward under autograd; serving-only until the hybrid family
-    trains, so its backward raises."""
+    """The forward under autograd. It keeps the inputs in the kernels'
+    layout and the recorded states; the backward recomputes the states
+    between them. A gradient of an output no loss reads (the final state
+    in training) arrives as None and costs nothing."""
 
     @staticmethod
     def forward(ctx, u, dt, B, C, A, D):
-        return _forward(u, dt, B, C, A, D)
+        ctx.set_materialize_grads(False)
+        dtypes = (A.dtype, D.dtype)
+        if u.device.type == "cuda":
+            u, dt, B, C, A, D = _kernel_layout(u, dt, B, C, A, D)
+        y, hT, hs = _forward(u, dt, B, C, A, D, record=True)
+        ctx.dtypes = dtypes
+        ctx.save_for_backward(u, dt, B, C, A, D, hs)
+        return y, hT
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise TypeError("mamba_scan has no backward yet: training the hybrid family needs "
-                        "a hand-written backward kernel for the selective scan")
+    def backward(ctx, dy, dhT):
+        u, dt, B, C, A, D, hs = ctx.saved_tensors
+        if dy is None and dhT is None:
+            return (None,) * 6
+        dy = torch.zeros_like(u) if dy is None else dy.to(u.dtype)
+        dhT = None if dhT is None else dhT.float()
+        if u.device.type == "cpu":
+            grads = mamba_scan_bwd_ref(u, dt, B, C, A, D, hs, dy, dhT)
+        elif u.device.type == "cuda":
+            grads = mamba_scan_bwd_cuda(u, dt, B, C, A, D, hs, dy.contiguous(),
+                                        None if dhT is None else dhT.contiguous())
+        else:
+            raise ValueError(f"mamba_scan: no kernel for device {u.device}")
+        du, ddt, dB, dC, dA, dD = grads
+        return du, ddt, dB, dC, dA.to(ctx.dtypes[0]), dD.to(ctx.dtypes[1])
 
 
 def mamba_scan(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,

@@ -20,10 +20,12 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[SCTOptimizer] = None,
     """(state, batch) -> (state, metrics). The optimizer's precision
     policy sets the forward's compute dtype (legacy: ``cfg.dtype`` over
     the fp32 masters). Metrics are 0-d tensors: ``loss``, ``ce_loss``,
-    ``aux_loss``. Microbatching and rank telemetry are not ported, nor is
-    training the hybrid or moe_lm family (``models/lm.py:SUPPORT``): the
-    port trains dense_lm and ssm_lm (xlstm, whose mLSTM layers run the
-    chunkwise kernel forward and its hand-written backward)."""
+    ``aux_loss`` (the MoE's load-balance loss of the hybrid family, 0 for
+    the others). Microbatching and rank telemetry are not ported, nor is
+    training the moe_lm family (``models/lm.py:SUPPORT``): the port trains
+    dense_lm, ssm_lm (xlstm, whose mLSTM layers run the chunkwise kernel and
+    its hand-written backward) and hybrid (jamba, whose mamba layers run the
+    selective-scan kernel and its hand-written backward)."""
     require_family(cfg, "train")
     if microbatches != 1:
         raise NotImplementedError("microbatched gradient accumulation is not ported")

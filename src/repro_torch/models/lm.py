@@ -55,7 +55,7 @@ Params = Dict[str, Any]
 # loss value), serving (prefill and decode), training (gradients)
 SUPPORT = {"dense_lm": ("init", "forward", "serve", "train"),
            "ssm_lm": ("init", "forward", "serve", "train"),
-           "hybrid": ("init", "forward", "serve"),
+           "hybrid": ("init", "forward", "serve", "train"),
            "moe_lm": ("init", "forward", "serve")}
 
 
@@ -63,10 +63,6 @@ def require_family(cfg: ModelConfig, path: str) -> None:
     """Raise ``NotImplementedError`` unless the port runs ``path`` (one of
     init, forward, serve, train) for ``cfg``'s family."""
     if path not in SUPPORT.get(cfg.family, ()):
-        if cfg.family == "hybrid" and path == "train":
-            raise NotImplementedError(
-                "training the hybrid family is not ported yet: it needs a hand-written "
-                "backward kernel for the selective scan")
         if cfg.family == "moe_lm" and path == "train":
             raise NotImplementedError(
                 "training the moe_lm family is not ported yet: the port serves it only")

@@ -5,7 +5,10 @@ function for function.
 The prompt path's scan goes through ``kernels/mamba_scan.py`` (the CUDA
 kernel for CUDA tensors, the plain version for CPU tensors), which
 carries the state in fp32 as the JAX package's Pallas kernel does and
-returns the final state, so one call serves the forward and the prefill.
+returns the final state, so one call serves the forward and the prefill;
+under autograd its backward is the hand-written backward kernel, and the
+rest of the mixer (conv taps, softplus, the split views of ``x_proj``)
+trains by autograd over plain ops.
 The reference's model runs the scan's jnp twin, which carries h in the
 compute dtype: the two agree in fp32 (``kernels/mamba_ref.py``). Decode
 is one plain step per token over a (conv tail, ssm state) the serving

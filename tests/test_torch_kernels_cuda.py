@@ -3,8 +3,8 @@ card: the spectral matmul (and its autograd), its int8 variant, the
 paged GQA decode and its cold-tier variant, the absorbed-MLA paged
 decode and its cold-tier variant, the flash-attention forward and
 backward, the chunkwise mLSTM (forward and backward) and the selective
-scan; the reduced xlstm's training step, and the reduced xlstm, jamba and
-deepseek engines on the card. Every test here needs a GPU and skips without one
+scan (forward and backward); the reduced xlstm's training step, and the
+reduced xlstm, jamba and deepseek engines on the card. Every test here needs a GPU and skips without one
 (the kernels have no CPU mode). The file imports neither JAX nor the reference
 package, so it runs on a machine with CUDA and no JAX:
 
@@ -51,8 +51,16 @@ from repro_torch.kernels.mlstm_chunk import (  # noqa: E402
     mlstm_chunk_bwd_cuda,
 )
 from repro_torch.kernels.mlstm_ref import mlstm_chunk_bwd_ref, mlstm_chunk_ref  # noqa: E402
-from repro_torch.kernels.mamba_ref import mamba_scan_ref  # noqa: E402
-from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_cuda  # noqa: E402
+from repro_torch.kernels.mamba_ref import (  # noqa: E402
+    mamba_scan_bwd_ref,
+    mamba_scan_fwd_ref,
+    mamba_scan_ref,
+)
+from repro_torch.kernels.mamba_scan import (  # noqa: E402
+    mamba_scan,
+    mamba_scan_bwd_cuda,
+    mamba_scan_cuda,
+)
 from repro_torch.kernels.ref import spectral_matmul_q8_ref, spectral_matmul_ref  # noqa: E402
 from repro_torch.serving.quantize import quantize_kv_pages  # noqa: E402
 from repro_torch.kernels.testing import (  # noqa: E402
@@ -805,6 +813,92 @@ def test_mamba_scan_kernel_refuses_what_it_cannot_run(cuda):
         mamba_scan_cuda(u, dt, B, C, A, D.bfloat16())
     with pytest.raises(ValueError):
         mamba_scan_cuda(u, dt, B[..., ::2], C[..., ::2], A[:, ::2].contiguous(), D)
+
+
+def _mamba_cotangents(y, h, finals, seed):
+    """dy in y's dtype and, with ``finals``, the final state's dhT (fp32):
+    unit normals drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    dy = torch.tensor(rng.standard_normal(tuple(y.shape)), dtype=torch.float32,
+                      device=y.device).to(y.dtype)
+    dh = (torch.tensor(rng.standard_normal(tuple(h.shape)), dtype=torch.float32,
+                       device=h.device) if finals else None)
+    return dy, dh
+
+
+MAMBA_GRADS = ("du", "ddt", "dB", "dC", "dA", "dD")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", MAMBA, ids=lambda c: "x".join(map(str, c)))
+def test_mamba_scan_kernel_records_states(cuda, case, dtype):
+    """The training forward's recorded states (h before every
+    ``record_steps(ds)``-th step) at the fp32 rung of the plain version's,
+    and y and hT the bits of the launch without recording."""
+    b, S, di, ds = case
+    args = mamba_inputs(b, S, di, ds, "unit", dtype=DTYPES[dtype], seed=S, device=cuda)
+    y, h, hs = mamba_scan_cuda(*args, record=True)
+    y0, h0 = mamba_scan_cuda(*args)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    _, _, hr = mamba_scan_fwd_ref(*args)
+    assert hs.shape == hr.shape and hs.dtype == torch.float32
+    assert_kernel_matches(lambda: hs, lambda: hr, (), dtype=torch.float32,
+                          label=f"mamba_scan recorded states {case} {dtype}")
+
+
+@pytest.mark.parametrize("finals", [False, True], ids=["dy", "dy+dhT"])
+@pytest.mark.parametrize("profile", MAMBA_PROFILES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", MAMBA, ids=lambda c: "x".join(map(str, c)))
+def test_mamba_scan_bwd_kernel_vs_plain(cuda, case, dtype, profile, finals):
+    """Every gradient of the backward kernel (#8b) at the fp32 rung of its
+    plain version on the same recorded states, bf16 inputs included (both
+    compute the same fp32 operations in one order and round once to the
+    output dtype); one count a call, and two calls give the same bits."""
+    b, S, di, ds = case
+    args = mamba_inputs(b, S, di, ds, profile, dtype=DTYPES[dtype], seed=S, device=cuda)
+    y, h, hs = mamba_scan_cuda(*args, record=True)
+    dy, dh = _mamba_cotangents(y, h, finals, S + 1)
+    before = LAUNCHES["mamba_scan_bwd"]
+    got = mamba_scan_bwd_cuda(*args, hs, dy, dh)
+    assert LAUNCHES["mamba_scan_bwd"] == before + 1
+    again = mamba_scan_bwd_cuda(*args, hs, dy, dh)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    ref = mamba_scan_bwd_ref(*args, hs, dy, dh)
+    for name, g, r, x in zip(MAMBA_GRADS, got, ref, args):
+        assert g.dtype == x.dtype and tuple(g.shape) == tuple(x.shape), name
+        assert_kernel_matches(lambda: g, lambda: r, (), dtype=torch.float32,
+                              label=f"mamba_scan_bwd {name} {case} {dtype} {profile}")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", MAMBA_MODEL, ids=lambda c: "x".join(map(str, c)))
+def test_mamba_scan_autograd_on_the_model_layout(cuda, case, dtype):
+    """Under autograd on the model's layout (A and D in u's dtype, B and C
+    column views of one projection): one forward launch (recording) and one
+    backward call, every gradient the backward kernel's on the same inputs
+    in each input's dtype, the projection's gradient the split's."""
+    b, S, di, ds = case
+    u, dt, B, C, A, D = mamba_inputs(b, S, di, ds, "unit", dtype=DTYPES[dtype], seed=S,
+                                     device=cuda)
+    _, _, Bv, Cv, Am, Dm = mamba_model_layout(u, dt, B, C, A, D)
+    proj = Bv._base.detach().clone().requires_grad_()
+    leaves = [t.clone().requires_grad_() for t in (u, dt, Am, Dm)]
+    ds0 = proj.shape[-1] - 2 * ds
+    _, Bp, Cp = torch.split(proj, [ds0, ds, ds], dim=-1)
+    before = (LAUNCHES["mamba_scan"], LAUNCHES["mamba_scan_bwd"])
+    y, h = mamba_scan(leaves[0], leaves[1], Bp, Cp, leaves[2], leaves[3])
+    dy, _ = _mamba_cotangents(y, h, False, S + 2)
+    grads = torch.autograd.grad((y.float() * dy.float()).sum(), [*leaves, proj])
+    assert (LAUNCHES["mamba_scan"], LAUNCHES["mamba_scan_bwd"]) == (before[0] + 1,
+                                                                     before[1] + 1)
+    _, _, hs = mamba_scan_cuda(u, dt, Bv, Cv, Am, Dm, record=True)
+    du, ddt, dB, dC, dA, dD = mamba_scan_bwd_cuda(u, dt, Bv, Cv, Am, Dm, hs, dy)
+    for got, want in zip(grads[:4], (du, ddt, dA, dD)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(grads[4][..., ds0:ds0 + ds], dB)
+    assert torch.equal(grads[4][..., ds0 + ds:], dC)
+    assert not bool(grads[4][..., :ds0].any())
 
 
 def test_moe_top_k_ties_on_cuda(cuda):

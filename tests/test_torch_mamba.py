@@ -29,7 +29,13 @@ from repro.models import model as jm  # noqa: E402
 from repro.nn import mamba as jmb  # noqa: E402
 from repro_torch.config import get_config  # noqa: E402
 from repro_torch.core.tree import tree_map  # noqa: E402
-from repro_torch.kernels.mamba_ref import mamba_scan_ref, mamba_scan_twin_ref  # noqa: E402
+from repro_torch.kernels.build import LAUNCHES  # noqa: E402
+from repro_torch.kernels.mamba_ref import (  # noqa: E402
+    mamba_scan_bwd_ref,
+    mamba_scan_fwd_ref,
+    mamba_scan_ref,
+    mamba_scan_twin_ref,
+)
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels.testing import (  # noqa: E402
     MAMBA_PROFILES,
@@ -97,8 +103,8 @@ def test_scan_wrapper_dispatch_and_twin():
     """On the CPU the wrapper is the plain version; its y rounds once to
     bf16 from an fp32 state, where the reference's twin (copied by
     ``mamba_scan_twin_ref``) carries h in bf16: the same function in
-    fp32, another rounding in bf16. The kernel's wrapper has no
-    gradient."""
+    fp32, another rounding in bf16. Under autograd the wrapper's backward
+    on CPU tensors is the plain backward, and no kernel is counted."""
     args = mamba_inputs(2, 9, 32, 16, "unit", seed=3)
     y, h = mamba_scan(*args)
     yr, hr = mamba_scan_ref(*args)
@@ -114,9 +120,12 @@ def test_scan_wrapper_dispatch_and_twin():
     yb, hb = mamba_scan(*(t.bfloat16() for t in args[:4]), args[4], args[5])
     assert yb.dtype == torch.bfloat16 and hb.dtype == torch.float32
     u = args[0].clone().requires_grad_()
+    before = (LAUNCHES["mamba_scan"], LAUNCHES["mamba_scan_bwd"])
     y, _ = mamba_scan(u, *args[1:])
-    with pytest.raises(TypeError, match="no backward"):
-        y.sum().backward()
+    (du,) = torch.autograd.grad(y.sum(), [u])
+    _, _, starts = mamba_scan_fwd_ref(*args)
+    assert torch.equal(du, mamba_scan_bwd_ref(*args, starts, torch.ones_like(y))[0])
+    assert (LAUNCHES["mamba_scan"], LAUNCHES["mamba_scan_bwd"]) == before
 
 
 def test_causal_conv(mamba_block):
