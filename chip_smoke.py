@@ -195,7 +195,8 @@ Phases (any failure exits non-zero and prints no result line):
     jamba's d_state 16, every other built d_state (4, 8, 32, 64) at b 2 and
     di 200, fp32 and bf16, both dt profiles, with and without the final
     state's gradient: du, ddt, dB, dC, dA and dD at the fp32 rung, two
-    calls the same bits; the forward with recording gives the bits of the
+    calls the same bits, the count of cases bit for bit the plain version
+    printed; the forward with recording gives the bits of the
     forward without and records the plain version's states; on the model's
     layout under autograd one forward and one backward count a call, the
     gradients the kernel's;
@@ -211,7 +212,9 @@ Phases (any failure exits non-zero and prints no result line):
     bit (phase 7's check);
 30. time #8b and #8 with recording at the cell's mamba shape (b 2, S 4096,
     di 8192, d_state 16, bf16, the model's layout) against their plain
-    versions, each beside its bound and the exp unit's floor; print #8b's
+    versions, each beside its bound and the exp unit's floor (#8b also
+    beside its bound at one unfused operation a lane-clock, with its walk's
+    blocks an SM); print #8b's
     bf16 gap to the reference model's scan (not gated); time the flash
     kernels at the cell's attention shape (head dim 128) against their
     plain versions and SDPA, and print their outputs' gaps to SDPA's beside
@@ -1418,7 +1421,8 @@ def mamba_bwd_case(torch, args, finals, seed, errs, label):
     with recording (y and hT the bits of the launch without it, the
     recorded states at the fp32 rung of the plain version's), then #8b
     twice (the same bits) against its plain version on the same recorded
-    states, every gradient at the fp32 rung of the plain version's RMS."""
+    states, every gradient at the fp32 rung of the plain version's RMS.
+    Returns whether every gradient is the plain version's bit for bit."""
     from repro_torch.kernels.mamba_ref import mamba_scan_bwd_ref, mamba_scan_fwd_ref
     from repro_torch.kernels.mamba_scan import mamba_scan_bwd_cuda, mamba_scan_cuda
     from repro_torch.kernels.testing import tolerance_for
@@ -1446,6 +1450,7 @@ def mamba_bwd_case(torch, args, finals, seed, errs, label):
             raise AssertionError(f"mamba_scan_bwd {name} {label}: {g.dtype} {tuple(g.shape)}")
         note(errs, "mamba_scan_bwd", check_noise_scaled(torch, g, r, r, rung,
                                                         f"mamba_scan_bwd {name} {label}"))
+    return all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 def phase_mamba_bwd_kernels(torch, cfg):
@@ -1456,7 +1461,8 @@ def phase_mamba_bwd_kernels(torch, cfg):
     profiles; with and without the final state's gradient; and on the
     model's layout (A and D in u's dtype, B and C column views) under
     autograd: one forward and one backward count, the gradients the
-    kernel's on the same inputs."""
+    kernel's on the same inputs. Prints how many cases are the plain
+    version's bits."""
     from repro_torch.kernels.build import LAUNCHES
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd_cuda, mamba_scan_cuda
     from repro_torch.kernels.testing import MAMBA_PROFILES, mamba_inputs, mamba_model_layout
@@ -1466,16 +1472,16 @@ def phase_mamba_bwd_kernels(torch, cfg):
     shapes = ([(b, S, di, ds) for b in MAMBA_B for S in MAMBA_BWD_S for di in MAMBA_DI]
               + [(1, MAMBA_LONG_S, cfg.mamba_expand * cfg.d_model, ds)]
               + [(2, S, 200, w) for w in MAMBA_BWD_WIDTHS for S in MAMBA_BWD_WIDTH_S])
-    cases = 0
+    cases = exact = 0
     for b, S, di, w in shapes:
         for profile in MAMBA_PROFILES:
             base = mamba_inputs(b, S, di, w, profile, seed=SEED + S, device="cuda")
             for dtype in (torch.float32, torch.bfloat16):
                 args = (*(t.to(dtype) for t in base[:4]), *base[4:])
                 for finals in (False, True):
-                    mamba_bwd_case(torch, args, finals, SEED + S + 1, errs,
-                                   f"b={b} S={S} di={di} ds={w} {dtype} {profile} "
-                                   f"dhT={finals}")
+                    exact += mamba_bwd_case(torch, args, finals, SEED + S + 1, errs,
+                                            f"b={b} S={S} di={di} ds={w} {dtype} {profile} "
+                                            f"dhT={finals}")
                     cases += 1
             del base, args
         torch.cuda.empty_cache()
@@ -1485,8 +1491,8 @@ def phase_mamba_bwd_kernels(torch, cfg):
         u, dt, B, C, A, D = mamba_inputs(2, MLSTM_PREFILL_S, di, ds, "unit", dtype=dtype,
                                          seed=SEED + 15, device="cuda")
         _, _, Bv, Cv, Am, Dm = mamba_model_layout(u, dt, B, C, A, D, dt_rank=cfg.mamba_dt_rank)
-        mamba_bwd_case(torch, (u, dt, Bv, Cv, Am, Dm), True, SEED + 16, errs,
-                       f"model layout {dtype}")
+        exact += mamba_bwd_case(torch, (u, dt, Bv, Cv, Am, Dm), True, SEED + 16, errs,
+                                f"model layout {dtype}")
         proj = Bv._base.detach().clone().requires_grad_()
         _, Bp, Cp = torch.split(proj, [cfg.mamba_dt_rank, ds, ds], dim=-1)
         leaves = [t.clone().requires_grad_() for t in (u, dt, Am, Dm)]
@@ -1514,12 +1520,26 @@ def phase_mamba_bwd_kernels(torch, cfg):
           f"{list(MAMBA_BWD_S)} x di {list(MAMBA_DI)} at d_state {ds}, S {MAMBA_LONG_S} at b 1 "
           f"di {di}, d_state {list(MAMBA_BWD_WIDTHS)} at S {list(MAMBA_BWD_WIDTH_S)}; fp32 and "
           f"bf16, dt profiles {list(MAMBA_PROFILES)}, with and without dhT; the model's layout "
-          f"under autograd), two calls the same bits; max scaled error "
+          f"under autograd), two calls the same bits, {exact} of {cases} cases bit for bit "
+          f"the plain version; max scaled error "
           f"{errs['mamba_scan_bwd'][1]:.3e}; mamba_scan with recording: y and hT the bits of "
           f"the launch without, the recorded states within the fp32 rung (max scaled error "
           f"{errs['mamba_scan'][1]:.3e})")
     torch.cuda.synchronize()
     return errs
+
+
+def mamba_bwd_occupancy(torch, ds, dtype) -> int:
+    """The walk kernel's resident blocks an SM at d_state ds for inputs of
+    dtype (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mamba_scan import BWD_STATES
+
+    blocks = build.library().sct_mamba_scan_bwd_occupancy(ds, BWD_STATES[ds],
+                                                          build.DTYPE_CODES[dtype])
+    if blocks < 0:
+        raise RuntimeError(f"mamba_scan_bwd occupancy: CUDA error {-blocks}")
+    return blocks
 
 
 def jamba_train_config():
@@ -1607,6 +1627,10 @@ def phase_jamba_train_timing(torch, cfg, launches, errs):
     bwd["bound_scratch_ms"] = (bwd["bytes"] + 2 * 2 * 4 * b * nblk * S * ds) / HBM_BYTES_PER_S * 1e3
     bwd["flops"] = b * S * di * (18 * ds + 6) - 2 * b * S * ds
     bwd["bound_exp_ms"] = b * S * di * ds / (16 * sms * SM_CLOCK_HZ) * 1e3
+    # no product may fuse with a sum (the plain version's bits): each
+    # operation takes a lane-clock of the SMs' 128 fp32 lanes
+    bwd["bound_unfused_ms"] = bwd["flops"] / (sms * 128 * SM_CLOCK_HZ) * 1e3
+    bwd["walk_blocks_per_sm"] = mamba_bwd_occupancy(torch, ds, args[0].dtype)
     # the reference model trains through its scan's twin, h carried in bf16:
     # the gap of #8b's gradients to the twin's autograd, printed
     leaves = [t.detach().clone().requires_grad_() for t in (args[0], args[1], args[2].contiguous(),
@@ -3144,7 +3168,7 @@ def kernel_entry(name, source, replaces, t, peak_key, shape, launches, errs):
     }
     for key in ("library_fwd_bwd_ms", "bound_tc_ms", "bound_exp_ms", "long_ms",
                 "long_bound_ms", "long_bound_exp_ms", "kernels_a_call", "bound_scratch_ms",
-                "twin_bf16_scaled_gaps"):
+                "bound_unfused_ms", "walk_blocks_per_sm", "twin_bf16_scaled_gaps"):
         if key in t:
             entry[key] = t[key]
     return entry
@@ -3312,7 +3336,7 @@ def main() -> int:
         lib = "none" if kern["library_ms"] is None else f"{kern['library_ms']:.4f} ms"
         beside = "".join(f", {key} {kern[key]:.4f}"
                          for key in ("bf16_kernel_ms", "op_ms", "bound_tc_ms", "bound_exp_ms",
-                                     "bound_scratch_ms") if key in kern)
+                                     "bound_scratch_ms", "bound_unfused_ms") if key in kern)
         print(f"[timing] {kern['name']}: {kern['ms']:.4f} ms kernel, "
               f"{kern['plain_ms']:.4f} ms plain, library {lib}, "
               f"bound {kern['bound_ms']:.4f} ms ({kern['bound_by']}){beside}, "

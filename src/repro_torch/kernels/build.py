@@ -153,6 +153,8 @@ def library() -> ctypes.CDLL:
             lib.sct_mamba_scan.restype = i
             lib.sct_mamba_scan_bwd.argtypes = [p] * 19 + [i] * 8 + [ll] * 4 + [i, p]
             lib.sct_mamba_scan_bwd.restype = i
+            lib.sct_mamba_scan_bwd_occupancy.argtypes = [i] * 3
+            lib.sct_mamba_scan_bwd_occupancy.restype = i
             _lib = lib
         return _lib
 

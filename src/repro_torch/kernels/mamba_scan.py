@@ -12,7 +12,8 @@ dtype and B and C as the column views of ``x_proj``'s output that
 state before every ``record_steps(ds)``-th step, and the backward
 recomputes the states between them: one backward call (two launches, the
 reverse walk and the reduction of its partials) returns every input's
-gradient in the input's dtype.
+gradient in the input's dtype. :func:`bwd_plan` is the backward's launch
+plan.
 """
 from __future__ import annotations
 
@@ -69,12 +70,85 @@ def scan_plan(b: int, S: int, di: int, ds: int) -> ScanPlan:
                     tiles=-(-S // TILE), smem_bytes=4 * words)
 
 
-def bwd_smem_bytes(ds: int) -> int:
-    """Shared memory of a backward block, fp32: u, dt, dy, du and ddt of
-    32 channels and B, C over a recorded stretch, and its states and exps
-    (32 channels x ds each a step)."""
+SM_SMEM = 233472                      # shared memory an SM of an H100 holds (228 KB)
+# states a thread in the backward, by d_state (csrc/mamba_scan_bwd.cu's
+# instances); a thread keeps 32 / states steps of (exp, e h) pairs: 32 each
+BWD_STATES = {4: 4, 8: 4, 16: 4, 32: 8, 64: 16}
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel covers (b, S, di, ds): block (x, y) takes
+    channels 32 x .. 32 x + 31 of batch row y; its thread t the channel 32 x
+    + t // lanes and the states (t % lanes) x states .. + states - 1, so a
+    warp holds ``channels`` channels. Each block walks the ``stretches``
+    recorded stretches of ``stretch`` steps from the last: a forward pass
+    through the stretch's ``groups`` groups of ``steps`` steps keeps each
+    group's start, then from the last group back each group is recomputed
+    from its start (but the last, whose exps the forward pass kept) and
+    walked back a step at a time. The sums over the channels and the
+    states go ``batch`` steps at a time, a lane summing ``outputs`` (step,
+    state) pairs over the warp's channels. ``min_blocks``: the resident
+    blocks an SM its launch bounds ask for."""
+
+    grid: Tuple[int, int]
+    threads: int
+    states: int
+    lanes: int
+    warps: int
+    channels: int
+    stretch: int
+    steps: int
+    groups: int
+    batch: int
+    outputs: int
+    stretches: int
+    min_blocks: int
+    smem_bytes: int
+
+
+def bwd_smem_bytes(ds: int, itemsize: int = 2, states: int = None) -> int:
+    """Shared memory of a backward block for inputs of ``itemsize`` bytes
+    (fp32 4, bf16 2), fp32 words but the last: u, dt, dy of 32 channels
+    over a stretch ([channel][step], rows of stretch + 4), B and C
+    ([step][ds]); each warp's batch of products ([batch][channels x ds +
+    16]) and its lanes' state sums ([2][batch][32]); the warps' sums over
+    their channels of the stretch, dC and then dB ([warps][stretch][ds]);
+    each thread's kept group starts ([groups - 1][threads][states]); then
+    the raw stretch the copies land in, in the inputs' dtype (u, dt, dy,
+    B, C)."""
+    states = BWD_STATES[ds] if states is None else states
+    threads = CHANNELS * ds // states
+    warps = threads // 32
+    R, batch = record_steps(ds), 4 if ds >= 8 else 8
+    words = (3 * CHANNELS * (R + 4) + 2 * R * ds
+             + warps * (batch * (CHANNELS // warps * ds + 16) + 2 * batch * 32)
+             + warps * R * ds + (R * states // 32 - 1) * threads * states)
+    return 4 * words + (3 * R * CHANNELS + 2 * R * ds) * itemsize
+
+
+def bwd_plan(b: int, S: int, di: int, ds: int, itemsize: int = 2,
+             states: int = None) -> BwdPlan:
+    """The backward kernel's launch plan for inputs of ``itemsize`` bytes;
+    ``states`` a thread defaults to :data:`BWD_STATES`. At 4 states a
+    thread the launch bounds ask for 4 blocks an SM (the training shape's
+    512 blocks in one wave on 132 SMs) where an SM's 228 KB of shared
+    memory hold them, 1 KB more a block; else for 2."""
+    if ds not in STATE_WIDTHS:
+        raise ValueError(f"mamba_scan_bwd: d_state={ds}: the kernel takes d_state in "
+                         f"{STATE_WIDTHS}")
+    states = BWD_STATES[ds] if states is None else states
+    lanes = ds // states
+    threads = CHANNELS * lanes
+    warps = threads // 32
     R = record_steps(ds)
-    return 4 * R * (5 * CHANNELS + 2 * ds + 2 * CHANNELS * ds)
+    steps = 32 // states
+    batch = 4 if ds >= 8 else 8
+    smem = bwd_smem_bytes(ds, itemsize, states)
+    min_blocks = min(4, SM_SMEM // (smem + 1024)) if states == 4 else 2
+    return BwdPlan(grid=(-(-di // CHANNELS), b), threads=threads, states=states, lanes=lanes,
+                   warps=warps, channels=CHANNELS // warps, stretch=R, steps=steps,
+                   groups=R // steps, batch=batch, outputs=batch * ds // 32,
+                   stretches=-(-S // R), min_blocks=min_blocks, smem_bytes=smem)
 
 
 def _require_rows(name: str, t: torch.Tensor) -> None:
@@ -144,7 +218,6 @@ def mamba_scan_bwd_cuda(u, dt, B, C, A, D, hs, dy, dhT=None):
     launches (the reverse walk, the reduction of its per-block partials)
     and counts once; it is deterministic (no atomics)."""
     b, S, di, ds, code = _check("mamba_scan_bwd", u, dt, B, C, A, D)
-    plan = scan_plan(b, S, di, ds)
     R = record_steps(ds)
     want = {"hs": (hs, (b, -(-S // R), di, ds), torch.float32),
             "dy": (dy, (b, S, di), u.dtype), "dhT": (dhT, (b, di, ds), torch.float32)}
@@ -153,6 +226,7 @@ def mamba_scan_bwd_cuda(u, dt, B, C, A, D, hs, dy, dhT=None):
             raise ValueError(f"mamba_scan_bwd: {what} {tuple(t.shape)} {t.dtype}, where "
                              f"{dtype} {shape} is due")
     build.require_cuda("mamba_scan_bwd", u, hs, dy, *([dhT] if dhT is not None else []))
+    plan = bwd_plan(b, S, di, ds, u.element_size())
     nblk = plan.grid[0]
     f32 = dict(dtype=torch.float32, device=u.device)
     part_b = torch.empty((b, nblk, S, ds), **f32)
@@ -168,7 +242,7 @@ def mamba_scan_bwd_cuda(u, dt, B, C, A, D, hs, dy, dhT=None):
             u, dt, B, C, A, D, hs, dy, dhT, du, ddt, dB, dC, dA, dD, part_b, part_c, part_a,
             part_d)),
         b, S, di, ds, plan.states, R, code, build.dtype_code(A, "mamba_scan_bwd"), B.stride(0),
-        B.stride(1), C.stride(0), C.stride(1), bwd_smem_bytes(ds), build.stream_of(u))
+        B.stride(1), C.stride(0), C.stride(1), plan.smem_bytes, build.stream_of(u))
     build.check(err, "mamba_scan_bwd")
     build.LAUNCHES["mamba_scan_bwd"] += 1
     return du, ddt, dB, dC, dA, dD

@@ -871,6 +871,21 @@ def test_mamba_scan_bwd_kernel_vs_plain(cuda, case, dtype, profile, finals):
                               label=f"mamba_scan_bwd {name} {case} {dtype} {profile}")
 
 
+def test_mamba_scan_bwd_kernel_bits_at_the_training_shape(cuda):
+    """#8b at jamba's training shape (b 2, S 4096, di 8192, d_state 16, bf16,
+    the model's layout, no gradient of the final state): every gradient is
+    the plain version's bit for bit (both take one order of rounded
+    operations and round once to the output dtype)."""
+    args = mamba_model_layout(*mamba_inputs(2, 4096, 8192, 16, "unit", dtype=torch.bfloat16,
+                                            seed=17, device=cuda), dt_rank=256)
+    y, h, hs = mamba_scan_cuda(*args, record=True)
+    dy, _ = _mamba_cotangents(y, h, False, 18)
+    got = mamba_scan_bwd_cuda(*args, hs, dy)
+    ref = mamba_scan_bwd_ref(*args, hs, dy)
+    for name, g, r in zip(MAMBA_GRADS, got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r), name
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("case", MAMBA_MODEL, ids=lambda c: "x".join(map(str, c)))
 def test_mamba_scan_autograd_on_the_model_layout(cuda, case, dtype):

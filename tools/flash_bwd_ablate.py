@@ -3,8 +3,8 @@
 backward (or forward), the absorbed-MLA or GQA paged decode, or the
 chunkwise mLSTM or its backward, or the selective scan.
 
-    python3 tools/flash_bwd_ablate.py [--fwd | --mla | --gqa | --mlstm | --mlstm-bwd | --mamba]
-                                      [--src DIR] [--only NAME,NAME,...]
+    python3 tools/flash_bwd_ablate.py [--fwd | --mla | --gqa | --mlstm | --mlstm-bwd | --mamba
+                                       | --mamba-bwd] [--src DIR] [--only NAME,NAME,...]
 
 Copies the port into ``src/repro_torch/_build/ablate/<variant>/`` (git-ignored)
 with one part of the two backward kernels (``csrc/flash_attention.cu``,
@@ -108,6 +108,33 @@ and adds ``empty``, ``states_2`` /
 = exp2f(dt (A log2 e)) in place of the accurate expf(dt A): what the exp's
 instruction slots cost).
 
+``--mamba-bwd`` takes parts out of the selective scan's backward
+(``csrc/mamba_scan_bwd.cu``) and prints the call's cold-L2 median and the
+device time of its two launches, the reverse walk and the reduction of its
+partials (``torch.profiler``, five calls, the L2 flushed before each), at
+jamba's training shape (b 2, S 4096, di 8192, d_state 16, bf16, the
+model's layout, no gradient of the final state). Of the design that
+recomputes a stretch into shared memory and walks it a step at a time it
+takes out ``no_channel_sums`` (the block's sums of dy h and g du over its
+channels, and their partials), ``no_state_sums`` (the trees and shuffles
+over a channel's states: each lane stores its first state's products),
+``no_staging`` (no u, dt, dy, B or C is loaded into shared memory) and
+``no_recompute_stores`` (the recomputed states and exps are not stored:
+the walk reads stale shared memory), and ``skeleton`` (all four). Of the
+design that keeps a group of the stretch in registers (a forward pass
+keeping each group's start, the groups recomputed and walked back, the
+sums batched through shared memory) it takes out ``no_channel_sums`` (no
+batch is summed over the warp's channels), ``no_state_sums`` (no (step,
+channel) adds its lanes' sums or writes du and ddt), ``no_staging`` (no
+stretch is copied in), ``no_convert`` (the raw stretch is not converted to
+fp32) and ``skeleton`` (all four), and adds ``no_recompute`` (the groups
+before the last are not recomputed: their reverse steps read the last
+group's exps), ``no_exp`` (e = dt a, no exp), ``no_partials`` (the block
+writes no partial of dB and dC), ``min_blocks_3`` (launch bounds of 3
+blocks an SM, not 4: more registers), ``reverse_quads`` (the reverse
+steps load dt, u and dy four steps at a time, not two) and ``states_2`` /
+``states_8`` (states a thread at d_state 16; the base holds 4).
+
 ``--only`` builds and times the named variants alone. The variants compute
 wrong results: they are timings only. Needs no JAX.
 """
@@ -127,6 +154,7 @@ MLSTM_SRC = "src/repro_torch/csrc/mlstm_chunk.cu"
 MLSTM_BWD_SRC = "src/repro_torch/csrc/mlstm_chunk_bwd.cu"
 GQA_SRC = "src/repro_torch/csrc/paged_decode.cu"
 MAMBA_SRC = "src/repro_torch/csrc/mamba_scan.cu"
+MAMBA_BWD_SRC = "src/repro_torch/csrc/mamba_scan_bwd.cu"
 PLAN_SRC = "src/repro_torch/kernels/mamba_scan.py"
 OUT = ROOT / "src" / "repro_torch" / "_build" / "ablate"
 
@@ -455,6 +483,96 @@ def mamba_variants(src: str, tree: Path) -> dict:
     return out
 
 
+def mamba_bwd_variants(src: str, tree: Path) -> dict:
+    """{name: patched mamba_scan_bwd.cu}, for the design the source holds; a
+    variant that patches other files of ``tree`` is {path: text}."""
+    if "float* const sG = sH + kRow * kDs;" in src:     # stretch in shared memory
+        parts = {
+            "no_channel_sums": [("for (int e = threadIdx.x; e < nt * kDs; e += kThreads) {",
+                                 "for (int e = threadIdx.x; e < 0; e += kThreads) {")],
+            "no_state_sums": [("      tree_sum<kStates>(pb);\n      tree_sum<kStates>(pa);\n", ""),
+                              ("for (int w = 1; w < kGroups; w *= 2) {\n        sb",
+                               "for (int w = 1; w < 1; w *= 2) {\n        sb")],
+            "no_staging": [("for (int e = threadIdx.x; e < kRow; e += kThreads) {",
+                            "for (int e = threadIdx.x; e < 0; e += kThreads) {"),
+                           ("for (int e = threadIdx.x; e < kRec * kDs; e += kThreads) {",
+                            "for (int e = threadIdx.x; e < 0; e += kThreads) {")],
+            "no_recompute_stores": [("          hp[i] = h[i];\n          ep[i] = e;",
+                                     "          if (__float_as_uint(h[i]) == 0x7fc00001u) hp[i] = e;")],
+        }
+        extra = {}
+    elif "forward_group<P, true, false>(x" in src:        # the stretch in registers
+        parts = {
+            "no_channel_sums": [("  float v[kPer];\n  row_tree",
+                                 "  if (t >= 0) return;\n  float v[kPer];\n  row_tree")],
+            "no_state_sums": [("for (int e = lane; e < kSub * kCW; e += 32) {",
+                               "for (int e = lane; e < 0; e += 32) {")],
+            "no_staging": [("  auto stage = [&](int k) {\n",
+                            "  auto stage = [&](int k) {\n    if (k >= 0) return;\n")],
+            "no_convert": [("  auto convert = [&]() {\n",
+                            "  auto convert = [&]() {\n    if (tid >= 0) return;\n")],
+        }
+        table = "BWD_STATES = {4: 4, 8: 4, 16: 4, 32: 8, 64: 16}"
+        built = "X(4, 4) X(8, 4) X(16, 4) X(32, 8) X(64, 16)"
+        extra = {
+            "no_recompute": [("      forward_group<P, true, false>(x, grp * kU, a, h, e, eh);",
+                              "      (void)0;")],
+            "no_exp": [("ex[jj][i] = expf(__fmul_rn(dtv[jj], a[i]));",
+                        "ex[jj][i] = __fmul_rn(dtv[jj], a[i]);")],
+            "no_partials": [("  auto write_partials = [&](int k, float* __restrict__ part) {\n",
+                             "  auto write_partials = [&](int k, float* __restrict__ part) {\n"
+                             "    if (k >= 0) return;\n")],
+            "min_blocks_3": [("kSmemBlocks < 4 ? kSmemBlocks : 4;", "3;")],
+            "reverse_quads": [("  constexpr int kQ = kU < 2 ? kU : 2;  // steps of dt, u, dy a load\n"
+                               "  const int s0 = x.g * kStates;\n",
+                               "  constexpr int kQ = kU < 4 ? kU : 4;  // steps of dt, u, dy a load\n"
+                               "  const int s0 = x.g * kStates;\n")],
+        }
+        for n in (2, 8):
+            extra[f"states_{n}"] = {
+                PLAN_SRC: [(table, table.replace("16: 4", f"16: {n}"))],
+                MAMBA_BWD_SRC: [(built, built.replace("X(16, 4)", f"X(16, {n})"))]}
+    else:
+        raise SystemExit("ablate: mamba_scan_bwd.cu holds no known design")
+    out = {"base": src}
+    out.update({name: _patch(src, subs) for name, subs in parts.items()})
+    out["skeleton"] = _patch(src, [sub for subs in parts.values() for sub in subs])
+    for name, subs in extra.items():
+        out[name] = ({path: _patch((tree / path).read_text(), pairs)
+                      for path, pairs in subs.items()} if isinstance(subs, dict)
+                     else _patch(src, subs))
+    return out
+
+
+# the walk and the reduction of #8b, by a piece of their kernels' names
+MAMBA_BWD_TIMER = r'''
+import sys
+sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2])
+import torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from repro_torch.kernels.mamba_scan import mamba_scan_bwd_cuda, mamba_scan_cuda
+from repro_torch.kernels.testing import mamba_inputs, mamba_model_layout
+args = mamba_model_layout(*mamba_inputs(2, 4096, 8192, 16, "unit", dtype=torch.bfloat16,
+                                        seed=cs.SEED + 17, device="cuda"), dt_rank=256)
+y, _, hs = mamba_scan_cuda(*args, record=True)
+dy = torch.randn(y.shape, generator=torch.Generator(device="cuda").manual_seed(cs.SEED + 18),
+                 device="cuda").to(y.dtype)
+ms = cs.time_cold(torch, lambda: mamba_scan_bwd_cuda(*args, hs, dy), iters=10)
+flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(5):
+        flush.zero_()
+        mamba_scan_bwd_cuda(*args, hs, dy)
+    torch.cuda.synchronize()
+rows = {"walk": 0.0, "reduce": 0.0}
+for t, c, key in cs.device_rows(torch, prof):
+    if "mamba_scan_bwd" in key:
+        rows["reduce" if "reduce" in key else "walk"] += t / 5
+print(f"call {ms:.4f} ms; walk {rows['walk']:.4f}, reduce {rows['reduce']:.4f}")
+'''
+
+
 MAMBA_TIMER = r'''
 import sys
 sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2])
@@ -604,10 +722,10 @@ def main() -> int:
     argv = sys.argv[1:]
     fwd, mla, mlstm, gqa, mamba = ("--fwd" in argv, "--mla" in argv, "--mlstm" in argv,
                                    "--gqa" in argv, "--mamba" in argv)
-    mlstm_bwd = "--mlstm-bwd" in argv
+    mlstm_bwd, mamba_bwd = "--mlstm-bwd" in argv, "--mamba-bwd" in argv
     tree = Path(argv[argv.index("--src") + 1]).resolve().parent if "--src" in argv else ROOT
     path = (MLA_SRC if mla else MLSTM_SRC if mlstm else MLSTM_BWD_SRC if mlstm_bwd else
-            GQA_SRC if gqa else MAMBA_SRC if mamba else SRC)
+            GQA_SRC if gqa else MAMBA_SRC if mamba else MAMBA_BWD_SRC if mamba_bwd else SRC)
     src = (tree / path).read_text()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
@@ -621,6 +739,8 @@ def main() -> int:
         table, timer = mlstm_bwd_variants(src), MLSTM_BWD_TIMER
     elif mamba:
         table, timer = mamba_variants(src, tree), MAMBA_TIMER
+    elif mamba_bwd:
+        table, timer = mamba_bwd_variants(src, tree), MAMBA_BWD_TIMER
     else:
         table, timer = (fwd_variants(src), FWD_TIMER) if fwd else (variants(src), TIMER)
     if "--only" in argv:                      # a comma-separated subset of the variants

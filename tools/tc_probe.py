@@ -5,8 +5,8 @@ spectral matmul and the int8 one on bf16 activations
 (``csrc/flash_attention.cu``, the ``*_tc_kernel``s).
 
     PYTHONPATH=src python3 tools/tc_probe.py [--fwd] [--q8] [--mla] [--mlstm] [--mlstm-bwd]
-                                             [--gqa] [--mamba] [--quick | --split]
-                                             [--time-only] [--src DIR]
+                                             [--gqa] [--mamba] [--mamba-bwd]
+                                             [--quick | --split] [--time-only] [--src DIR]
 
 With no mode flag: the bf16 spectral kernel and the flash backward. It
 builds the kernels, prints each kernel's registers and spills, holds both
@@ -70,8 +70,20 @@ and at S 4096: the kernel alone (contiguous B and C, fp32 A and D), the op
 on the model's layout, the device kernels the op runs, the plain version,
 the bytes bound; and the floors of ``tools/mamba_floors.cu`` (an empty
 kernel of the scan's grid, one round of loads, the exponentials alone on a
-full card: accurate expf, exp2f, ex2.approx). ``--quick`` skips the
-timing, ``--time-only`` the checks. ``--src DIR`` imports the port from
+full card: accurate expf, exp2f, ex2.approx). ``--mamba-bwd``: the
+selective scan's backward (``csrc/mamba_scan_bwd.cu``): its walk's blocks
+an SM at every built d_state (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+where the tree's library exports it); against its plain version at the
+card tests' cases and jamba's training shape (fp32 and bf16, both dt
+profiles, with and without the final state's gradient) at the fp32 rung,
+two calls the same bits, one count a call, and how many cases are the
+plain version's bits; a digest of the bits of #8 (recording or not) and
+#8b at jamba's prompt and training shapes on the model's layout (to hold
+two trees' bits equal); its time at the training shape (b 2, S 4096, di
+8192, d_state 16, bf16, no final-state gradient): the call's cold-L2
+median and the walk's and the reduction's device time, beside its bounds
+(fp32 at 67 TFLOP/s, and one unfused operation a lane-clock).
+``--quick`` skips the timing, ``--time-only`` the checks. ``--src DIR`` imports the port from
 another checkout's ``src`` (its kernels build there), so that two trees
 can be timed in one call. Needs no JAX.
 """
@@ -696,6 +708,115 @@ def mamba_mode(torch, cs, args):
     mamba_floors(torch, cs, ((cs.MLSTM_PREFILL_S, 8192, 16), (4096, 8192, 16)))
 
 
+def bits_digest(torch, *tensors) -> str:
+    """A short digest of the tensors' bits (to hold two trees' bits equal)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def mamba_bwd_mode(torch, cs, args):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.kernels.mamba_ref import mamba_scan_bwd_ref
+    from repro_torch.kernels.mamba_scan import STATE_WIDTHS, mamba_scan_bwd_cuda, mamba_scan_cuda
+    from repro_torch.kernels.testing import (MAMBA_PROFILES, mamba_inputs, mamba_model_layout,
+                                             tolerance_for)
+
+    occ = getattr(build.library(), "sct_mamba_scan_bwd_occupancy", None)
+    if occ is None:
+        print("[occupancy] this tree's library does not export the walk's occupancy")
+    else:
+        from repro_torch.kernels.mamba_scan import BWD_STATES, bwd_plan
+
+        for ds in STATE_WIDTHS:
+            for code, name, size in ((1, "bf16", 2), (0, "fp32", 4)):
+                p = bwd_plan(1, 1, 32, ds, size)
+                print(f"[occupancy] d_state {ds} {name}: {occ(ds, BWD_STATES[ds], code)} walk "
+                      f"blocks an SM ({p.threads} threads, {p.smem_bytes} bytes of shared "
+                      f"memory; launch bounds ask {p.min_blocks})")
+    rung = tolerance_for(torch.float32)
+    names = ("du", "ddt", "dB", "dC", "dA", "dD")
+    cases = [(1, 1, 128, 16), (2, 37, 200, 16), (1, 160, 8192, 16), (2, 300, 96, 4),
+             (1, 64, 130, 64), (2, 1000, 256, 8), (1, 33, 64, 32), (2, 4096, 8192, 16)]
+    exact = total = 0
+    for b, S, di, ds in cases if not args.time_only else ():
+        worst = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            for profile_ in MAMBA_PROFILES:
+                a = mamba_inputs(b, S, di, ds, profile_, dtype=dtype, seed=S, device="cuda")
+                y, h, hs = mamba_scan_cuda(*a, record=True)
+                gen = torch.Generator(device="cuda").manual_seed(S + 1)
+                dy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+                dh = torch.randn(h.shape, generator=gen, device="cuda")
+                for fin in (None, dh):
+                    before = LAUNCHES["mamba_scan_bwd"]
+                    got = mamba_scan_bwd_cuda(*a, hs, dy, fin)
+                    again = mamba_scan_bwd_cuda(*a, hs, dy, fin)
+                    if LAUNCHES["mamba_scan_bwd"] != before + 2:
+                        raise AssertionError("mamba_scan_bwd: not counted once a call")
+                    if not all(torch.equal(g, x) for g, x in zip(got, again)):
+                        raise AssertionError(f"mamba_scan_bwd {(b, S, di, ds)}: two calls differ")
+                    ref = mamba_scan_bwd_ref(*a, hs, dy, fin)
+                    for name, g, r in zip(names, got, ref):
+                        _, _, scaled = cs.check_noise_scaled(
+                            torch, g, r, r, rung, f"mamba_scan_bwd {name} {(b, S, di, ds)} "
+                            f"{dtype} {profile_} dhT={fin is not None}")
+                        worst = max(worst, scaled)
+                    exact += all(torch.equal(g, r) for g, r in zip(got, ref))
+                    total += 1
+                    del got, again, ref
+                del a, y, h, hs, dy, dh
+            torch.cuda.empty_cache()
+        print(f"[mamba_bwd] {(b, S, di, ds)}: fp32 and bf16, both profiles, with and without "
+              f"dhT: fp32 rung, deterministic; max RMS-scaled error {worst:.3e}")
+    if total:
+        print(f"[mamba_bwd] {exact} of {total} cases bit for bit the plain version")
+    # the bits of #8 (serving's prompt, recording or not) and #8b at the
+    # training shape on the model's layout, to compare two trees
+    for b, S in ((1, cs.MLSTM_PREFILL_S), (2, 4096)):
+        a = mamba_model_layout(*mamba_inputs(b, S, 8192, 16, "unit", dtype=torch.bfloat16,
+                                             seed=cs.SEED + 17, device="cuda"), dt_rank=256)
+        y0, h0 = mamba_scan_cuda(*a)
+        y, h, hs = mamba_scan_cuda(*a, record=True)
+        dy = torch.randn(y.shape, generator=torch.Generator(device="cuda").manual_seed(
+            cs.SEED + 18), device="cuda").to(y.dtype)
+        grads = mamba_scan_bwd_cuda(*a, hs, dy)
+        print(f"[digest] (b {b}, S {S}, di 8192, d_state 16, bf16, model layout): #8 "
+              f"{bits_digest(torch, y0, h0)}, #8 recording {bits_digest(torch, y, h, hs)}, #8b "
+              f"{bits_digest(torch, *grads)}")
+        del a, y0, h0, y, h, hs, dy, grads
+    torch.cuda.empty_cache()
+    if args.quick:
+        return
+    b, S, di, ds = 2, 4096, 8192, 16
+    a = mamba_model_layout(*mamba_inputs(b, S, di, ds, "unit", dtype=torch.bfloat16,
+                                         seed=cs.SEED + 17, device="cuda"), dt_rank=256)
+    _, _, hs = mamba_scan_cuda(*a, record=True)
+    dy = torch.randn((b, S, di), generator=torch.Generator(device="cuda").manual_seed(
+        cs.SEED + 18), device="cuda").to(torch.bfloat16)
+    ms = cs.time_cold(torch, lambda: mamba_scan_bwd_cuda(*a, hs, dy), iters=20)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            flush.zero_()
+            mamba_scan_bwd_cuda(*a, hs, dy)
+        torch.cuda.synchronize()
+    rows = {"walk": 0.0, "reduce": 0.0}
+    for t, _, key in cs.device_rows(torch, prof):
+        if "mamba_scan_bwd" in key:
+            rows["reduce" if "reduce" in key else "walk"] += t / 5
+    flops = b * S * di * (18 * ds + 6) - 2 * b * S * ds
+    print(f"[time] mamba_scan_bwd {(b, S, di, ds)} bf16, model layout, no dhT: call {ms:.4f} ms "
+          f"cold L2; walk {rows['walk']:.4f}, reduce {rows['reduce']:.4f} (profiled, L2 "
+          f"flushed); bound {flops / cs.PEAK_FLOPS['float32'] * 1e3:.4f} (fp32 at 67 TFLOP/s), "
+          f"{flops / (132 * 128 * cs.SM_CLOCK_HZ) * 1e3:.4f} (unfused: an operation a "
+          f"lane-clock)")
+
+
 def profiled_kernels(torch, cs, fn, calls: int = 5) -> int:
     """The device kernel records of one profile of ``calls`` calls of
     ``fn()`` (the profiler drops some now and then)."""
@@ -791,6 +912,7 @@ def main() -> int:
     ap.add_argument("--mlstm-bwd", action="store_true", help="the chunkwise mLSTM's backward")
     ap.add_argument("--gqa", action="store_true", help="the paged GQA decode")
     ap.add_argument("--mamba", action="store_true", help="the selective scan")
+    ap.add_argument("--mamba-bwd", action="store_true", help="the selective scan's backward")
     ap.add_argument("--quick", action="store_true", help="checks only")
     ap.add_argument("--time-only", action="store_true", help="timing only")
     ap.add_argument("--split", action="store_true",
@@ -824,6 +946,10 @@ def main() -> int:
     if args.mamba:
         print_ptxas(build, ("mamba_scan.cu",))
         mamba_mode(torch, cs, args)
+        return 0
+    if args.mamba_bwd:
+        print_ptxas(build, ("mamba_scan_bwd.cu",))
+        mamba_bwd_mode(torch, cs, args)
         return 0
     if args.mlstm_bwd:
         print_ptxas(build, ("mlstm_chunk_bwd.cu",))
