@@ -10,8 +10,12 @@ Phases (any failure exits non-zero and prints no result line):
    under the tolerance ladder (fp32 5e-5, bf16 5e-2, on outputs scaled
    by the reference's RMS), at the main paths' shapes in bf16 and fp32:
    the decode shapes, and the training shapes (flash forward and
-   backward, also at jamba's head dim 128, the spectral autograd Function
-   at M = 8192); every bf16
+   backward, also at jamba's head dim 128 and at deepseek's MLA widths,
+   q/k 192 and v 128, with the (64, 64) and (128, 128) outputs' digests
+   held to FLASH_DIGESTS; the spectral autograd Function at M = 8192,
+   also on deepseek's MLP and expert widths); one deepseek MLA layer's
+   static prefill at s 4096 (the expanded form's flash branch) within the
+   bf16 ladder of its plain path; every bf16
    spectral row of M in {37, 64, 8192} equals the row alone, bit for bit
    (bf16 runs on the tensor cores, fp32 on the CUDA cores); two paged GQA
    decode calls give the same bits and every slot's row equals the slot
@@ -172,14 +176,14 @@ Phases (any failure exits non-zero and prints no result line):
     version's RMS or, where the gradient is rounding noise in fp32, by
     that noise: ``kernels/testing.py:noise_scale``); two calls give the
     same bits; the worst case is named;
-25. (T) train xlstm-1.3b at full width cut to 16 blocks (2 periods: 14
-    mLSTM + 2 sLSTM; d_model 2048, 4 mLSTM heads of 1024, vocab 50304,
+25. (T) train xlstm-1.3b at full width cut to 8 blocks (1 period: 7
+    mLSTM + 1 sLSTM; d_model 2048, 4 mLSTM heads of 1024, vocab 50304,
     rank 128, cholesky_qr2 retraction, remat, bf16 compute over fp32
     masters; batch 2 x 4096; random weights from seed 0) for 6 steps
     through the calls ``Trainer.__init__`` makes (``train_cell``), the
-    launch counts zeroed before each step and read after it: 28
-    ``mlstm_chunk`` (forward and remat recompute), 14 ``mlstm_chunk_bwd``
-    and 64 ``spectral_matmul`` a step; losses finite, orthogonality error
+    launch counts zeroed before each step and read after it: 14
+    ``mlstm_chunk`` (forward and remat recompute), 7 ``mlstm_chunk_bwd``
+    and 32 ``spectral_matmul`` a step; losses finite, orthogonality error
     <= 1e-4, every gradient leaf finite and non-zero (read from each
     leaf's Adam first moment); warm step (median of steps 3-6), tokens/s,
     peak memory, the sLSTM blocks' share of the step, step 2's device
@@ -218,7 +222,21 @@ Phases (any failure exits non-zero and prints no result line):
     bf16 gap to the reference model's scan (not gated); time the flash
     kernels at the cell's attention shape (head dim 128) against their
     plain versions and SDPA, and print their outputs' gaps to SDPA's beside
-    the plain version's (not gated: SDPA rounds in bf16 inside).
+    the plain version's (not gated: SDPA rounds in bf16 inside);
+31. (D) train deepseek-v3-671b at full width cut to 4 layers (3 dense + 1
+    MoE of 256 experts top-8 and one shared; d_model 7168, 128 MLA heads,
+    q/k 128 + 64, v 128, q_lora 1536, kv_lora 512, d_ff 18432, moe_d_ff
+    2048, vocab 129280, rank 128, cholesky_qr2 retraction, capacity factor
+    1.25, remat, bf16 compute over fp32 masters; batch 2 x 4096; random
+    weights from seed 0) for 6 steps through ``train_cell``: 8
+    ``flash_attention_fwd``, 4 ``flash_attention_bwd`` (at q/k 192, v 128)
+    and 24 ``spectral_matmul`` a step, with phase 25's checks and records,
+    and every routed expert's factors given a gradient; then resume reduced
+    deepseek-v3 on the card bit for bit (phase 7's check);
+32. time the flash kernels at the cell's MLA shape (b 2, s 4096, 128
+    heads, r 1, q/k 192, v 128) against their plain versions and SDPA
+    (the backend it picks named by its kernels), with their outputs' gaps
+    to SDPA's (not gated).
 
 The ``kernels`` line has one entry per kernel: the nine TPU kernels' ports
 and, as their own entries, the flash backward, the mLSTM backward and the
@@ -259,12 +277,35 @@ SM_CLOCK_HZ = 1.98e9    # the H100 SXM's boost clock, for the exp unit's floor
 # training: smollm2-1.7b at batch 2 x seq 4096 (train_4k's sequence length)
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm2-1.7b", 2, 4096, 8
 ORTHO_LIMIT = 1e-4
-# flash kernel checks: (b, s, g, r, d) at the training shape, a grouped
+# flash kernel checks: (b, s, g, r, d[, dv]) at the training shape, a grouped
 # layout at the same length, a ragged length, the largest group (64 query
-# heads a kv head: one position a query tile), and jamba's attention layer
-# in training (32 heads over 8 kv heads of 128)
+# heads a kv head: one position a query tile), jamba's attention layer in
+# training (32 heads over 8 kv heads of 128), and deepseek's MLA layer in
+# training (128 heads, k expanded to each: r 1; q/k 192 wide, v 128) with a
+# ragged and a short length at its widths
 FLASH_CHECKS = [(2, 4096, 32, 1, 64), (1, 4096, 8, 4, 64), (1, 1000, 4, 4, 64),
-                (1, 200, 1, 64, 64), (2, 4096, 8, 4, 128)]
+                (1, 200, 1, 64, 64), (2, 4096, 8, 4, 128), (2, 4096, 128, 1, 192, 128),
+                (1, 1000, 4, 1, 192, 128), (1, 64, 2, 1, 192, 128)]
+# the head widths no flash kernel takes: the wrapper refuses them
+FLASH_REFUSED = ((80, 80), (192, 192))
+
+# digests of the flash kernels' outputs at the GQA widths (64, 64) and (128,
+# 128) on numpy inputs (dtype, (b, s, g, r, d), seed): FLASH_DIGESTS holds
+# those of the kernels before MLA's widths were added (commit bf7db7d, on
+# the H100), so that a change to the kernels shows whether those widths keep
+# their bits (``tools/flash_mla_probe.py --digests-against DIR``)
+FLASH_DIGEST_CASES = [("bfloat16", (2, 4096, 32, 1, 64), 1), ("bfloat16", (1, 1000, 4, 4, 64), 2),
+                      ("bfloat16", (1, 200, 1, 64, 64), 3), ("bfloat16", (2, 4096, 8, 4, 128), 4),
+                      ("bfloat16", (1, 1000, 4, 4, 128), 5), ("float32", (1, 1000, 4, 4, 64), 6),
+                      ("float32", (1, 200, 1, 64, 64), 7), ("float32", (1, 1000, 4, 4, 128), 8)]
+FLASH_DIGESTS = {"bfloat16 (2, 4096, 32, 1, 64)": "d5069630c0ccc5b2",
+                 "bfloat16 (1, 1000, 4, 4, 64)": "5872f463c39fe2a7",
+                 "bfloat16 (1, 200, 1, 64, 64)": "a56b5c8ac1cb0c93",
+                 "bfloat16 (2, 4096, 8, 4, 128)": "bdf8b5c9a06225c7",
+                 "bfloat16 (1, 1000, 4, 4, 128)": "b1f43ace74ccac7a",
+                 "float32 (1, 1000, 4, 4, 64)": "5839541ff15501f9",
+                 "float32 (1, 200, 1, 64, 64)": "08e329bca1dfebe9",
+                 "float32 (1, 1000, 4, 4, 128)": "fdbe7a799a3273da"}
 
 # the full-width trace: (prompt_len, max_new_tokens), four per arrival wave
 TRACE = [(32, 16), (160, 32), (75, 24), (118, 20), (47, 28), (140, 18), (96, 32), (60, 24)]
@@ -295,9 +336,10 @@ XLSTM_ARCH = "xlstm-1.3b"
 # the cell's longest prompt, one and two chunks of 256, four)
 MLSTM_DH, MLSTM_B, MLSTM_S = (32, 1024), (1, 4), (1, 37, 64, 160, 256, 300, 1000)
 MLSTM_PREFILL_S = 160           # the cell's longest prompt: the timed shape
-# the xlstm training cell: xlstm-1.3b at full width cut to 16 blocks (two
-# periods: 14 mLSTM + 2 sLSTM), batch 2 x train_4k's 4096 tokens
-XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 16, 2, 4096, 6
+# the xlstm training cell: xlstm-1.3b at full width cut to 8 blocks (one
+# period: 7 mLSTM + 1 sLSTM; 16 blocks took the whole run past 1100 s once
+# deepseek's training cell joined), batch 2 x train_4k's 4096 tokens
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 8, 2, 4096, 6
 TRAIN_PROFILED_STEP = 2         # warm (step 1 warms up), outside the median of steps 3-6
 # mLSTM backward checks: head widths, folded batch * heads (xlstm's
 # training batch: 2 x 4 heads), lengths (one token, a ragged chunk, one and
@@ -330,6 +372,15 @@ JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS = 8, 2
 DEEPSEEK_ARCH, DEEPSEEK_LAYERS, DEEPSEEK_CAPACITY = "deepseek-v3-671b", 8, 32.0
 DEEPSEEK_FP32_LAYERS = 4
 MLA_B = (1, 4)      # absorbed-MLA decode checks: one slot, and 4 with a null slot
+# the deepseek training cell: deepseek-v3-671b at full width cut to 4 layers
+# (the 3 dense + 1 MoE of 256 experts top-8), batch 2 x train_4k's 4096
+# tokens, at the config's capacity factor (1.25); the MLA prefill check at
+# that length (the expanded form's flash branch)
+DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_BATCH, DEEPSEEK_TRAIN_SEQ = 4, 2, 4096
+DEEPSEEK_TRAIN_STEPS = 6
+# spectral autograd checks at M = 8192 beyond smollm2's MLP: deepseek's dense
+# MLP (7168 <-> 18432) and its experts' width (7168 <-> 2048), rank 128
+DEEPSEEK_SPECTRAL = ((7168, 18432), (18432, 7168), (7168, 2048), (2048, 7168))
 
 
 def fail(msg: str) -> int:
@@ -722,36 +773,88 @@ def phase_profile(torch, cfg, engine, prompt_len=96):
     return {"wall_ms": wall * 1e3, "decode_steps": steps, "device_busy_ms": busy_ms}
 
 
-def flash_inputs(torch, b, s, g, r, d, dtype, gen):
-    """q and dout (b, s, g, r, d), k and v (b, s, g, d): unit normals,
-    so scores have unit scale and outputs are O(1) averages of v."""
-    q, do = (torch.randn((b, s, g, r, d), generator=gen, device="cuda") for _ in range(2))
-    k, v = (torch.randn((b, s, g, d), generator=gen, device="cuda") for _ in range(2))
+def flash_inputs(torch, b, s, g, r, d, dtype, gen, dv=None):
+    """q (b, s, g, r, d), k (b, s, g, d), v (b, s, g, dv) and dout (b, s,
+    g, r, dv), dv = d unless given (MLA: 128 beside q/k's 192): unit
+    normals, so scores have unit scale and outputs are O(1) averages of v."""
+    dv = d if dv is None else dv
+    q = torch.randn((b, s, g, r, d), generator=gen, device="cuda")
+    do = torch.randn((b, s, g, r, dv), generator=gen, device="cuda")
+    k = torch.randn((b, s, g, d), generator=gen, device="cuda")
+    v = torch.randn((b, s, g, dv), generator=gen, device="cuda")
     return [t.to(dtype) for t in (q, k, v, do)]
+
+
+def flash_case_inputs(torch, case, dtype, gen):
+    """``flash_inputs`` of a FLASH_CHECKS case (b, s, g, r, d[, dv])."""
+    b, s, g, r, d, *dv = case
+    return flash_inputs(torch, b, s, g, r, d, dtype, gen, dv=dv[0] if dv else None)
+
+
+def flash_np_inputs(torch, b, s, g, r, dk, dv, dtype, seed):
+    """q (b, s, g, r, dk), k (b, s, g, dk), v (b, s, g, dv) and dout (b, s,
+    g, r, dv) from numpy's generator: the same values on any card and any
+    PyTorch, so that their outputs' digests can be held fixed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shapes = ((b, s, g, r, dk), (b, s, g, dk), (b, s, g, dv), (b, s, g, r, dv))
+    return [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to("cuda", dtype)
+            for sh in shapes]
+
+
+def flash_digests(torch, cases=FLASH_DIGEST_CASES):
+    """{case: sha256 of the flash forward's (out, m, l) and backward's (dq,
+    dk, dv) bytes} on ``flash_np_inputs``, the backward run from the
+    kernel forward's statistics."""
+    import hashlib
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    digests = {}
+    for name, (b, s, g, r, d), seed in cases:
+        dtype = getattr(torch, name)
+        q, k, v, do = flash_np_inputs(torch, b, s, g, r, d, d, dtype, seed)
+        out, m, l = flash_attention_fwd(q, k, v)
+        h = hashlib.sha256()
+        for t in (out, m, l, *flash_attention_bwd(q, k, v, out, m, l, do)):
+            h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        digests[f"{name} {(b, s, g, r, d)}"] = h.hexdigest()[:16]
+        del q, k, v, do, out, m, l
+    return digests
 
 
 def phase_train_kernels(torch, cfg):
     """The training path's kernels against their plain versions on the
     card, bf16 and fp32: flash forward (out, m, l) and backward (dq, dk,
-    dv) at FLASH_CHECKS, and the spectral autograd Function's (y, dx, dU,
-    ds, dV) against autograd through the plain version at M = b * s on
-    both MLP shapes (fp32 factors, the legacy masters)."""
+    dv) at FLASH_CHECKS (MLA's (192, 128) among them), and the spectral
+    autograd Function's (y, dx, dU, ds, dV) against autograd through the
+    plain version at M = b * s on both MLP shapes and DEEPSEEK_SPECTRAL
+    (fp32 factors, the legacy masters). The flash kernels' outputs at (64,
+    64) and (128, 128) keep FLASH_DIGESTS' bits; FLASH_REFUSED's widths are
+    refused. The fp32 backward at (192, 128) is held row by row
+    (``check_noise_scaled``): a row several times the tensor's RMS (the
+    first keys' dk and dv, the early queries' dq) at the rung of its own
+    RMS, and a first query position's dq, zero in exact arithmetic ((dP -
+    delta) K with dP and delta the same sum), to the plain version's
+    rounding noise."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.flash_ref import flash_bwd_ref, flash_fwd_ref
     from repro_torch.kernels.ops import spectral_matmul
     from repro_torch.kernels.ref import spectral_matmul_ref
-    from repro_torch.kernels.testing import compare_kernel
+    from repro_torch.kernels.testing import TOLERANCE_LADDER
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     errs = {}
 
     def check(name, label, got, ref, dtype):
-        note(errs, name, compare_kernel(lambda: got, lambda: ref, (), dtype=dtype, label=label))
+        note(errs, name, compare_on_card(torch, got, ref, dtype, label))
 
     M, k = TRAIN_BATCH * TRAIN_SEQ, cfg.sct.rank
+    shapes = ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)) + DEEPSEEK_SPECTRAL
     for dtype in (torch.bfloat16, torch.float32):
         for case in FLASH_CHECKS:
-            q, kk, v, do = flash_inputs(torch, *case, dtype, gen)
+            q, kk, v, do = flash_case_inputs(torch, case, dtype, gen)
             got, ref = flash_attention_fwd(q, kk, v), flash_fwd_ref(q, kk, v)
             # m and l are fp32 but come from the inputs' dtype: its rung
             for i, what in enumerate(("out", "m", "l")):
@@ -759,11 +862,30 @@ def phase_train_kernels(torch, cfg):
                       got[i], ref[i], dtype)
             args = (q, kk, v, *ref, do)
             got, ref = flash_attention_bwd(*args), flash_bwd_ref(*args)
+            # the plain version with the head dims reversed: the same sums in
+            # another order, for the rows that are rounding noise in fp32
+            alt = None
+            if dtype == torch.float32 and len(case) > 5:
+                qa, ka, va, oa, ma, la, da = args
+                alt = [t.flip(-1) for t in flash_bwd_ref(qa.flip(-1), ka.flip(-1), va.flip(-1),
+                                                         oa.flip(-1), ma, la, da.flip(-1))]
+                # each row's position: dq's rows are queries, dk's and dv's keys
+                at = torch.arange(q.shape[1], device="cuda")
+                positions = {"dq": at[None, :, None, None].expand(q.shape[:-1]),
+                             "dk": at[None, :, None].expand(kk.shape[:-1]),
+                             "dv": at[None, :, None].expand(v.shape[:-1])}
             for i, what in enumerate(("dq", "dk", "dv")):
-                check("flash_attention_bwd", f"flash_attention_bwd {what} {case} {dtype}",
-                      got[i], ref[i], dtype)
-            del q, kk, v, do, got, ref, args
-        for m, n in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+                label = f"flash_attention_bwd {what} {case} {dtype}"
+                if alt is None:
+                    check("flash_attention_bwd", label, got[i], ref[i], dtype)
+                else:
+                    e, _, e_rms = check_noise_scaled(
+                        torch, got[i], ref[i], alt[i], TOLERANCE_LADDER[dtype], label,
+                        row_pos=positions[what], zero_pos=0 if what == "dq" else None)
+                    note(errs, "flash_attention_bwd", (e, e_rms))
+            del q, kk, v, do, got, ref, args, alt
+            torch.cuda.empty_cache()
+        for m, n in shapes:
             x, U, s, V = spectral_inputs(torch, M, m, n, k, torch.float32, gen)
             x = x.to(dtype)
             dy = torch.randn((M, n), generator=gen, device="cuda").to(dtype)
@@ -783,17 +905,100 @@ def phase_train_kernels(torch, cfg):
                 check("spectral_matmul" if what == "y" else "spectral_autograd",
                       f"spectral autograd {what} {M}x{m}->{n} {dtype}", g, r, dtype)
         print(f"[kernels] {dtype}: flash_attention_fwd (out, m, l) and flash_attention_bwd "
-              f"(dq, dk, dv) match at (b, s, g, r, d) in {FLASH_CHECKS}; spectral_matmul "
-              f"autograd (y, dx, dU, ds, dV; fp32 factors) matches at M={M}, both MLP shapes")
-    q, kk, v, _ = flash_inputs(torch, 1, 64, 1, 1, 80, torch.bfloat16, gen)
-    try:
-        flash_attention_fwd(q, kk, v)
-    except ValueError as e:
-        print(f"[kernels] flash_attention_fwd refuses head dim 80: {e}")
-    else:
-        raise AssertionError("flash_attention_fwd accepted head dim 80")
+              f"(dq, dk, dv) match at (b, s, g, r, d[, dv]) in {FLASH_CHECKS}; spectral_matmul "
+              f"autograd (y, dx, dU, ds, dV; fp32 factors) matches at M={M}, (m, n) in "
+              f"{list(shapes)}")
+    for d, dv in FLASH_REFUSED:
+        q, kk, v, _ = flash_inputs(torch, 1, 64, 1, 1, d, torch.bfloat16, gen, dv=dv)
+        try:
+            flash_attention_fwd(q, kk, v)
+        except ValueError as e:
+            print(f"[kernels] flash_attention_fwd refuses q/k {d}, v {dv}: {e}")
+        else:
+            raise AssertionError(f"flash_attention_fwd accepted q/k {d}, v {dv}")
+    digests = flash_digests(torch)
+    changed = {case: (d, FLASH_DIGESTS.get(case)) for case, d in digests.items()
+               if d != FLASH_DIGESTS.get(case)}
+    print(f"[kernels] flash digests at (64, 64) and (128, 128): {digests}")
+    if changed:
+        raise AssertionError(f"flash outputs at (64, 64) / (128, 128) changed their bits "
+                             f"(digest, FLASH_DIGESTS'): {changed}")
+    print(f"[kernels] flash outputs at (64, 64) and (128, 128) keep their bits: "
+          f"{len(digests)} digests == FLASH_DIGESTS")
     torch.cuda.synchronize()
     return errs
+
+
+def phase_mla_prefill(torch, device):
+    """One deepseek-v3-671b MLA layer's static prefill at s 4096 on the card
+    (``apply_mla_prefill``: the expanded form, whose attention takes the
+    flash branch at q/k 192 and v 128, which the flash wrappers refused
+    before this slice) against the same call through the flash forward's
+    plain version (``flash_fwd_ref``, the CPU path's attention) on the same
+    tensors: one flash launch, the caches the same bits, and each token's
+    output row within the bf16 ladder at that row's RMS. (The first
+    positions attend to a few keys, so their rows are ~30x the typical
+    one: at the whole tensor's RMS, one bf16 rounding of their attention
+    output moves a near-zero element of wo's sum past the rung's atol; the
+    whole-tensor figure is printed.) Random fp32 weights from the seed,
+    bf16 activations (the legacy precision)."""
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.kernels.flash_ref import flash_fwd_ref
+    from repro_torch.kernels.testing import TOLERANCE_LADDER, kernel_error
+    from repro_torch.nn import attention as attn
+
+    cfg = deepseek_config(1)
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    p = attn.init_mla(cfg, generator=gen, device=device)
+    b, s = 1, DEEPSEEK_TRAIN_SEQ
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=device).to(torch.bfloat16)
+    positions = torch.arange(s, device=device).expand(b, s)
+
+    def prefill():
+        cache = {"ckv": torch.zeros((b, s, cfg.kv_lora_rank), dtype=torch.bfloat16,
+                                    device=device),
+                 "krope": torch.zeros((b, s, cfg.qk_rope_dim), dtype=torch.bfloat16,
+                                      device=device)}
+        with torch.no_grad():
+            return attn.apply_mla_prefill(p, x, cfg, positions=positions, cache=cache)
+
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    out, cache = prefill()
+    torch.cuda.synchronize()
+    launches = {name: LAUNCHES.get(name, 0)
+                for name in ("flash_attention_fwd", "flash_attention_bwd")}
+    if launches != {"flash_attention_fwd": 1, "flash_attention_bwd": 0}:
+        raise AssertionError(f"MLA prefill at s {s}: launches {launches}")
+    kernel_fwd = attn.flash_attention_fwd
+    attn.flash_attention_fwd = flash_fwd_ref
+    try:
+        ref, ref_cache = prefill()
+    finally:
+        attn.flash_attention_fwd = kernel_fwd
+    rung = TOLERANCE_LADDER[torch.bfloat16]
+    got, want = out.float().reshape(b * s, -1), ref.float().reshape(b * s, -1)
+    row_rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt().clamp_min(1e-30)
+    err = (got - want).abs()
+    bad = err > rung.atol * row_rms + rung.rtol * want.abs()
+    row_scaled = float((err / row_rms).max())
+    e = kernel_error(got.cpu().numpy(), want.cpu().numpy())
+    if bool(bad.any()):
+        rows = bad.any(dim=-1).nonzero().flatten().tolist()
+        raise AssertionError(f"MLA prefill at s {s}: {int(bad.sum())} elements beyond the bf16 "
+                             f"rung at their row's RMS, in rows {rows[:8]}")
+    for name in ("ckv", "krope"):
+        if not torch.equal(cache[name], ref_cache[name]):
+            raise AssertionError(f"MLA prefill: the {name} caches differ")
+    print(f"[mla-prefill] one {cfg.name} MLA layer's apply_mla_prefill at b {b}, s {s} (q/k "
+          f"{cfg.qk_nope_dim + cfg.qk_rope_dim}, v {cfg.v_head_dim}, {cfg.n_heads} heads): "
+          f"launches {launches}; every token's row within the bf16 ladder of the plain path at "
+          f"the row's RMS (max error over it {row_scaled:.3e}; over the whole tensor's RMS "
+          f"{e.max_scaled:.3e}, max abs {e.max_abs:.3e}; row RMS from "
+          f"{float(row_rms.min()):.3e} to {float(row_rms.max()):.3e}); the caches the same bits")
+    del p, x, out, ref, cache, ref_cache, got, want, err, bad
+    torch.cuda.empty_cache()
+    return {"mla_prefill": (e.max_abs, row_scaled)}
 
 
 def phase_training(torch, device):
@@ -933,14 +1138,16 @@ def phase_resume(torch, device, arch=TRAIN_ARCH):
     return {"losses": losses, "resumed": tail, "bit_identical": True}
 
 
-def time_flash(torch, b, s, h, g, d, gen, sdpa_gaps=False):
+def time_flash(torch, b, s, h, g, d, gen, sdpa_gaps=False, dv=None):
     """The flash forward and backward against their plain versions and SDPA
-    at (b, s, h heads over g kv heads of d), causal, bf16, in device time
-    only: two calls of each give the same bits; with ``sdpa_gaps`` the
-    largest gaps of their outputs (out; dq, dk, dv) to SDPA's, over SDPA's
-    RMS, are printed beside the plain version's own (SDPA rounds in bf16
-    where the plain version does not: the gate is the plain version's).
-    Returns the (fwd, bwd) timing records."""
+    at (b, s, h heads over g kv heads of d; v heads of dv, d unless given),
+    causal, bf16, in device time only: two calls of each give the same bits;
+    with ``sdpa_gaps`` the largest gaps of their outputs (out; dq, dk, dv)
+    to SDPA's, over SDPA's RMS, are printed beside the plain version's own
+    (SDPA rounds in bf16 where the plain version does not: the gate is the
+    plain version's). The records name the SDPA backend (its kernels'
+    names in a profile of one call). Returns the (fwd, bwd) timing
+    records."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.flash_ref import flash_bwd_ref, flash_fwd_ref
@@ -948,7 +1155,8 @@ def time_flash(torch, b, s, h, g, d, gen, sdpa_gaps=False):
 
     dt = torch.bfloat16
     r = h // g
-    q, k, v, do = flash_inputs(torch, b, s, g, r, d, dt, gen)
+    dv = d if dv is None else dv
+    q, k, v, do = flash_inputs(torch, b, s, g, r, d, dt, gen, dv=dv)
     out, m, l = flash_attention_fwd(q, k, v)
     # deterministic: every sum in a fixed order
     for name, a, c in zip(("out", "m", "l"), (out, m, l), flash_attention_fwd(q, k, v)):
@@ -970,18 +1178,20 @@ def time_flash(torch, b, s, h, g, d, gen, sdpa_gaps=False):
             raise AssertionError(f"flash_attention_bwd {name}: two calls on the same inputs "
                                  "differ")
     print(f"[kernels] flash_attention_fwd and flash_attention_bwd at b={b} s={s} heads={h}/{g} "
-          f"d={d}: two calls give the same bits")
+          f"d={d}/{dv}: two calls give the same bits")
     del ref
 
     # library yardstick: SDPA in its (b, h, s, d) layout, causal; the
     # backward alone is autograd.grad through a recorded SDPA forward
     def heads(t):
-        return t.reshape(b, s, h, d).transpose(1, 2).contiguous()
+        return t.reshape(b, s, h, t.shape[-1]).transpose(1, 2).contiguous()
 
     qh = heads(q)
-    kh, vh = (heads(t[:, :, :, None].expand(b, s, g, r, d)) for t in (k, v))
+    kh, vh = (heads(t[:, :, :, None].expand(b, s, g, r, t.shape[-1])) for t in (k, v))
     fwd["library_ms"] = time_cold(
         torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
+    fwd["library_kernels"] = sdpa_kernels(
+        torch, qh, kh, vh, lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
     qg, kg, vg = (t.detach().requires_grad_() for t in (qh, kh, vh))
     oh = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     doh = heads(do)
@@ -989,12 +1199,17 @@ def time_flash(torch, b, s, h, g, d, gen, sdpa_gaps=False):
         torch, lambda: torch.autograd.grad(oh, (qg, kg, vg), doh, retain_graph=True))
     bwd["library_fwd_bwd_ms"] = time_cold(torch, lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qg, kg, vg, is_causal=True), (qg, kg, vg), doh))
+    bwd["library_kernels"] = sdpa_kernels(
+        torch, qg, kg, vg, lambda: torch.autograd.grad(oh, (qg, kg, vg), doh, retain_graph=True))
+    print(f"[kernels] SDPA at d={d}/{dv} runs {fwd['library_kernels']} forward, "
+          f"{bwd['library_kernels']} backward")
     if sdpa_gaps:
         # SDPA's gradients of the repeated kv heads, summed over each group
         lq, lk, lv = torch.autograd.grad(oh, (qg, kg, vg), doh)
 
         def back(t, grouped):
-            t = t.float().transpose(1, 2).reshape(b, s, g, r, d)
+            t = t.float().transpose(1, 2)
+            t = t.reshape(b, s, g, r, t.shape[-1])
             return t.sum(3) if grouped else t
 
         plain = (flash_fwd_ref(q, k, v)[0], *flash_bwd_ref(q, k, v, out, m, l, do))
@@ -1013,15 +1228,33 @@ def time_flash(torch, b, s, h, g, d, gen, sdpa_gaps=False):
               + "/".join(f"{x:.3e}" for x in gaps[1:]) + " (the plain version's "
               + "/".join(f"{x:.3e}" for x in plain_gaps[1:]) + ")")
         del lq, lk, lv, plain
-    act = b * s * h * d * 2                                # one (b, s, h, d) bf16 tensor
-    kv = b * s * g * d * 2
+    qb, ob = b * s * h * d * 2, b * s * h * dv * 2        # q (and dq), out (and dout) bf16
+    kb, vb = b * s * g * d * 2, b * s * g * dv * 2         # k (and dk), v (and dv)
     stats = b * s * h * 4                                  # one (b, s, g, r) fp32 tensor
-    fwd["flops"] = 2 * 2 * b * h * s * s * d / 2           # QK^T and PV, causal half
-    fwd["bytes"] = 2 * act + 2 * kv + 2 * stats            # q, k, v in; out, m, l out
-    bwd["flops"] = 2.5 * fwd["flops"]                      # S, dP, dV, dQ, dK
-    bwd["bytes"] = 3 * act + 2 * kv + 2 * stats + act + 2 * kv   # q k v out do m l in; dq dk dv
+    pairs = b * h * s * s / 2                              # causal (query, key) pairs
+    fwd["flops"] = 2 * pairs * (d + dv)                    # QK^T and PV
+    fwd["bytes"] = qb + kb + vb + ob + 2 * stats           # q, k, v in; out, m, l out
+    bwd["flops"] = 2 * pairs * (3 * d + 2 * dv)            # S, dQ, dK (d); dP, dV (dv)
+    bwd["bytes"] = (qb + kb + vb + 2 * ob + 2 * stats) + (qb + kb + vb)   # in; dq dk dv out
     del qh, kh, vh, qg, kg, vg, oh, doh, q, k, v, do, out, m, l, first
     return fwd, bwd
+
+
+def sdpa_kernels(torch, q, k, v, fn):
+    """Which backend SDPA picks for (q, k, v), causal
+    (``torch._fused_sdp_choice``, the choice its dispatch makes), and the
+    device kernels one warm call of ``fn`` runs, by name, from a profile
+    (the profiler drops kernel records now and then: then none)."""
+    from torch.nn.attention import SDPBackend
+    from torch.profiler import ProfilerActivity, profile
+
+    backend = SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [backend] + sorted({key[:80] for _, _, key in device_rows(torch, prof)})
 
 
 def phase_train_timing(torch, cfg, launches, errs):
@@ -1076,22 +1309,69 @@ def mlstm_bwd_cotangents(torch, y, fin, finals, seed):
     return dy, dfin
 
 
-def check_noise_scaled(torch, got, ref, alt, rung, label):
+def check_noise_scaled(torch, got, ref, alt, rung, label, row_pos=None, zero_pos=None):
     """``kernel_error`` and ``assert_scaled_close`` of ``got`` against
     ``ref`` on the card, with the scale of ``noise_scale`` (``alt``: the
-    plain version with its sums in another order). Returns (max abs error,
-    the same over the scale, the same over the RMS)."""
+    plain version with its sums in another order). With ``row_pos`` (each
+    row's sequence position; a row is the last axis) each row is scaled by
+    the larger of the tensor's RMS and its own (fp32 rounding grows with a
+    row's size), and only the rows at ``zero_pos``, zero in exact
+    arithmetic (a first query position's dq), by the larger of the RMS and
+    NOISE_FACTOR times their distance to ``alt`` over the rung's atol: the
+    plain version's value there is its rounding noise. Returns (max abs
+    error, the same over the scale, the same over the RMS)."""
     from repro_torch.kernels.testing import NOISE_FACTOR
 
     got, ref, alt = got.float(), ref.float(), alt.float()
     rms = float(ref.pow(2).mean().sqrt()) or 1.0
-    scale = max(rms, NOISE_FACTOR * float((ref - alt).abs().max()) / rung.atol)
+    if row_pos is not None:
+        got, ref, alt = (t.reshape(-1, t.shape[-1]) for t in (got, ref, alt))
+        pos = row_pos.reshape(-1)
+        own = ref.pow(2).mean(dim=-1).sqrt()
+        zero = pos == zero_pos if zero_pos is not None else torch.zeros_like(pos, dtype=torch.bool)
+        noise = NOISE_FACTOR * (ref - alt).abs().amax(dim=-1) / rung.atol
+        scale = torch.where(zero, torch.clamp(noise, min=rms), torch.clamp(own, min=rms))[:, None]
+    else:
+        scale = max(rms, NOISE_FACTOR * float((ref - alt).abs().max()) / rung.atol)
     err = (got - ref).abs()
+    top = float(scale.max()) if row_pos is not None else scale
     if not bool((err <= rung.atol * scale + rung.rtol * ref.abs()).all()):
         raise AssertionError(f"{label}: kernel vs plain version beyond the rung (max error "
-                             f"{float(err.max()):.3e}, scale {scale:.3e}, RMS {rms:.3e})")
+                             f"{float(err.max()):.3e}, scale up to {top:.3e}, RMS {rms:.3e})")
+    if row_pos is not None:
+        big, held = ~zero & (own > rms), zero & (noise > rms)
+        print(f"[kernels] {label}: {int(big.sum())} of {big.numel()} rows at their own RMS"
+              + (f" (positions {int(pos[big].min())}..{int(pos[big].max())}, up to "
+                 f"{float(own[big].max()) / rms:.2f}x the RMS)" if bool(big.any()) else "")
+              + (f"; {int(held.sum())} of {int(zero.sum())} rows at position {zero_pos} held "
+                 f"to their rounding noise" if zero_pos is not None else "")
+              + (f" (up to {float(noise[held].max()) / rms:.2f}x the RMS)"
+                 if bool(held.any()) else ""))
     e = float(err.max())
-    return e, e / scale, e / rms
+    return e, float((err / scale).max()), e / rms
+
+
+def compare_on_card(torch, got, ref, dtype, label):
+    """``compare_kernel``'s check on the card's tensors: ``got`` and ``ref``,
+    divided by ``ref``'s RMS, agree within ``dtype``'s rung (the test of
+    ``assert_scaled_close``; a NaN fails), without copying outputs of 200 M
+    elements to the host. Returns (max abs error, the same over the RMS)."""
+    from repro_torch.kernels.testing import TOLERANCE_LADDER
+
+    if tuple(got.shape) != tuple(ref.shape):
+        raise AssertionError(f"{label}: kernel shape {tuple(got.shape)} != reference shape "
+                             f"{tuple(ref.shape)}")
+    rung = TOLERANCE_LADDER[dtype]
+    g, r = got.detach().float(), ref.detach().float()
+    rms = float(r.pow(2).mean().sqrt()) or 1.0
+    err = (g - r).abs()
+    bad = ~(err <= rung.atol * rms + rung.rtol * r.abs())
+    if bool(bad.any()):
+        raise AssertionError(f"{label}: kernel vs reference: {int(bad.sum())} of {bad.numel()} "
+                             f"elements beyond the rung (max error {float(err.max()):.3e}, "
+                             f"RMS {rms:.3e})")
+    e = float(err.max())
+    return e, e / rms
 
 
 def phase_mlstm_bwd_kernels(torch):
@@ -1274,7 +1554,7 @@ def train_cell(torch, device, cfg, tag, what, b, s, steps, expect, profiled_step
 
 
 def phase_xlstm_training(torch, device):
-    """T: xlstm-1.3b at full width cut to 16 blocks through ``train_cell``,
+    """T: xlstm-1.3b at full width cut to 8 blocks through ``train_cell``,
     then one sLSTM block's forward, recompute and backward on the host
     clock."""
     from repro_torch.checkpoint.store import flatten, unflatten
@@ -1291,8 +1571,8 @@ def phase_xlstm_training(torch, device):
     # recompute (the spectral backward is plain GEMMs)
     expect = {"mlstm_chunk": 2 * n_mlstm, "mlstm_chunk_bwd": n_mlstm,
               "spectral_matmul": 4 * cfg.n_layers}
-    # step 2 runs under the profiler (the sLSTM's loop makes ~750K kernels a
-    # step at 16 blocks); the warm median reads steps 3-6
+    # step 2 runs under the profiler (the sLSTM's loop makes ~375K kernels a
+    # step at 8 blocks, ~750K at 16); the warm median reads steps 3-6
     record, state = train_cell(
         torch, device, cfg, "xlstm-train",
         f"{cfg.name} cut to {cfg.n_layers} blocks ({n_periods(cfg)} period(s): {n_mlstm} mLSTM "
@@ -1575,6 +1855,82 @@ def phase_jamba_training(torch, device):
         JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ, JAMBA_TRAIN_STEPS, expect, TRAIN_PROFILED_STEP)
     del state
     return record
+
+
+def deepseek_train_config():
+    from repro_torch.config import get_config
+
+    return get_config(DEEPSEEK_ARCH).replace(n_layers=DEEPSEEK_TRAIN_LAYERS)
+
+
+def phase_deepseek_training(torch, device):
+    """D: deepseek-v3-671b at full width cut to 4 layers (3 dense + 1 MoE)
+    through ``train_cell``, at the config's capacity factor 1.25; then every
+    routed expert must have got tokens: each expert's slice of every routed
+    factor has a non-zero Adam first moment."""
+    from repro_torch.checkpoint.store import flatten
+
+    cfg = deepseek_train_config()
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    # per step: the flash forward twice an MLA layer (forward and remat
+    # recompute), its backward once; three spectral projections a dense MLP
+    # and a shared expert, forward and recompute (the spectral backward is
+    # plain GEMMs; the routed experts are batched GEMMs, MLA's projections
+    # dense GEMMs)
+    expect = {"flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+              "spectral_matmul": 2 * spectral_per_forward(cfg)}
+    record, state = train_cell(
+        torch, device, cfg, "deepseek-train",
+        f"{cfg.name} cut to {cfg.n_layers} layers ({cfg.first_dense_layers} dense + {n_moe} MoE "
+        f"of {cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts} shared), MLA "
+        f"{cfg.n_heads} heads (q/k {cfg.qk_nope_dim}+{cfg.qk_rope_dim}, v {cfg.v_head_dim}, "
+        f"q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}), d_ff {cfg.d_ff}, moe_d_ff "
+        f"{cfg.moe_d_ff}, capacity factor {cfg.capacity_factor}",
+        DEEPSEEK_TRAIN_BATCH, DEEPSEEK_TRAIN_SEQ, DEEPSEEK_TRAIN_STEPS, expect,
+        TRAIN_PROFILED_STEP)
+    mu = flatten(state["opt"]["mu"])
+    routed = [key for key in mu if key.startswith("moe_layers/moe/")
+              and key.split("/")[2] in ("gate", "up", "down")]
+    idle = set()
+    for key in routed:
+        m = mu[key]                                  # (layers, experts, ...)
+        per_expert = m.reshape(m.shape[0], m.shape[1], -1).abs().amax(dim=-1)
+        idle |= {(int(i), int(e)) for i, e in (per_expert == 0).nonzero().tolist()}
+    print(f"[deepseek-train] routed experts whose factors got no gradient in "
+          f"{DEEPSEEK_TRAIN_STEPS} steps: {len(idle)} of {n_moe * cfg.n_experts} "
+          f"({sorted(idle)[:8]})")
+    if idle:
+        raise AssertionError(f"deepseek-train: {len(idle)} routed experts got no tokens")
+    fam = record["profile"]["by_family"]
+    print(f"[deepseek-train] step {TRAIN_PROFILED_STEP}'s flash kernels at (192, 128): forward "
+          f"{fam['flash forward']:.1f} ms, backward {fam['flash backward']:.1f} ms of "
+          f"{record['profile']['device_busy_ms']:.1f} ms device-busy")
+    record["routed_experts_idle"] = len(idle)
+    del state
+    return record
+
+
+def phase_deepseek_train_timing(torch, launches, errs):
+    """The flash kernels at deepseek's MLA training shape (b 2, s 4096, 128
+    heads, r 1, q/k 192, v 128, bf16) against their plain versions and
+    SDPA (its backend named), cold L2, in device time only, each beside its
+    bound; their outputs' gaps to SDPA's printed, not gated."""
+    cfg = deepseek_train_config()
+    b, s, h = DEEPSEEK_TRAIN_BATCH, DEEPSEEK_TRAIN_SEQ, cfg.n_heads
+    dk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    fwd, bwd = time_flash(torch, b, s, h, h, dk, gen, sdpa_gaps=True, dv=dv)
+    shape = (f"one deepseek MLA layer in training: b={b} s={s} heads={h} (k expanded: r 1) "
+             f"q/k {dk} v {dv}, causal, bf16")
+    flash = []
+    for name, t in (("flash_attention_fwd", fwd), ("flash_attention_bwd", bwd)):
+        e = {key: t[key] for key in ("ms", "plain_ms", "library_ms", "library_kernels",
+                                     "sdpa_scaled_gap", "plain_sdpa_scaled_gap")}
+        e.update(bound_of(t, "bfloat16"), shape=shape, max_abs_err=t["err"],
+                 max_scaled_err=t["scaled"], launches=launches.get(name, 0))
+        flash.append(e)
+    torch.cuda.empty_cache()
+    return flash
 
 
 def phase_jamba_train_timing(torch, cfg, launches, errs):
@@ -3030,7 +3386,7 @@ def device_rows(torch, prof):
 def device_rows_raw(torch, prof):
     """``device_rows`` summed from the profiler's raw records, without
     building its per-event objects: a training step of the xlstm cell
-    runs ~750K kernels (the sLSTM's loop), over which ``key_averages``
+    runs ~375K kernels (the sLSTM's loop), over which ``key_averages``
     takes minutes."""
     acc = {}
     for ev in prof.profiler.kineto_results.events():
@@ -3166,7 +3522,7 @@ def kernel_entry(name, source, replaces, t, peak_key, shape, launches, errs):
         **bound_of(t, peak_key),
         "library_ms": t["library_ms"], "shape": shape,
     }
-    for key in ("library_fwd_bwd_ms", "bound_tc_ms", "bound_exp_ms", "long_ms",
+    for key in ("library_fwd_bwd_ms", "library_kernels", "bound_tc_ms", "bound_exp_ms", "long_ms",
                 "long_bound_ms", "long_bound_exp_ms", "kernels_a_call", "bound_scratch_ms",
                 "bound_unfused_ms", "walk_blocks_per_sm", "twin_bf16_scaled_gaps"):
         if key in t:
@@ -3204,6 +3560,7 @@ def main() -> int:
         print(f"[card] {smi}")
         errs = phase_kernels(torch, cfg)
         merge_errs(errs, phase_train_kernels(torch, train_cfg))
+        merge_errs(errs, phase_mla_prefill(torch, device))
         lap("kernel checks")
         merge_errs(errs, phase_int8_kernels(torch, cfg))
         lap("int8 kernel checks")
@@ -3291,6 +3648,12 @@ def main() -> int:
         kernel_mamba_bwd, mamba_at_train, flash_hd128 = phase_jamba_train_timing(
             torch, jamba_train_config(), jamba_train["launches"], errs)
         lap("jamba training timing")
+        deepseek_train = phase_deepseek_training(torch, device)
+        torch.cuda.empty_cache()
+        deepseek_train["resume"] = phase_resume(torch, device, arch=DEEPSEEK_ARCH)
+        lap("deepseek training")
+        flash_mla = phase_deepseek_train_timing(torch, deepseek_train["launches"], errs)
+        lap("deepseek training timing")
     except Exception:                            # every phase failure fails the run
         traceback.print_exc()
         return fail("a phase failed")
@@ -3314,6 +3677,10 @@ def main() -> int:
     for kern, at in zip(flash, flash_hd128):
         kern["launches_jamba_train"] = at["launches"]
         kern["at_hd128"] = at
+    for kern, at in zip(flash, flash_mla):
+        kern["launches_deepseek_train"] = at["launches"]
+        kern["at_mla"] = at
+    kernels[0]["launches_deepseek_train"] = deepseek_train["launches"]["spectral_matmul"]
     kernels += (kernels_int8 + [kernel_mlstm, kernel_mamba] + kernels_mla
                 + [kernel_mlstm_bwd, kernel_mamba_bwd])
     for kern in kernels:                        # checks of later phases count too
@@ -3331,7 +3698,9 @@ def main() -> int:
              dict(mlstm_at_train, name="mlstm_chunk (training shape)"),
              dict(mamba_at_train, name="mamba_scan (training shape, recording)"),
              dict(flash_hd128[0], name="flash_attention_fwd (jamba, hd 128)"),
-             dict(flash_hd128[1], name="flash_attention_bwd (jamba, hd 128)")]
+             dict(flash_hd128[1], name="flash_attention_bwd (jamba, hd 128)"),
+             dict(flash_mla[0], name="flash_attention_fwd (deepseek MLA, q/k 192 v 128)"),
+             dict(flash_mla[1], name="flash_attention_bwd (deepseek MLA, q/k 192 v 128)")]
     for kern in kernels + extra:
         lib = "none" if kern["library_ms"] is None else f"{kern['library_ms']:.4f} ms"
         beside = "".join(f", {key} {kern[key]:.4f}"
@@ -3353,6 +3722,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"xlstm_train": xlstm_train}))
     print(json.dumps({"jamba_train": jamba_train}))
+    print(json.dumps({"deepseek_train": deepseek_train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

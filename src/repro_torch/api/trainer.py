@@ -44,7 +44,9 @@ class Trainer:
     """One training run, described by ``spec``, on ``device``.
     ``metrics_cb(step, {name: float})`` fires every ``log_every`` steps of
     :meth:`fit`. Parameters materialize on the first :meth:`fit` /
-    :meth:`step` / :meth:`save`."""
+    :meth:`step` / :meth:`save`. Each step updates the state's parameters
+    and moments in place (``make_train_step``): :attr:`state` returns
+    the live tensors, which later steps change."""
 
     def __init__(self, spec: RunSpec, *, device: DeviceLike = None,
                  metrics_cb: Optional[Callable[[int, Dict], None]] = None):

@@ -7,13 +7,15 @@
 // the JAX package's jnp nn/attention.py:_flash_bwd_impl, which has no
 // Pallas kernel.
 //
-// q (b, sq, g, r, d), k/v (b, skv, g, d), out/dout like q, the softmax
-// statistics m/l and the backward's delta (b, sq, g, r) fp32; T is fp32 or
-// bf16, d is 64 or 128. The reference's casts, in order: Q.K^T and dO.V^T
-// are summed in fp32 and rounded to T once (its einsums return T), then
-// softmax, statistics and accumulators are fp32; p is rounded to T before
-// P.V and ds before dQ/dK; every output is rounded once. (In bf16 the
-// rounding of dO.V^T matters: dp - delta cancels.)
+// q (b, sq, g, r, dk), k (b, skv, g, dk), v (b, skv, g, dv), out/dout
+// (b, sq, g, r, dv), the softmax statistics m/l and the backward's delta
+// (b, sq, g, r) fp32; T is fp32 or bf16, (dk, dv) is (64, 64), (128, 128) or
+// MLA's (192, 128) (deepseek's q/k heads are 128 nope + 64 rope wide, its v
+// heads 128; the scale is 1 / sqrt(dk)). The reference's casts, in order:
+// Q.K^T and dO.V^T are summed in fp32 and rounded to T once (its einsums
+// return T), then softmax, statistics and accumulators are fp32; p is
+// rounded to T before P.V and ds before dQ/dK; every output is rounded
+// once. (In bf16 the rounding of dO.V^T matters: dp - delta cancels.)
 //
 // What bounds it: operations. At the training shape (b 2, s 4096, 32 heads,
 // d 64) the forward does 2 * 2 * b * h * s^2 * d / 2 = 137 GFLOP against
@@ -79,6 +81,17 @@
 // consumer warpgroups); and the dQ kernel costs ~1.1 ms whenever it streams
 // K and V, whether or not it computes, for a reason not yet found
 // (PERF.md). The fp32 backward keeps the shared-memory kernels above.
+//
+// At MLA's widths (q/k 192, v 128: deepseek's expanded attention, 128 heads,
+// r 1) the same kernels run on two widths, DK for Q.K^T, dQ and dK and DV
+// for P.V, O, dO, the delta and dV: the forward with two 64-row warpgroups
+// a block (168 KB of shared memory, one block an SM); the dQ kernel loads
+// Q's and dO's A fragments one product at a time (dQ takes 96 registers a
+// thread); and the dK/dV kernel splits its two warpgroups by product
+// (flash_bwd_dkdv_split_tc_kernel: one warpgroup cannot hold dK and dV).
+// Right first: 7.2 ms forward and 28.9 backward at b 2, s 4096 against
+// bounds of 1.39 and 3.61 (H100 80GB HBM3 at 700 W, PERF.md); the dQ and
+// dK/dV kernels run at 255 registers with a few spills.
 #include <cstdint>
 
 #include "common.cuh"
@@ -90,6 +103,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 64;           // query rows (position, head) per tile
 constexpr float kNegInf = -1e30f;
+constexpr size_t kMaxSmem = 232448;   // the shared memory one block can have (227 KB)
 
 // x rounded to T and back: the rounding of a product the reference's
 // einsum returns in T
@@ -172,26 +186,35 @@ struct QTile {
   }
 };
 
-template <typename T, int D, int BK>
+// The kv row (b, position, kv head) of position kp, or -1 past skv; its
+// K row starts at row * DK, its V row at row * DV.
+__device__ __forceinline__ long long kv_index(int bi, int kp, int skv, int G, int gi) {
+  return kp < skv ? (static_cast<long long>(bi) * skv + kp) * G + gi : -1LL;
+}
+
+// DK: the width of q and k (Q.K^T's depth, dQ and dK); DV: the width of v,
+// out and dout (P.V's, the delta's, dV's). DK == DV but at MLA's (192, 128).
+template <typename T, int DK, int DV, int BK>
 struct FwdSmem {
-  static constexpr int kLd = ld_of<T>(D), kLds = ldf_of(BK), kLdp = ld_of<T>(BK),
-                       kLdo = ldf_of(D);
+  static constexpr int kLdk = ld_of<T>(DK), kLdv = ld_of<T>(DV), kLds = ldf_of(BK),
+                       kLdp = ld_of<T>(BK), kLdo = ldf_of(DV);
   static constexpr size_t kBytes =
-      sizeof(T) * (size_t)(kRows * kLd + 2 * BK * kLd + kRows * kLdp) +
+      sizeof(T) * (size_t)(kRows * kLdk + BK * kLdk + BK * kLdv + kRows * kLdp) +
       sizeof(float) * (size_t)(kRows * kLds + kRows * kLdo + 2 * kRows);
+  static_assert(kBytes <= kMaxSmem, "one block's shared memory");
 };
 
-template <typename T, int D, int BK>
+template <typename T, int DK, int DV, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
                  int sq, int skv, int G, int r, int causal, float scale) {
-  using S = FwdSmem<T, D, BK>;
+  using S = FwdSmem<T, DK, DV, BK>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
-  T* ks = qs + kRows * S::kLd;
-  T* vs = ks + BK * S::kLd;
-  T* ps = vs + BK * S::kLd;
+  T* ks = qs + kRows * S::kLdk;
+  T* vs = ks + BK * S::kLdk;
+  T* ps = vs + BK * S::kLdv;
   float* sc = reinterpret_cast<float*>(ps + kRows * S::kLdp);
   float* o = sc + kRows * S::kLds;
   float* mrow = o + kRows * S::kLdo;
@@ -201,9 +224,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const QTile t{static_cast<int>(blockIdx.y) / G, static_cast<int>(blockIdx.y) % G,
                 static_cast<int>(blockIdx.x) * per, per, r, sq, G};
   const int tid = threadIdx.x;
-  load_rows<T, D>(qs, S::kLd, q, kRows,
-                  [&](int rho) { return t.valid(rho) ? t.stat(rho) * D : -1LL; });
-  for (int i = tid; i < kRows * D; i += kThreads) o[(i / D) * S::kLdo + i % D] = 0.f;
+  load_rows<T, DK>(qs, S::kLdk, q, kRows,
+                   [&](int rho) { return t.valid(rho) ? t.stat(rho) * DK : -1LL; });
+  for (int i = tid; i < kRows * DV; i += kThreads) o[(i / DV) * S::kLdo + i % DV] = 0.f;
   for (int i = tid; i < kRows; i += kThreads) {
     mrow[i] = kNegInf;
     lrow[i] = 0.f;
@@ -215,14 +238,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();   // the previous tile's K/V/P are consumed
-    auto kv_row = [&](int j) {
-      const int kp = k0 + j;
-      return kp < skv ? ((static_cast<long long>(t.bi) * skv + kp) * G + t.gi) * D : -1LL;
-    };
-    load_rows<T, D>(ks, S::kLd, k, BK, kv_row);
-    load_rows<T, D>(vs, S::kLd, v, BK, kv_row);
+    auto kv = [&](int j) { return kv_index(t.bi, k0 + j, skv, G, t.gi); };
+    load_rows<T, DK>(ks, S::kLdk, k, BK, [&](int j) { return kv(j) < 0 ? -1LL : kv(j) * DK; });
+    load_rows<T, DV>(vs, S::kLdv, v, BK, [&](int j) { return kv(j) < 0 ? -1LL : kv(j) * DV; });
     __syncthreads();
-    tile_gemm<kRows, BK, D>(sc, S::kLds, qs, S::kLd, 1, ks, 1, S::kLd, false);
+    tile_gemm<kRows, BK, DK>(sc, S::kLds, qs, S::kLdk, 1, ks, 1, S::kLdk, false);
     __syncthreads();
     {
       float* srow = sc + rho * S::kLds;
@@ -247,7 +267,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       // rescale this thread's half of the row's accumulator
       const float a = expf(m_prev - m_new);
       float* orow = o + rho * S::kLdo;
-      for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) orow[c] *= a;
+      for (int c = half * (DV / 2); c < (half + 1) * (DV / 2); ++c) orow[c] *= a;
       __syncwarp();
       if (half == 0) {
         lrow[rho] = lrow[rho] * a + sum;
@@ -255,13 +275,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
     }
     __syncthreads();
-    tile_gemm<kRows, D, BK>(o, S::kLdo, ps, S::kLdp, 1, vs, S::kLd, 1, true);
+    tile_gemm<kRows, DV, BK>(o, S::kLdo, ps, S::kLdp, 1, vs, S::kLdv, 1, true);
   }
   __syncthreads();
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int row = i / D, c = i % D;
+  for (int i = tid; i < kRows * DV; i += kThreads) {
+    const int row = i / DV, c = i % DV;
     if (t.valid(row))
-      out[t.stat(row) * D + c] =
+      out[t.stat(row) * DV + c] =
           sct::from_float<T>(o[row * S::kLdo + c] / fmaxf(lrow[row], 1e-30f));
   }
   for (int i = tid; i < kRows; i += kThreads) {
@@ -272,31 +292,32 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int D, int BK>
+template <typename T, int DK, int DV, int BK>
 struct DqSmem {
-  static constexpr int kLd = ld_of<T>(D), kLds = ldf_of(BK), kLdp = ld_of<T>(BK),
-                       kLdo = ldf_of(D);
+  static constexpr int kLdk = ld_of<T>(DK), kLdv = ld_of<T>(DV), kLds = ldf_of(BK),
+                       kLdp = ld_of<T>(BK), kLdo = ldf_of(DK);
   static constexpr size_t kBytes =
-      sizeof(T) * (size_t)(2 * kRows * kLd + 2 * BK * kLd + kRows * kLdp) +
+      sizeof(T) * (size_t)(kRows * (kLdk + kLdv) + BK * (kLdk + kLdv) + kRows * kLdp) +
       sizeof(float) * (size_t)(2 * kRows * kLds + kRows * kLdo + 3 * kRows);
+  static_assert(kBytes <= kMaxSmem, "one block's shared memory");
 };
 
 // delta and dQ for one query tile; delta goes to global memory for the
 // dK/dV kernel, which runs after this one on the same stream.
-template <typename T, int D, int BK>
+template <typename T, int DK, int DV, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ out, const T* __restrict__ dout,
                     const float* __restrict__ m_in, const float* __restrict__ l_in,
                     float* __restrict__ delta_out, T* __restrict__ dq, int sq, int skv, int G,
                     int r, int causal, float scale) {
-  using S = DqSmem<T, D, BK>;
+  using S = DqSmem<T, DK, DV, BK>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
-  T* dos = qs + kRows * S::kLd;
-  T* ks = dos + kRows * S::kLd;
-  T* vs = ks + BK * S::kLd;
-  T* dss = vs + BK * S::kLd;
+  T* dos = qs + kRows * S::kLdk;
+  T* ks = dos + kRows * S::kLdv;
+  T* vs = ks + BK * S::kLdk;
+  T* dss = vs + BK * S::kLdv;
   float* sc = reinterpret_cast<float*>(dss + kRows * S::kLdp);
   float* dp = sc + kRows * S::kLds;
   float* dqa = dp + kRows * S::kLds;
@@ -308,19 +329,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const QTile t{static_cast<int>(blockIdx.y) / G, static_cast<int>(blockIdx.y) % G,
                 static_cast<int>(blockIdx.x) * per, per, r, sq, G};
   const int tid = threadIdx.x;
-  auto q_row = [&](int rho) { return t.valid(rho) ? t.stat(rho) * D : -1LL; };
-  load_rows<T, D>(qs, S::kLd, q, kRows, q_row);
-  load_rows<T, D>(dos, S::kLd, dout, kRows, q_row);
-  for (int i = tid; i < kRows * D; i += kThreads) dqa[(i / D) * S::kLdo + i % D] = 0.f;
+  auto q_row = [&](int rho) { return t.valid(rho) ? t.stat(rho) * DK : -1LL; };
+  load_rows<T, DK>(qs, S::kLdk, q, kRows, q_row);
+  load_rows<T, DV>(dos, S::kLdv, dout, kRows,
+                   [&](int rho) { return t.valid(rho) ? t.stat(rho) * DV : -1LL; });
+  for (int i = tid; i < kRows * DK; i += kThreads) dqa[(i / DK) * S::kLdo + i % DK] = 0.f;
   const int rho = tid >> 1, half = tid & 1;
   const int qpos = t.pos(rho);
   {
     // delta = rowsum(dO * O) in fp32, two threads a row
     float dsum = 0.f;
     if (t.valid(rho)) {
-      const T* orow = out + t.stat(rho) * D;
-      const T* drow_g = dout + t.stat(rho) * D;
-      for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c)
+      const T* orow = out + t.stat(rho) * DV;
+      const T* drow_g = dout + t.stat(rho) * DV;
+      for (int c = half * (DV / 2); c < (half + 1) * (DV / 2); ++c)
         dsum = fmaf(sct::to_float(drow_g[c]), sct::to_float(orow[c]), dsum);
     }
     dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
@@ -337,15 +359,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();
-    auto kv_row = [&](int j) {
-      const int kp = k0 + j;
-      return kp < skv ? ((static_cast<long long>(t.bi) * skv + kp) * G + t.gi) * D : -1LL;
-    };
-    load_rows<T, D>(ks, S::kLd, k, BK, kv_row);
-    load_rows<T, D>(vs, S::kLd, v, BK, kv_row);
+    auto kv = [&](int j) { return kv_index(t.bi, k0 + j, skv, G, t.gi); };
+    load_rows<T, DK>(ks, S::kLdk, k, BK, [&](int j) { return kv(j) < 0 ? -1LL : kv(j) * DK; });
+    load_rows<T, DV>(vs, S::kLdv, v, BK, [&](int j) { return kv(j) < 0 ? -1LL : kv(j) * DV; });
     __syncthreads();
-    tile_gemm<kRows, BK, D>(sc, S::kLds, qs, S::kLd, 1, ks, 1, S::kLd, false);
-    tile_gemm<kRows, BK, D>(dp, S::kLds, dos, S::kLd, 1, vs, 1, S::kLd, false);
+    tile_gemm<kRows, BK, DK>(sc, S::kLds, qs, S::kLdk, 1, ks, 1, S::kLdk, false);
+    tile_gemm<kRows, BK, DV>(dp, S::kLds, dos, S::kLdv, 1, vs, 1, S::kLdv, false);
     __syncthreads();
     {
       const float m_r = mrow[rho], l_r = lrow[rho], d_r = drow[rho];
@@ -359,27 +378,28 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       }
     }
     __syncthreads();
-    tile_gemm<kRows, D, BK>(dqa, S::kLdo, dss, S::kLdp, 1, ks, S::kLd, 1, true);
+    tile_gemm<kRows, DK, BK>(dqa, S::kLdo, dss, S::kLdp, 1, ks, S::kLdk, 1, true);
   }
   __syncthreads();
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int row = i / D, c = i % D;
-    if (t.valid(row)) dq[t.stat(row) * D + c] = sct::from_float<T>(dqa[row * S::kLdo + c]);
+  for (int i = tid; i < kRows * DK; i += kThreads) {
+    const int row = i / DK, c = i % DK;
+    if (t.valid(row)) dq[t.stat(row) * DK + c] = sct::from_float<T>(dqa[row * S::kLdo + c]);
   }
 }
 
-template <typename T, int D, int BK>
+template <typename T, int DK, int DV, int BK>
 struct DkvSmem {
-  static constexpr int kLd = ld_of<T>(D), kLds = ldf_of(BK), kLdp = ld_of<T>(BK),
-                       kLdo = ldf_of(D);
+  static constexpr int kLdk = ld_of<T>(DK), kLdv = ld_of<T>(DV), kLds = ldf_of(BK),
+                       kLdp = ld_of<T>(BK), kLdok = ldf_of(DK), kLdov = ldf_of(DV);
   static constexpr size_t kBytes =
-      sizeof(T) * (size_t)(2 * BK * kLd + 2 * kRows * kLd + 2 * kRows * kLdp) +
-      sizeof(float) * (size_t)(2 * BK * kLdo + 2 * kRows * kLds + 3 * kRows);
+      sizeof(T) * (size_t)((BK + kRows) * (kLdk + kLdv) + 2 * kRows * kLdp) +
+      sizeof(float) * (size_t)(BK * (kLdok + kLdov) + 2 * kRows * kLds + 3 * kRows);
+  static_assert(kBytes <= kMaxSmem, "one block's shared memory");
 };
 
 // dK and dV for one kv tile, summed over every query tile at or after it
 // and over the r heads of the group.
-template <typename T, int D, int BK>
+template <typename T, int DK, int DV, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
@@ -387,17 +407,17 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ delta_in, T* __restrict__ dk,
                       T* __restrict__ dv, int sq, int skv, int G, int r, int causal,
                       float scale) {
-  using S = DkvSmem<T, D, BK>;
+  using S = DkvSmem<T, DK, DV, BK>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);
-  T* vs = ks + BK * S::kLd;
-  T* qs = vs + BK * S::kLd;
-  T* dos = qs + kRows * S::kLd;
-  T* ps = dos + kRows * S::kLd;
+  T* vs = ks + BK * S::kLdk;
+  T* qs = vs + BK * S::kLdv;
+  T* dos = qs + kRows * S::kLdk;
+  T* ps = dos + kRows * S::kLdv;
   T* dss = ps + kRows * S::kLdp;
   float* dka = reinterpret_cast<float*>(dss + kRows * S::kLdp);
-  float* dva = dka + BK * S::kLdo;
-  float* sc = dva + BK * S::kLdo;
+  float* dva = dka + BK * S::kLdok;
+  float* sc = dva + BK * S::kLdov;
   float* dp = sc + kRows * S::kLds;
   float* mrow = dp + kRows * S::kLds;
   float* lrow = mrow + kRows;
@@ -406,16 +426,11 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bi = static_cast<int>(blockIdx.y) / G, gi = static_cast<int>(blockIdx.y) % G;
   const int k0 = static_cast<int>(blockIdx.x) * BK;
   const int tid = threadIdx.x;
-  auto kv_row = [&](int j) {
-    const int kp = k0 + j;
-    return kp < skv ? ((static_cast<long long>(bi) * skv + kp) * G + gi) * D : -1LL;
-  };
-  load_rows<T, D>(ks, S::kLd, k, BK, kv_row);
-  load_rows<T, D>(vs, S::kLd, v, BK, kv_row);
-  for (int i = tid; i < BK * D; i += kThreads) {
-    dka[(i / D) * S::kLdo + i % D] = 0.f;
-    dva[(i / D) * S::kLdo + i % D] = 0.f;
-  }
+  auto kv = [&](int j) { return kv_index(bi, k0 + j, skv, G, gi); };
+  load_rows<T, DK>(ks, S::kLdk, k, BK, [&](int j) { return kv(j) < 0 ? -1LL : kv(j) * DK; });
+  load_rows<T, DV>(vs, S::kLdv, v, BK, [&](int j) { return kv(j) < 0 ? -1LL : kv(j) * DV; });
+  for (int i = tid; i < BK * DK; i += kThreads) dka[(i / DK) * S::kLdok + i % DK] = 0.f;
+  for (int i = tid; i < BK * DV; i += kThreads) dva[(i / DV) * S::kLdov + i % DV] = 0.f;
   const int per = kRows / r;
   const int rho = tid >> 1, half = tid & 1;
   // causal: query positions before k0 see none of this tile
@@ -424,9 +439,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int q0 = q_first; q0 < sq; q0 += per) {
     const QTile t{bi, gi, q0, per, r, sq, G};
     __syncthreads();   // the previous query tile is consumed
-    auto q_row = [&](int row) { return t.valid(row) ? t.stat(row) * D : -1LL; };
-    load_rows<T, D>(qs, S::kLd, q, kRows, q_row);
-    load_rows<T, D>(dos, S::kLd, dout, kRows, q_row);
+    load_rows<T, DK>(qs, S::kLdk, q, kRows,
+                     [&](int row) { return t.valid(row) ? t.stat(row) * DK : -1LL; });
+    load_rows<T, DV>(dos, S::kLdv, dout, kRows,
+                     [&](int row) { return t.valid(row) ? t.stat(row) * DV : -1LL; });
     for (int i = tid; i < kRows; i += kThreads) {
       const bool ok = t.valid(i);
       mrow[i] = ok ? m_in[t.stat(i)] : 0.f;
@@ -434,8 +450,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       drow[i] = ok ? delta_in[t.stat(i)] : 0.f;
     }
     __syncthreads();
-    tile_gemm<kRows, BK, D>(sc, S::kLds, qs, S::kLd, 1, ks, 1, S::kLd, false);
-    tile_gemm<kRows, BK, D>(dp, S::kLds, dos, S::kLd, 1, vs, 1, S::kLd, false);
+    tile_gemm<kRows, BK, DK>(sc, S::kLds, qs, S::kLdk, 1, ks, 1, S::kLdk, false);
+    tile_gemm<kRows, BK, DV>(dp, S::kLds, dos, S::kLdv, 1, vs, 1, S::kLdv, false);
     __syncthreads();
     {
       const bool ok = t.valid(rho);
@@ -453,26 +469,26 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     // dV += P^T dO and dK += dS^T Q: A(m = kv, k = query row) = P[k][m]
-    tile_gemm<BK, D, kRows>(dva, S::kLdo, ps, 1, S::kLdp, dos, S::kLd, 1, true);
-    tile_gemm<BK, D, kRows>(dka, S::kLdo, dss, 1, S::kLdp, qs, S::kLd, 1, true);
+    tile_gemm<BK, DV, kRows>(dva, S::kLdov, ps, 1, S::kLdp, dos, S::kLdv, 1, true);
+    tile_gemm<BK, DK, kRows>(dka, S::kLdok, dss, 1, S::kLdp, qs, S::kLdk, 1, true);
   }
   __syncthreads();
-  for (int i = tid; i < BK * D; i += kThreads) {
-    const int row = i / D, c = i % D;
-    const long long off = kv_row(row);
-    if (off >= 0) {
-      dk[off + c] = sct::from_float<T>(dka[row * S::kLdo + c]);
-      dv[off + c] = sct::from_float<T>(dva[row * S::kLdo + c]);
-    }
+  for (int i = tid; i < BK * DK; i += kThreads) {
+    const int row = i / DK, c = i % DK;
+    if (kv(row) >= 0) dk[kv(row) * DK + c] = sct::from_float<T>(dka[row * S::kLdok + c]);
+  }
+  for (int i = tid; i < BK * DV; i += kThreads) {
+    const int row = i / DV, c = i % DV;
+    if (kv(row) >= 0) dv[kv(row) * DV + c] = sct::from_float<T>(dva[row * S::kLdov + c]);
   }
 }
 
-template <typename T, int D, int BK>
+template <typename T, int DK, int DV, int BK>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* m,
                        void* l, int b, int sq, int skv, int G, int r, int causal, float scale,
                        cudaStream_t stream) {
-  using S = FwdSmem<T, D, BK>;
-  auto kernel = flash_fwd_kernel<T, D, BK>;
+  using S = FwdSmem<T, DK, DV, BK>;
+  auto kernel = flash_fwd_kernel<T, DK, DV, BK>;
   cudaError_t err = sct::allow_smem(kernel, S::kBytes);
   if (err != cudaSuccess) return err;
   const int per = kRows / r;
@@ -484,28 +500,28 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, v
   return cudaGetLastError();
 }
 
-template <typename T, int D, int BK>
+template <typename T, int DK, int DV, int BK>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* out,
                        const void* dout, const void* m, const void* l, void* delta, void* dq,
                        void* dk, void* dv, int b, int sq, int skv, int G, int r, int causal,
                        float scale, cudaStream_t stream) {
-  auto dq_kernel = flash_bwd_dq_kernel<T, D, BK>;
-  auto dkdv_kernel = flash_bwd_dkdv_kernel<T, D, BK>;
-  cudaError_t err = sct::allow_smem(dq_kernel, DqSmem<T, D, BK>::kBytes);
+  using Sq = DqSmem<T, DK, DV, BK>;
+  using Skv = DkvSmem<T, DK, DV, BK>;
+  auto dq_kernel = flash_bwd_dq_kernel<T, DK, DV, BK>;
+  auto dkdv_kernel = flash_bwd_dkdv_kernel<T, DK, DV, BK>;
+  cudaError_t err = sct::allow_smem(dq_kernel, Sq::kBytes);
   if (err != cudaSuccess) return err;
-  err = sct::allow_smem(dkdv_kernel, DkvSmem<T, D, BK>::kBytes);
+  err = sct::allow_smem(dkdv_kernel, Skv::kBytes);
   if (err != cudaSuccess) return err;
   const int per = kRows / r;
-  dq_kernel<<<dim3((sq + per - 1) / per, b * G), kThreads, DqSmem<T, D, BK>::kBytes,
-              stream>>>(
+  dq_kernel<<<dim3((sq + per - 1) / per, b * G), kThreads, Sq::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(out), static_cast<const T*>(dout), static_cast<const float*>(m),
       static_cast<const float*>(l), static_cast<float*>(delta), static_cast<T*>(dq), sq, skv,
       G, r, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<<<dim3((skv + BK - 1) / BK, b * G), kThreads, DkvSmem<T, D, BK>::kBytes,
-                stream>>>(
+  dkdv_kernel<<<dim3((skv + BK - 1) / BK, b * G), kThreads, Skv::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(m), static_cast<const float*>(l),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), sq, skv, G,
@@ -591,6 +607,33 @@ __device__ __forceinline__ void load_rows_cm(unsigned char* dst, const bf16* src
   }
 }
 
+// Stage kBN kv rows (global rows base + row G, `rows` of them present) of
+// K (DK wide) into ks and V (DV <= DK wide) into vs, kThr threads each
+// copying its share: one loop over K's chunks, each with V's chunk of the
+// same index beside it while V has one. At DK == DV that is the same row
+// and column of V, so its address is K's.
+template <int DK, int DV, int kBN, int kThr>
+__device__ __forceinline__ void stage_kv(unsigned char* ks, unsigned char* vs,
+                                         const bf16* k, const bf16* v, long long base,
+                                         int rows, int G, int tid) {
+  static_assert(DV <= DK && kBN * (DK / 8) % kThr == 0 && kBN * (DV / 8) % kThr == 0,
+                "whole K/V chunks a thread");
+#pragma unroll
+  for (int u = 0; u < kBN * (DK / 8) / kThr; ++u) {
+    int row, c8;
+    cm_chunk<DK>(tid + u * kThr, row, c8);
+    long long off = (base + static_cast<long long>(row) * G) * DK + c8 * 8;
+    tc::cp_async16(ks + cm_off<DK>(row, c8), row < rows ? k + off : k, row < rows);
+    if (u < kBN * (DV / 8) / kThr) {
+      if (DK != DV) {
+        cm_chunk<DV>(tid + u * kThr, row, c8);
+        off = (base + static_cast<long long>(row) * G) * DV + c8 * 8;
+      }
+      tc::cp_async16(vs + cm_off<DV>(row, c8), row < rows ? v + off : v, row < rows);
+    }
+  }
+}
+
 // The chunks of a 64-row query tile a thread copies, mapped once a block:
 // chunk u is row `row` (position pr = row / r, head rr = row % r of the
 // group; ok if the tile has the row), 16-byte column c8, at shared offset
@@ -666,6 +709,22 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// acc (64 x N fp32) += A (64 x 16, registers) . rows k0 .. k0 + 15 of a
+// core-matrix tile of N-wide rows as the MN-major B operand: one wgmma at N
+// 64 or 128; at 192 one over columns 0-127 and one over 128-191 (16 core
+// matrices, 2048 bytes, further along the row), whose n8 tiles 16-23 are
+// acc[64 ..] in the accumulator layout.
+template <int N>
+__device__ __forceinline__ void wgmma_mn(float* acc, const uint32_t* a,
+                                         const unsigned char* tile, int k0) {
+  if constexpr (N == 192) {
+    tc::wgmma_bf16<128, 1>(acc, a, desc_mnmajor<192>(tile, k0), 1);
+    tc::wgmma_bf16<64, 1>(acc + 64, a, desc_mnmajor<192>(tile + 16 * 128, k0), 1);
+  } else {
+    tc::wgmma_bf16<N, 1>(acc, a, desc_mnmajor<N>(tile, k0), 1);
+  }
+}
+
 // ---- the bf16 forward ----
 //
 // kWG warpgroups a block, each owning one 64-row query tile (the block's
@@ -677,29 +736,30 @@ __device__ __forceinline__ void fence_async_smem() {
 // p to bf16 as the A operand and adds P V into O (V the MN-major B
 // operand); O, m and l stay in registers across the kv loop.
 constexpr int kFwdAhead = 2;   // K/V tiles in flight ahead of the one computed
-template <int D, int kWG>
+template <int DK, int DV, int kWG>
 struct FwdTc {
   static constexpr int kBN = 64;                                // kv rows a tile
   static constexpr int kThreads = kWG * kWgThreads;
-  static constexpr size_t kKV = (size_t)kBN * D * 2;            // one K or V tile
-  static constexpr size_t kBytes = kWG * (size_t)TcTile<D>::kTile + (kFwdAhead + 1) * 2 * kKV;
-  // registers: O (D / 2 a thread), S (kBN / 2) and the A fragments
-  static constexpr int kMinBlocks = D == 64 ? 4 / kWG : 2 / kWG;
-  static_assert(kBN * (D / 8) % kThreads == 0, "whole K/V chunks a thread");
+  static constexpr size_t kK = (size_t)kBN * DK * 2, kV = (size_t)kBN * DV * 2;   // K, V tile
+  static constexpr size_t kBytes = kWG * (size_t)TcTile<DK>::kTile + (kFwdAhead + 1) * (kK + kV);
+  // registers: O (DV / 2 a thread), S (kBN / 2) and the A fragments; at
+  // (192, 128) shared memory holds one block an SM
+  static constexpr int kMinBlocks = DK == 64 ? 4 / kWG : DK == 128 ? 2 / kWG : 1;
+  static_assert(kBytes <= kMaxSmem, "one block's shared memory");
 };
 
 // out, m and l for kWG consecutive 64-row query tiles of one (batch, kv
 // head). Blocks are numbered heaviest first: block i takes the (b, g) pair
 // i % (b G) of tile group n - 1 - i / (b G), so the groups with the most kv
 // tiles start first and the light ones fill the tail.
-template <int D, int kWG>
-__global__ void __launch_bounds__(FwdTc<D, kWG>::kThreads, FwdTc<D, kWG>::kMinBlocks)
+template <int DK, int DV, int kWG>
+__global__ void __launch_bounds__(FwdTc<DK, DV, kWG>::kThreads, FwdTc<DK, DV, kWG>::kMinBlocks)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
                     float* __restrict__ m_out, float* __restrict__ l_out, int sq, int skv,
                     int G, int r, int causal, float scale, int n_pairs, int n_groups) {
-  using B = TcTile<D>;
-  using F = FwdTc<D, kWG>;
+  using B = TcTile<DK>;
+  using F = FwdTc<DK, DV, kWG>;
   constexpr int kBN = F::kBN, kNS = kBN / 8, kRing = kFwdAhead + 1;
   extern __shared__ __align__(128) unsigned char smem_tc[];
   unsigned char* ring = smem_tc + kWG * B::kTile;   // kRing x (K tile, V tile)
@@ -713,11 +773,11 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const QTile t{pair / G, pair % G, (group * kWG + wg) * per, per, r, sq, G};
   unsigned char* qs = smem_tc + wg * B::kTile;   // this warpgroup's query tile
 
-  for (int i = wtid; i < kRows * (D / 8); i += kWgThreads) {
+  for (int i = wtid; i < kRows * (DK / 8); i += kWgThreads) {
     int row, c8;
-    cm_chunk<D>(i, row, c8);
+    cm_chunk<DK>(i, row, c8);
     const bool ok = t.valid(row);
-    tc::cp_async16(qs + cm_off<D>(row, c8), ok ? q + t.stat(row) * D + c8 * 8 : q, ok);
+    tc::cp_async16(qs + cm_off<DK>(row, c8), ok ? q + t.stat(row) * DK + c8 * 8 : q, ok);
   }
   tc::cp_async_commit();
   // the block walks the kv tiles its last query row sees; a warpgroup
@@ -730,17 +790,10 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int ntiles = kv_extent(group * kWG * per, kWG * per);
   const int my_tiles = kv_extent(t.q0, per);
   auto issue_kv = [&](int j) {
-    unsigned char* ks = ring + (j % kRing) * 2 * F::kKV;
-    const long long base = (static_cast<long long>(t.bi) * skv + j * kBN) * G + t.gi;
-#pragma unroll
-    for (int u = 0; u < kBN * (D / 8) / F::kThreads; ++u) {
-      int row, c8;
-      cm_chunk<D>(tid + u * F::kThreads, row, c8);
-      const bool ok = j * kBN + row < skv;
-      const long long off = (base + static_cast<long long>(row) * G) * D + c8 * 8;
-      tc::cp_async16(ks + cm_off<D>(row, c8), ok ? k + off : k, ok);
-      tc::cp_async16(ks + F::kKV + cm_off<D>(row, c8), ok ? v + off : v, ok);
-    }
+    unsigned char* ks = ring + (j % kRing) * (F::kK + F::kV);
+    stage_kv<DK, DV, kBN, F::kThreads>(ks, ks + F::kK, k, v,
+                                       (static_cast<long long>(t.bi) * skv + j * kBN) * G + t.gi,
+                                       skv - j * kBN, G, tid);
   };
 #pragma unroll
   for (int j = 0; j < kFwdAhead; ++j) {
@@ -759,9 +812,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lsum[h] = 0.f;
     qpos[h] = t.valid(row) ? t.pos(row) : -1;
   }
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   const float sl2 = scale * kLog2e;
 
   for (int j = 0; j < ntiles; ++j) {
@@ -771,20 +824,20 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (j + kFwdAhead < ntiles) issue_kv(j + kFwdAhead);   // into tile j - 1's buffer
     tc::cp_async_commit();
     if (j >= my_tiles) continue;          // past this warpgroup's last row
-    const unsigned char* ks = ring + (j % kRing) * 2 * F::kKV;
-    const unsigned char* vs = ks + F::kKV;
+    const unsigned char* ks = ring + (j % kRing) * (F::kK + F::kV);
+    const unsigned char* vs = ks + F::kK;
     // S = Q K^T. Q's fragments are loaded for each tile and fenced after
     // the wait (fragments held in registers across tiles did not survive
     // the backward's loop).
     uint32_t qa[B::kKD][4];
 #pragma unroll
-    for (int kk = 0; kk < B::kKD; ++kk) lda_cm<D>(qa[kk], qs, warp * 16, kk * 16);
+    for (int kk = 0; kk < B::kKD; ++kk) lda_cm<DK>(qa[kk], qs, warp * 16, kk * 16);
     float sc[kBN / 2];
     tc::fence_regs<kBN / 2>(sc);
     tc::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < B::kKD; ++kk)
-      tc::wgmma_bf16<kBN, 0>(sc, qa[kk], desc_kmajor<D>(ks, 0, kk), kk > 0);
+      tc::wgmma_bf16<kBN, 0>(sc, qa[kk], desc_kmajor<DK>(ks, 0, kk), kk > 0);
     tc::wgmma_commit();
     tc::wgmma_wait();
     tc::fence_regs<kBN / 2>(sc);
@@ -833,7 +886,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lsum[h] = lsum[h] * alpha[h] + ps[h];
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       o[4 * n] *= alpha[0];
       o[4 * n + 1] *= alpha[0];
       o[4 * n + 2] *= alpha[1];
@@ -843,24 +896,23 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t ap[kNS / 2][4];
 #pragma unroll
     for (int kq = 0; kq < kNS / 2; ++kq) acc_to_a(ap[kq], sc, kq);
-    tc::fence_regs<D / 2>(o);
+    tc::fence_regs<DV / 2>(o);
     tc::wgmma_fence();
 #pragma unroll
-    for (int kq = 0; kq < kNS / 2; ++kq)
-      tc::wgmma_bf16<D, 1>(o, ap[kq], desc_mnmajor<D>(vs, kq * 16), 1);
+    for (int kq = 0; kq < kNS / 2; ++kq) wgmma_mn<DV>(o, ap[kq], vs, kq * 16);
     tc::wgmma_commit();
     tc::wgmma_wait();
-    tc::fence_regs<D / 2>(o);
+    tc::fence_regs<DV / 2>(o);
     tc::fence_regs<kNS / 2>(ap);
   }
   tc::cp_async_wait<0>();
-  __syncthreads();   // every warp is done with Q: its tile stages out
+  __syncthreads();   // every warp is done with Q: its tile stages out (DV wide)
   const float l_lo = fmaxf(lsum[0], 1e-30f), l_hi = fmaxf(lsum[1], 1e-30f);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     const int row = warp * 16 + g, c = n * 8 + 2 * tq;
-    put2<D>(qs, row, c, o[4 * n] / l_lo, o[4 * n + 1] / l_lo);
-    put2<D>(qs, row + 8, c, o[4 * n + 2] / l_hi, o[4 * n + 3] / l_hi);
+    put2<DV>(qs, row, c, o[4 * n] / l_lo, o[4 * n + 1] / l_lo);
+    put2<DV>(qs, row + 8, c, o[4 * n + 2] / l_hi, o[4 * n + 3] / l_hi);
   }
   if (tq == 0) {
 #pragma unroll
@@ -873,21 +925,21 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   __syncthreads();
-  for (int i = wtid; i < kRows * (D / 8); i += kWgThreads) {
+  for (int i = wtid; i < kRows * (DV / 8); i += kWgThreads) {
     int row, c8;
-    cm_chunk<D>(i, row, c8);
+    cm_chunk<DV>(i, row, c8);
     if (t.valid(row))
-      *reinterpret_cast<uint4*>(out + t.stat(row) * D + c8 * 8) =
-          *reinterpret_cast<const uint4*>(qs + cm_off<D>(row, c8));
+      *reinterpret_cast<uint4*>(out + t.stat(row) * DV + c8 * 8) =
+          *reinterpret_cast<const uint4*>(qs + cm_off<DV>(row, c8));
   }
 }
 
-template <int D, int kWG>
+template <int DK, int DV, int kWG>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* out, void* m,
                           void* l, int b, int sq, int skv, int G, int r, int causal,
                           float scale, cudaStream_t stream) {
-  using F = FwdTc<D, kWG>;
-  auto kernel = flash_fwd_tc_kernel<D, kWG>;
+  using F = FwdTc<DK, DV, kWG>;
+  auto kernel = flash_fwd_tc_kernel<DK, DV, kWG>;
   cudaError_t err = sct::allow_smem(kernel, F::kBytes);
   if (err != cudaSuccess) return err;
   const int per = kRows / r;
@@ -901,19 +953,22 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* out
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 struct DqTcSmem {
-  using B = TcTile<D>;
-  static constexpr size_t kKV = (size_t)B::kBN * D * 2;   // one K or V tile
-  static constexpr size_t kBytes =
-      2 * (size_t)B::kTile + (kDqAhead + 1) * 2 * kKV + sizeof(float) * kRows;
+  static constexpr int kBN = 64;                          // kv rows a tile
+  static constexpr size_t kK = (size_t)kBN * DK * 2, kV = (size_t)kBN * DV * 2;   // K, V tile
+  static constexpr size_t kBytes = (size_t)TcTile<DK>::kTile + TcTile<DV>::kTile +
+                                   (kDqAhead + 1) * (kK + kV) + sizeof(float) * kRows;
+  static_assert(kBytes <= kMaxSmem, "one block's shared memory");
 };
 
 // delta and dQ for one 64-row query tile: warp w takes query rows
 // 16 w .. + 16 against every kv tile. The row statistics the dK/dV kernel
 // needs go to `stats` (3 x rows fp32: delta, m log2(e), 1 / l); that
-// kernel runs after this one on the same stream.
-template <int D>
+// kernel runs after this one on the same stream. At (192, 128) S and dP
+// run one after the other, each with its own A fragments (registers: dQ
+// takes 96 a thread).
+template <int DK, int DV>
 __global__ void __launch_bounds__(kWgThreads, 2)
 flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ out,
@@ -921,15 +976,17 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const float* __restrict__ l_in, float* __restrict__ stats,
                        bf16* __restrict__ dq, int sq, int skv, int G, int r, int causal,
                        float scale) {
-  using B = TcTile<D>;
-  using S = DqTcSmem<D>;
-  constexpr int kBN = B::kBN, kNS = kBN / 8;
+  using Bk = TcTile<DK>;
+  using Bv = TcTile<DV>;
+  using S = DqTcSmem<DK, DV>;
+  constexpr int kBN = S::kBN, kNS = kBN / 8;
+  constexpr bool kOneBatch = DK + DV <= 256;   // Q and dO fragments in registers together
   extern __shared__ __align__(128) unsigned char smem_tc[];
   unsigned char* qs = smem_tc;
-  unsigned char* dos = qs + B::kTile;
+  unsigned char* dos = qs + Bk::kTile;
   constexpr int kRing = kDqAhead + 1;
-  unsigned char* ring = dos + B::kTile;   // kRing x (K tile, V tile)
-  float* dsm = reinterpret_cast<float*>(ring + kRing * 2 * S::kKV);   // delta per row
+  unsigned char* ring = dos + Bv::kTile;   // kRing x (K tile, V tile)
+  float* dsm = reinterpret_cast<float*>(ring + kRing * (S::kK + S::kV));   // delta per row
 
   const int per = kRows / r;
   const int qt = static_cast<int>(gridDim.x - 1 - blockIdx.x);   // heaviest tiles first
@@ -940,26 +997,19 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, tq = lane & 3;
   const int rg = warp;
 
-  auto q_row = [&](int rho) { return t.valid(rho) ? t.stat(rho) * D : -1LL; };
-  load_rows_cm<D>(qs, q, kRows, q_row);
-  load_rows_cm<D>(dos, dout, kRows, q_row);
+  auto q_row = [&](int rho) { return t.valid(rho) ? t.stat(rho) * DK : -1LL; };
+  load_rows_cm<DK>(qs, q, kRows, q_row);
+  load_rows_cm<DV>(dos, dout, kRows,
+                   [&](int rho) { return t.valid(rho) ? t.stat(rho) * DV : -1LL; });
   tc::cp_async_commit();
   const int last = min(sq - 1, t.q0 + per - 1);
   const int kv_end = causal ? min(skv, last + 1) : skv;
   const int ntiles = (kv_end + kBN - 1) / kBN;
-  // K and V rows of a kv tile share their offsets: one loop copies both
   auto issue_kv = [&](int j) {
-    unsigned char* ks = ring + (j % kRing) * 2 * S::kKV;
-    const long long base = (static_cast<long long>(t.bi) * skv + j * kBN) * G + t.gi;
-#pragma unroll
-    for (int u = 0; u < kBN * (D / 8) / kWgThreads; ++u) {
-      int row, c8;
-      cm_chunk<D>(tid + u * kWgThreads, row, c8);
-      const bool ok = j * kBN + row < skv;
-      const long long off = (base + static_cast<long long>(row) * G) * D + c8 * 8;
-      tc::cp_async16(ks + cm_off<D>(row, c8), ok ? k + off : k, ok);
-      tc::cp_async16(ks + S::kKV + cm_off<D>(row, c8), ok ? v + off : v, ok);
-    }
+    unsigned char* ks = ring + (j % kRing) * (S::kK + S::kV);
+    stage_kv<DK, DV, kBN, kWgThreads>(ks, ks + S::kK, k, v,
+                                      (static_cast<long long>(t.bi) * skv + j * kBN) * G + t.gi,
+                                      skv - j * kBN, G, tid);
   };
 #pragma unroll
   for (int j = 0; j < kDqAhead; ++j) {
@@ -972,10 +1022,10 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int rho = tid >> 1, part = tid & 1;
     float dsum = 0.f;
     if (t.valid(rho)) {
-      const bf16* orow = out + t.stat(rho) * D + part * (D / 2);
-      const bf16* drow = dout + t.stat(rho) * D + part * (D / 2);
+      const bf16* orow = out + t.stat(rho) * DV + part * (DV / 2);
+      const bf16* drow = dout + t.stat(rho) * DV + part * (DV / 2);
 #pragma unroll
-      for (int c = 0; c < D / 2; c += 8) {
+      for (int c = 0; c < DV / 2; c += 8) {
         const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
         const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
         const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -1014,9 +1064,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 #pragma unroll
   for (int h = 0; h < 2; ++h) dlt[h] = dsm[rg * 16 + g + 8 * h];
-  float dqa[D / 2];
+  float dqa[DK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) dqa[i] = 0.f;
   const float sl2 = scale * kLog2e;
 
   for (int j = 0; j < ntiles; ++j) {
@@ -1025,33 +1075,62 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();                     // and every warp is done with tile j - 1
     if (j + kDqAhead < ntiles) issue_kv(j + kDqAhead);   // into tile j - 1's buffer
     tc::cp_async_commit();
-    const unsigned char* ks = ring + (j % kRing) * 2 * S::kKV;
-    const unsigned char* vs = ks + S::kKV;
+    const unsigned char* ks = ring + (j % kRing) * (S::kK + S::kV);
+    const unsigned char* vs = ks + S::kK;
     // S = Q K^T and dP = dO V^T over the kv tile.
     // A fragments are loaded for each batch and fenced after its wait: ones
     // held in registers across tiles do not survive the loop.
-    uint32_t qa[B::kKD][4], da[B::kKD][4];
-#pragma unroll
-    for (int kk = 0; kk < B::kKD; ++kk) {
-      lda_cm<D>(qa[kk], qs, rg * 16, kk * 16);
-      lda_cm<D>(da[kk], dos, rg * 16, kk * 16);
-    }
     float sc[kBN / 2], dp[kBN / 2];
-    tc::fence_regs<kBN / 2>(sc);
-    tc::fence_regs<kBN / 2>(dp);
-    tc::wgmma_fence();
+    if constexpr (kOneBatch) {
+      uint32_t qa[Bk::kKD][4], da[Bv::kKD][4];
 #pragma unroll
-    for (int kk = 0; kk < B::kKD; ++kk)
-      tc::wgmma_bf16<kBN, 0>(sc, qa[kk], desc_kmajor<D>(ks, 0, kk), kk > 0);
+      for (int kk = 0; kk < Bk::kKD; ++kk) {
+        lda_cm<DK>(qa[kk], qs, rg * 16, kk * 16);
+        lda_cm<DV>(da[kk], dos, rg * 16, kk * 16);
+      }
+      tc::fence_regs<kBN / 2>(sc);
+      tc::fence_regs<kBN / 2>(dp);
+      tc::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < B::kKD; ++kk)
-      tc::wgmma_bf16<kBN, 0>(dp, da[kk], desc_kmajor<D>(vs, 0, kk), kk > 0);
-    tc::wgmma_commit();
-    tc::wgmma_wait();
-    tc::fence_regs<kBN / 2>(sc);
-    tc::fence_regs<kBN / 2>(dp);
-    tc::fence_regs<B::kKD>(qa);
-    tc::fence_regs<B::kKD>(da);
+      for (int kk = 0; kk < Bk::kKD; ++kk)
+        tc::wgmma_bf16<kBN, 0>(sc, qa[kk], desc_kmajor<DK>(ks, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < Bv::kKD; ++kk)
+        tc::wgmma_bf16<kBN, 0>(dp, da[kk], desc_kmajor<DV>(vs, 0, kk), kk > 0);
+      tc::wgmma_commit();
+      tc::wgmma_wait();
+      tc::fence_regs<kBN / 2>(sc);
+      tc::fence_regs<kBN / 2>(dp);
+      tc::fence_regs<Bk::kKD>(qa);
+      tc::fence_regs<Bv::kKD>(da);
+    } else {   // one operand's fragments at a time (registers)
+      {
+        uint32_t qa[Bk::kKD][4];
+#pragma unroll
+        for (int kk = 0; kk < Bk::kKD; ++kk) lda_cm<DK>(qa[kk], qs, rg * 16, kk * 16);
+        tc::fence_regs<kBN / 2>(sc);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < Bk::kKD; ++kk)
+          tc::wgmma_bf16<kBN, 0>(sc, qa[kk], desc_kmajor<DK>(ks, 0, kk), kk > 0);
+        tc::wgmma_commit();
+        tc::wgmma_wait();
+        tc::fence_regs<kBN / 2>(sc);
+        tc::fence_regs<Bk::kKD>(qa);
+      }
+      uint32_t da[Bv::kKD][4];
+#pragma unroll
+      for (int kk = 0; kk < Bv::kKD; ++kk) lda_cm<DV>(da[kk], dos, rg * 16, kk * 16);
+      tc::fence_regs<kBN / 2>(dp);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < Bv::kKD; ++kk)
+        tc::wgmma_bf16<kBN, 0>(dp, da[kk], desc_kmajor<DV>(vs, 0, kk), kk > 0);
+      tc::wgmma_commit();
+      tc::wgmma_wait();
+      tc::fence_regs<kBN / 2>(dp);
+      tc::fence_regs<Bv::kKD>(da);
+    }
     // p = exp(round(S) scale - m) / l, ds = p (round(dP) - delta) scale
     const int kbase = j * kBN;
     const bool edge = kbase + kBN > skv || (causal && kbase + kBN - 1 > t.q0);
@@ -1069,26 +1148,25 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t as[kNS / 2][4];
 #pragma unroll
     for (int kq = 0; kq < kNS / 2; ++kq) acc_to_a(as[kq], dp, kq);
-    tc::fence_regs<D / 2>(dqa);
+    tc::fence_regs<DK / 2>(dqa);
     tc::wgmma_fence();
 #pragma unroll
-    for (int kq = 0; kq < kNS / 2; ++kq)
-      tc::wgmma_bf16<D, 1>(dqa, as[kq], desc_mnmajor<D>(ks, kq * 16), 1);
+    for (int kq = 0; kq < kNS / 2; ++kq) wgmma_mn<DK>(dqa, as[kq], ks, kq * 16);
     tc::wgmma_commit();
     tc::wgmma_wait();
-    tc::fence_regs<D / 2>(dqa);
+    tc::fence_regs<DK / 2>(dqa);
     tc::fence_regs<kNS / 2>(as);
   }
   tc::cp_async_wait<0>();
   __syncthreads();   // every warp is done with Q: it stages dQ
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DK / 8; ++n) {
     const int row = rg * 16 + g, c = n * 8 + 2 * tq;
-    put2<D>(qs, row, c, dqa[4 * n], dqa[4 * n + 1]);
-    put2<D>(qs, row + 8, c, dqa[4 * n + 2], dqa[4 * n + 3]);
+    put2<DK>(qs, row, c, dqa[4 * n], dqa[4 * n + 1]);
+    put2<DK>(qs, row + 8, c, dqa[4 * n + 2], dqa[4 * n + 3]);
   }
   __syncthreads();
-  store_rows_cm<D>(dq, qs, kRows, q_row);
+  store_rows_cm<DK>(dq, qs, kRows, q_row);
 }
 
 template <int D>
@@ -1304,59 +1382,324 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows_cm<D>(dv, vs, kBN, kv_row);
 }
 
+// ---- the dK/dV kernel at MLA's widths (DK 192, DV 128) ----
+//
+// One warpgroup cannot hold both sums for 64 kv rows here: dK (64 x 192) and
+// dV (64 x 128) in fp32 take 160 registers a thread before S and dP. So the
+// block's two warpgroups take the same 64 kv rows and split the work by
+// product: warpgroup 0 computes S^T = K Q^T, p and dV += P^T dO; warpgroup 1
+// computes dP^T = V dO^T, then ds from the p that warpgroup 0 hands over
+// through shared memory (fp32, a thread's 32 values in its own slots: the
+// two warpgroups' accumulator layouts agree thread for thread, so the
+// hand-over is the identity), and dK += dS^T Q. Each product runs once, as
+// in the one-warpgroup kernel, and each warpgroup holds one sum (dV's 64
+// registers or dK's 96). A named barrier orders the hand-over; the block's
+// barrier at the top of the loop keeps the next tile's p from overwriting
+// one still being read.
+template <int DK, int DV>
+struct DkvSplitSmem {
+  static constexpr int kBN = 64;                          // kv rows a block
+  static constexpr size_t kK = (size_t)kBN * DK * 2, kV = (size_t)kBN * DV * 2;
+  static constexpr size_t kP = sizeof(float) * kBN * kRows;   // p handed over
+  static constexpr size_t kStage =
+      (size_t)TcTile<DK>::kTile + TcTile<DV>::kTile + sizeof(float) * 3 * kRows;
+  static constexpr size_t kBytes = kK + kV + kP + (kDkvAhead + 1) * kStage;
+  static_assert(kStage % 128 == 0, "stages keep the tiles 128-byte aligned");
+  static_assert(kBytes <= kMaxSmem, "one block's shared memory");
+};
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(2 * kWgThreads, 1)
+flash_bwd_dkdv_split_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                               const float* __restrict__ stats, bf16* __restrict__ dk,
+                               bf16* __restrict__ dv, int sq, int skv, int G, int r, int causal,
+                               float scale) {
+  using S = DkvSplitSmem<DK, DV>;
+  using Bk = TcTile<DK>;
+  using Bv = TcTile<DV>;
+  constexpr int kBN = S::kBN, kNQ = kRows / 8, kRing = kDkvAhead + 1, kThr = 2 * kWgThreads;
+  constexpr int kHandOff = 1;   // the named barrier of the hand-over
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  unsigned char* ks = smem_tc;
+  unsigned char* vs = ks + S::kK;
+  float* pbuf = reinterpret_cast<float*>(vs + S::kV);
+  unsigned char* ring = vs + S::kV + S::kP;   // kRing x (Q, dO, delta, m log2 e, 1 / l)
+
+  const int bi = static_cast<int>(blockIdx.y) / G, gi = static_cast<int>(blockIdx.y) % G;
+  const int k0 = static_cast<int>(blockIdx.x) * kBN;   // tile 0, the heaviest, first
+  const long long n_stat = static_cast<long long>(gridDim.y) * sq * r;
+  const int tid = threadIdx.x, wg = tid / kWgThreads, wtid = tid % kWgThreads;
+  const int warp = wtid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  auto kv = [&](int j) { return kv_index(bi, k0 + j, skv, G, gi); };
+  auto k_row = [&](int j) { return kv(j) < 0 ? -1LL : kv(j) * DK; };
+  auto v_row = [&](int j) { return kv(j) < 0 ? -1LL : kv(j) * DV; };
+  load_rows_cm<DK>(ks, k, kBN, k_row);
+  load_rows_cm<DV>(vs, v, kBN, v_row);
+  tc::cp_async_commit();
+
+  const int per = kRows / r;
+  // causal: query positions before k0 see none of this tile
+  const int q_first = causal ? (k0 / per) * per : 0;
+  const int ntiles = q_first < sq ? (sq - q_first + per - 1) / per : 0;
+  // this thread's Q and dO chunks and its statistic (3 x 64 <= kThr), mapped once
+  constexpr int kQk = kRows * (DK / 8) / kThr, kQv = kRows * (DV / 8) / kThr;
+  static_assert(kRows * (DK / 8) % kThr == 0 && kRows * (DV / 8) % kThr == 0 &&
+                3 * kRows <= kThr, "whole chunks a thread");
+  QChunks<kQk> qk;
+  qk.template init<DK>(tid, kThr, per, r);
+  QChunks<kQv> qv;
+  qv.template init<DV>(tid, kThr, per, r);
+  const int st_rho = tid % kRows, st_pr = st_rho / r, st_rr = st_rho % r;
+  const bool st_has = tid < 3 * kRows, st_ok = st_has && st_rho < per * r;
+  auto issue_q = [&](int j) {
+    unsigned char* st = ring + (j % kRing) * S::kStage;
+    const int q0 = q_first + j * per;
+    const long long head = static_cast<long long>(bi) * sq + q0;   // (bi, q0) position row
+#pragma unroll
+    for (int u = 0; u < kQk; ++u) {
+      const bool ok = qk.ok[u] && q0 + qk.pr[u] < sq;
+      const long long off = (((head + qk.pr[u]) * G + gi) * r + qk.rr[u]) * DK + qk.c8[u] * 8;
+      tc::cp_async16(st + qk.soff[u], ok ? q + off : q, ok);
+    }
+#pragma unroll
+    for (int u = 0; u < kQv; ++u) {
+      const bool ok = qv.ok[u] && q0 + qv.pr[u] < sq;
+      const long long off = (((head + qv.pr[u]) * G + gi) * r + qv.rr[u]) * DV + qv.c8[u] * 8;
+      tc::cp_async16(st + Bk::kTile + qv.soff[u], ok ? dout + off : dout, ok);
+    }
+    if (st_has) {
+      const bool ok = st_ok && q0 + st_pr < sq;
+      const long long at = ((head + st_pr) * G + gi) * r + st_rr;
+      const float* src = stats + (tid / kRows) * n_stat + (ok ? at : 0);
+      tc::cp_async4(reinterpret_cast<float*>(st + Bk::kTile + Bv::kTile) + tid, src, ok);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kDkvAhead; ++j) {
+    if (j < ntiles) issue_q(j);
+    tc::cp_async_commit();
+  }
+
+  const int w0 = warp * 16;        // this warp's kv rows in the tile
+  const int kp_lo = k0 + w0 + g;   // the kv positions of its fragment rows: kp_lo, kp_lo + 8
+  float acc[DK / 2];               // warpgroup 0: dV (its first DV / 2); 1: dK
+#pragma unroll
+  for (int i = 0; i < DK / 2; ++i) acc[i] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  for (int j = 0; j < ntiles; ++j) {
+    tc::cp_async_wait<kDkvAhead - 1>();   // tile j (and K, V) have landed
+    fence_async_smem();
+    __syncthreads();                      // every warp is done with tile j - 1 and its p
+    if (j + kDkvAhead < ntiles) issue_q(j + kDkvAhead);   // into tile j - 1's buffer
+    tc::cp_async_commit();
+    const unsigned char* qs = ring + (j % kRing) * S::kStage;
+    const unsigned char* dos = qs + Bk::kTile;
+    const float* sts = reinterpret_cast<const float*>(dos + Bv::kTile);
+    const int q0 = q_first + j * per;
+    // column c of the accumulators is query row c of the tile
+    const bool edge = (causal && k0 + kBN - 1 > q0) || q0 + per > sq || per * r < kRows;
+    float sd[kRows / 2];
+    if (wg == 0) {
+      // S^T = K Q^T for the tile's 64 kv rows (K's fragments loaded each tile)
+      {
+        uint32_t ka[Bk::kKD][4];
+#pragma unroll
+        for (int kk = 0; kk < Bk::kKD; ++kk) lda_cm<DK>(ka[kk], ks, w0, kk * 16);
+        tc::fence_regs<kRows / 2>(sd);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < Bk::kKD; ++kk)
+          tc::wgmma_bf16<kRows, 0>(sd, ka[kk], desc_kmajor<DK>(qs, 0, kk), kk > 0);
+        tc::wgmma_commit();
+        tc::wgmma_wait();
+        tc::fence_regs<kRows / 2>(sd);
+        tc::fence_regs<Bk::kKD>(ka);
+      }
+#pragma unroll
+      for (int n = 0; n < kNQ; ++n)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int c = n * 8 + 2 * tq + e2;
+          const float mlog = sts[kRows + c], invl = sts[2 * kRows + c];
+          int pos = q0;
+          bool ok = true;
+          if (edge) {
+            pos = q0 + c / r;
+            ok = c < per * r && pos < sq;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 4 * n + 2 * h + e2;
+            float p = ex2(fmaf(round_bf16(sd[e]), sl2, -mlog)) * invl;
+            if (edge && (!ok || (causal && kp_lo + 8 * h > pos))) p = 0.f;
+            sd[e] = p;
+            pbuf[e * kWgThreads + wtid] = p;
+          }
+        }
+      bar_arrive(kHandOff, kThr);
+      // dV += P^T dO: dO is the MN-major B operand
+      uint32_t ap[kNQ / 2][4];
+#pragma unroll
+      for (int kq = 0; kq < kNQ / 2; ++kq) acc_to_a(ap[kq], sd, kq);
+      tc::fence_regs<DV / 2>(acc);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kq = 0; kq < kNQ / 2; ++kq) wgmma_mn<DV>(acc, ap[kq], dos, kq * 16);
+      tc::wgmma_commit();
+      tc::wgmma_wait();
+      tc::fence_regs<DV / 2>(acc);
+      tc::fence_regs<kNQ / 2>(ap);
+    } else {
+      // dP^T = V dO^T for the same rows
+      {
+        uint32_t va[Bv::kKD][4];
+#pragma unroll
+        for (int kk = 0; kk < Bv::kKD; ++kk) lda_cm<DV>(va[kk], vs, w0, kk * 16);
+        tc::fence_regs<kRows / 2>(sd);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < Bv::kKD; ++kk)
+          tc::wgmma_bf16<kRows, 0>(sd, va[kk], desc_kmajor<DV>(dos, 0, kk), kk > 0);
+        tc::wgmma_commit();
+        tc::wgmma_wait();
+        tc::fence_regs<kRows / 2>(sd);
+        tc::fence_regs<Bv::kKD>(va);
+      }
+      bar_sync(kHandOff, kThr);   // warpgroup 0's p of this tile is in pbuf
+#pragma unroll
+      for (int n = 0; n < kNQ; ++n)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const float dlt = sts[n * 8 + 2 * tq + e2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 4 * n + 2 * h + e2;
+            sd[e] = pbuf[e * kWgThreads + wtid] * (round_bf16(sd[e]) - dlt) * scale;
+          }
+        }
+      // dK += dS^T Q: Q is the MN-major B operand
+      uint32_t ads[kNQ / 2][4];
+#pragma unroll
+      for (int kq = 0; kq < kNQ / 2; ++kq) acc_to_a(ads[kq], sd, kq);
+      tc::fence_regs<DK / 2>(acc);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kq = 0; kq < kNQ / 2; ++kq) wgmma_mn<DK>(acc, ads[kq], qs, kq * 16);
+      tc::wgmma_commit();
+      tc::wgmma_wait();
+      tc::fence_regs<DK / 2>(acc);
+      tc::fence_regs<kNQ / 2>(ads);
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();   // K and V tiles are free: they stage dK and dV
+  if (wg == 0) {
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) {
+      const int row = w0 + g, c = n * 8 + 2 * tq;
+      put2<DV>(vs, row, c, acc[4 * n], acc[4 * n + 1]);
+      put2<DV>(vs, row + 8, c, acc[4 * n + 2], acc[4 * n + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < DK / 8; ++n) {
+      const int row = w0 + g, c = n * 8 + 2 * tq;
+      put2<DK>(ks, row, c, acc[4 * n], acc[4 * n + 1]);
+      put2<DK>(ks, row + 8, c, acc[4 * n + 2], acc[4 * n + 3]);
+    }
+  }
+  __syncthreads();
+  store_rows_cm<DK>(dk, ks, kBN, k_row);
+  store_rows_cm<DV>(dv, vs, kBN, v_row);
+}
+
 // stats: scratch of 3 x (b, sq, g, r) fp32 from the wrapper.
-template <int D>
+template <int DK, int DV>
 cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const void* out,
                           const void* dout, const void* m, const void* l, void* stats,
                           void* dq, void* dk, void* dv, int b, int sq, int skv, int G, int r,
                           int causal, float scale, cudaStream_t stream) {
-  auto dq_kernel = flash_bwd_dq_tc_kernel<D>;
-  auto dkdv_kernel = flash_bwd_dkdv_tc_kernel<D>;
-  cudaError_t err = sct::allow_smem(dq_kernel, DqTcSmem<D>::kBytes);
-  if (err != cudaSuccess) return err;
-  err = sct::allow_smem(dkdv_kernel, DkvTcSmem<D>::kBytes);
+  auto dq_kernel = flash_bwd_dq_tc_kernel<DK, DV>;
+  cudaError_t err = sct::allow_smem(dq_kernel, DqTcSmem<DK, DV>::kBytes);
   if (err != cudaSuccess) return err;
   const int per = kRows / r;
-  const int kBN = TcTile<D>::kBNK;
-  dq_kernel<<<dim3((sq + per - 1) / per, b * G), kWgThreads, DqTcSmem<D>::kBytes, stream>>>(
+  dq_kernel<<<dim3((sq + per - 1) / per, b * G), kWgThreads, DqTcSmem<DK, DV>::kBytes,
+              stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l), static_cast<float*>(stats),
       static_cast<bf16*>(dq), sq, skv, G, r, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<<<dim3((skv + kBN - 1) / kBN, b * G), 2 * kBN, DkvTcSmem<D>::kBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(stats),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, skv, G, r, causal, scale);
+  if constexpr (DK == DV) {
+    auto dkdv_kernel = flash_bwd_dkdv_tc_kernel<DK>;
+    err = sct::allow_smem(dkdv_kernel, DkvTcSmem<DK>::kBytes);
+    if (err != cudaSuccess) return err;
+    const int kBN = TcTile<DK>::kBNK;
+    dkdv_kernel<<<dim3((skv + kBN - 1) / kBN, b * G), 2 * kBN, DkvTcSmem<DK>::kBytes,
+                  stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), static_cast<const float*>(stats),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, skv, G, r, causal, scale);
+  } else {
+    using Sp = DkvSplitSmem<DK, DV>;
+    auto dkdv_kernel = flash_bwd_dkdv_split_tc_kernel<DK, DV>;
+    err = sct::allow_smem(dkdv_kernel, Sp::kBytes);
+    if (err != cudaSuccess) return err;
+    dkdv_kernel<<<dim3((skv + Sp::kBN - 1) / Sp::kBN, b * G), 2 * kWgThreads, Sp::kBytes,
+                  stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), static_cast<const float*>(stats),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, skv, G, r, causal, scale);
+  }
   return cudaGetLastError();
 }
 
-bool shape_ok(int b, int sq, int skv, int G, int r, int d) {
-  return b > 0 && sq > 0 && skv > 0 && G > 0 && r > 0 && r <= kRows && (d == 64 || d == 128);
+// (q/k width, v width): (64, 64), (128, 128) and MLA's (192, 128)
+bool shape_ok(int b, int sq, int skv, int G, int r, int dk, int dv) {
+  const bool widths = (dk == 64 && dv == 64) || (dk == 128 && dv == 128) ||
+                      (dk == 192 && dv == 128);
+  return b > 0 && sq > 0 && skv > 0 && G > 0 && r > 0 && r <= kRows && widths;
 }
 
 }  // namespace
 
-// fp32: head dim 64 runs 64-row kv tiles, 128 runs 32-row kv tiles (shared
-// memory); bf16: four 64-row query tiles a block at head dim 64, one at 128.
+// fp32: 64-row kv tiles at (64, 64), 32-row at (128, 128) and (192, 128)
+// (shared memory); bf16: four 64-row query tiles a block at (64, 64), one
+// at (128, 128), two at (192, 128).
 extern "C" int sct_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                        void* m, void* l, int b, int sq, int skv, int G, int r,
-                                       int d, int causal, int dtype, float scale,
+                                       int dk, int dv, int causal, int dtype, float scale,
                                        void* stream) {
-  if (!shape_ok(b, sq, skv, G, r, d)) return cudaErrorInvalidValue;
+  if (!shape_ok(b, sq, skv, G, r, dk, dv)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == sct::kBFloat16) {   // the tensor-core kernel
-    if (d == 64)
-      return launch_fwd_tc<64, 4>(q, k, v, out, m, l, b, sq, skv, G, r, causal, scale, st);
-    return launch_fwd_tc<128, 1>(q, k, v, out, m, l, b, sq, skv, G, r, causal, scale, st);
+    if (dk == 64)
+      return launch_fwd_tc<64, 64, 4>(q, k, v, out, m, l, b, sq, skv, G, r, causal, scale, st);
+    if (dk == 128)
+      return launch_fwd_tc<128, 128, 1>(q, k, v, out, m, l, b, sq, skv, G, r, causal, scale,
+                                        st);
+    return launch_fwd_tc<192, 128, 2>(q, k, v, out, m, l, b, sq, skv, G, r, causal, scale, st);
   }
   if (dtype == sct::kFloat32) {
-    if (d == 64)
-      return launch_fwd<float, 64, 64>(q, k, v, out, m, l, b, sq, skv, G, r, causal, scale,
-                                       st);
-    return launch_fwd<float, 128, 32>(q, k, v, out, m, l, b, sq, skv, G, r, causal, scale,
-                                      st);
+    if (dk == 64)
+      return launch_fwd<float, 64, 64, 64>(q, k, v, out, m, l, b, sq, skv, G, r, causal, scale,
+                                           st);
+    if (dk == 128)
+      return launch_fwd<float, 128, 128, 32>(q, k, v, out, m, l, b, sq, skv, G, r, causal,
+                                             scale, st);
+    return launch_fwd<float, 192, 128, 32>(q, k, v, out, m, l, b, sq, skv, G, r, causal,
+                                           scale, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -1366,23 +1709,30 @@ extern "C" int sct_flash_attention_fwd(const void* q, const void* k, const void*
 extern "C" int sct_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* out, const void* dout, const void* m,
                                        const void* l, void* delta, void* dq, void* dk,
-                                       void* dv, int b, int sq, int skv, int G, int r, int d,
-                                       int causal, int dtype, float scale, void* stream) {
-  if (!shape_ok(b, sq, skv, G, r, d)) return cudaErrorInvalidValue;
+                                       void* dv, int b, int sq, int skv, int G, int r, int dkw,
+                                       int dvw, int causal, int dtype, float scale,
+                                       void* stream) {
+  if (!shape_ok(b, sq, skv, G, r, dkw, dvw)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == sct::kBFloat16) {   // the tensor-core kernels
-    if (d == 64)
-      return launch_bwd_tc<64>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b, sq, skv, G, r,
-                               causal, scale, st);
-    return launch_bwd_tc<128>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b, sq, skv, G, r,
-                              causal, scale, st);
+    if (dkw == 64)
+      return launch_bwd_tc<64, 64>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b, sq, skv, G,
+                                   r, causal, scale, st);
+    if (dkw == 128)
+      return launch_bwd_tc<128, 128>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b, sq, skv,
+                                     G, r, causal, scale, st);
+    return launch_bwd_tc<192, 128>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b, sq, skv, G,
+                                   r, causal, scale, st);
   }
   if (dtype == sct::kFloat32) {
-    if (d == 64)
-      return launch_bwd<float, 64, 64>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b, sq,
-                                       skv, G, r, causal, scale, st);
-    return launch_bwd<float, 128, 32>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b, sq, skv,
-                                      G, r, causal, scale, st);
+    if (dkw == 64)
+      return launch_bwd<float, 64, 64, 64>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b, sq,
+                                           skv, G, r, causal, scale, st);
+    if (dkw == 128)
+      return launch_bwd<float, 128, 128, 32>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b,
+                                             sq, skv, G, r, causal, scale, st);
+    return launch_bwd<float, 192, 128, 32>(q, k, v, out, dout, m, l, delta, dq, dk, dv, b, sq,
+                                           skv, G, r, causal, scale, st);
   }
   return cudaErrorInvalidValue;
 }

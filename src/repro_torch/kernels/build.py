@@ -138,9 +138,9 @@ def library() -> ctypes.CDLL:
             lib.sct_paged_mla_decode.restype = i
             lib.sct_paged_mla_decode_cold.argtypes = [p] * 14 + [i] * 8 + [f, p]
             lib.sct_paged_mla_decode_cold.restype = i
-            lib.sct_flash_attention_fwd.argtypes = [p] * 6 + [i] * 8 + [f, p]
+            lib.sct_flash_attention_fwd.argtypes = [p] * 6 + [i] * 9 + [f, p]
             lib.sct_flash_attention_fwd.restype = i
-            lib.sct_flash_attention_bwd.argtypes = [p] * 11 + [i] * 8 + [f, p]
+            lib.sct_flash_attention_bwd.argtypes = [p] * 11 + [i] * 9 + [f, p]
             lib.sct_flash_attention_bwd.restype = i
             lib.sct_mlstm_chunk.argtypes = [p] * 16 + [i] * 3 + [p]
             lib.sct_mlstm_chunk.restype = i

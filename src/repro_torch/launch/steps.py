@@ -20,12 +20,18 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[SCTOptimizer] = None,
     """(state, batch) -> (state, metrics). The optimizer's precision
     policy sets the forward's compute dtype (legacy: ``cfg.dtype`` over
     the fp32 masters). Metrics are 0-d tensors: ``loss``, ``ce_loss``,
-    ``aux_loss`` (the MoE's load-balance loss of the hybrid family, 0 for
-    the others). Microbatching and rank telemetry are not ported, nor is
-    training the moe_lm family (``models/lm.py:SUPPORT``): the port trains
-    dense_lm, ssm_lm (xlstm, whose mLSTM layers run the chunkwise kernel and
-    its hand-written backward) and hybrid (jamba, whose mamba layers run the
-    selective-scan kernel and its hand-written backward)."""
+    ``aux_loss`` (the MoE's load-balance loss of the hybrid and moe_lm
+    families, summed over the MoE layers; 0 for the others). The step
+    consumes the state it is given: its parameters and AdamW moments are
+    updated in place and the returned state holds the same tensors, so an
+    earlier state is kept only as a copy. Microbatching and rank telemetry
+    are not ported. The port trains every family it runs
+    (``models/lm.py:SUPPORT``): dense_lm,
+    ssm_lm (xlstm, whose mLSTM layers run the chunkwise kernel and its
+    hand-written backward), hybrid (jamba, whose mamba layers run the
+    selective-scan kernel and its hand-written backward) and moe_lm
+    (deepseek, whose MLA layers run the flash kernels at q/k width 192 and
+    v width 128)."""
     require_family(cfg, "train")
     if microbatches != 1:
         raise NotImplementedError("microbatched gradient accumulation is not ported")

@@ -7,10 +7,12 @@ reference's ``launch/train.py`` on one device).
       --reduced --steps 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \\
       --reduced --steps 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b \\
+      --reduced --steps 2 --device cpu
 
-The port trains the dense_lm, ssm_lm (xlstm) and hybrid (jamba) families;
-the log line carries the MoE's load-balance loss (``aux``) beside the
-cross-entropy.
+The port trains the dense_lm, ssm_lm (xlstm), hybrid (jamba) and moe_lm
+(deepseek-v2/v3) families; the log line carries the MoE's load-balance
+loss (``aux``) beside the cross-entropy.
 
 Without ``--device`` the run is on the CUDA device, and raises when
 there is none. ``--dump-spec`` prints the resolved RunSpec JSON (the

@@ -56,16 +56,13 @@ Params = Dict[str, Any]
 SUPPORT = {"dense_lm": ("init", "forward", "serve", "train"),
            "ssm_lm": ("init", "forward", "serve", "train"),
            "hybrid": ("init", "forward", "serve", "train"),
-           "moe_lm": ("init", "forward", "serve")}
+           "moe_lm": ("init", "forward", "serve", "train")}
 
 
 def require_family(cfg: ModelConfig, path: str) -> None:
     """Raise ``NotImplementedError`` unless the port runs ``path`` (one of
     init, forward, serve, train) for ``cfg``'s family."""
     if path not in SUPPORT.get(cfg.family, ()):
-        if cfg.family == "moe_lm" and path == "train":
-            raise NotImplementedError(
-                "training the moe_lm family is not ported yet: the port serves it only")
         ported = ", ".join(f"{fam} ({'/'.join(paths)})" for fam, paths in SUPPORT.items())
         raise NotImplementedError(f"family {cfg.family!r}: {path} is not ported yet "
                                   f"(the port runs {ported})")

@@ -1,6 +1,6 @@
 """Model dispatcher: one API over the ported families (``dense_lm``,
-``ssm_lm`` and ``hybrid`` for init, forward, serving and training;
-``moe_lm`` for all but training — ``models/lm.py:SUPPORT``).
+``ssm_lm``, ``hybrid`` and ``moe_lm`` for init, forward, serving and
+training — ``models/lm.py:SUPPORT``).
 
   init_model(cfg, seed=, device=)                 -> params
   forward(params, tokens, cfg)                    -> (logits, aux)

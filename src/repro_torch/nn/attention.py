@@ -82,7 +82,9 @@ def _sdpa_direct(q, k, v, *, causal: bool, q_offset=0, kv_len_mask=None):
 class _Flash(torch.autograd.Function):
     """Flash attention with its recompute-p backward (the reference's
     ``_flash`` custom VJP): the forward saves (q, k, v, out, m, l), the
-    backward runs the backward kernel (plain version on CPU tensors)."""
+    backward runs the backward kernel (plain version on CPU tensors) and
+    returns dq, dk and dv in q's, k's and v's shapes (MLA: v is narrower
+    than q and k)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -99,7 +101,7 @@ class _Flash(torch.autograd.Function):
 
 
 def _flash(q, k, v, causal: bool):
-    """q (b, s, g, r, d), k/v (b, s, g, d) -> (b, s, g, r, d)."""
+    """q (b, s, g, r, dk), k (b, s, g, dk), v (b, s, g, dv) -> (b, s, g, r, dv)."""
     return _Flash.apply(q, k, v, causal)
 
 
@@ -333,7 +335,10 @@ def _mla_ckv(p, x, cfg, rope):
 
 def _mla_expanded(p, x, cfg, q_nope, q_rope, ckv, krope, causal):
     """Attention over full K/V expanded from the latent (the training and
-    static-prefill form)."""
+    static-prefill form). q and k are nope + rope wide, v v_head_dim wide:
+    past ``FLASH_THRESHOLD`` the flash kernels run at (192, 128) at full
+    width (their wrappers copy v, a strided view of wukv's output,
+    contiguous)."""
     b, s, _ = x.shape
     h, nope, rope_d, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     k_nope, v = apply_linear(p["wukv"], ckv).reshape(b, s, h, nope + vd).split([nope, vd], -1)

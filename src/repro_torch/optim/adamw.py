@@ -61,24 +61,30 @@ def _leaf_kind_tree(params: Any):
 def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
                  lr_t: Optional[float] = None):
     """One AdamW step; ``lr_t`` overrides ``cfg.lr`` (the schedule's
-    value). Returns (new_params, new_state)."""
+    value). Returns (new_params, new_state): the given params, mu and nu,
+    updated in place (the reference's jit donates them). Each leaf's
+    arithmetic runs in fp32 on ``t.to(torch.float32)``, which is the leaf
+    itself for fp32 leaves, and is stored back with ``copy_``, which
+    returns at once when the source is the destination: an fp32 leaf is
+    updated where it lies, with the functional form's bits, and a
+    functional update would hold old and new params, mu and nu of the
+    whole tree at once, which a full-width deepseek step cannot spare."""
     count = state["count"] + 1
     cf = count.to(torch.float32)
     b1c = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32, device=cf.device) ** cf
     b2c = 1.0 - torch.tensor(cfg.b2, dtype=torch.float32, device=cf.device) ** cf
     base_lr = cfg.lr if lr_t is None else lr_t
-    md = getattr(torch, cfg.moment_dtype)
     scales = {0: cfg.dense_lr_scale, 1: cfg.spectral_lr_scale, 2: cfg.sv_lr_scale}
 
     def upd(p, g, mu, nu, kind):
         g = g.to(torch.float32)
-        mu = cfg.b1 * mu.to(torch.float32) + (1 - cfg.b1) * g
-        nu = cfg.b2 * nu.to(torch.float32) + (1 - cfg.b2) * (g * g)
-        step = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
         wd = 0.0 if kind in (1, 2) and not cfg.decay_spectral else cfg.weight_decay
-        pf = p.to(torch.float32)
-        new_p = pf - base_lr * scales[kind] * (step + wd * pf)
-        return new_p.to(p.dtype), mu.to(md), nu.to(md)
+        mu32, nu32, pf = (t.to(torch.float32) for t in (mu, nu, p))
+        mu32.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        nu32.mul_(cfg.b2).add_((1 - cfg.b2) * (g * g))
+        step = (mu32 / b1c).div_((nu32 / b2c).sqrt_().add_(cfg.eps))
+        pf.sub_(base_lr * scales[kind] * step.add_(wd * pf))
+        return p.copy_(pf), mu.copy_(mu32), nu.copy_(nu32)
 
     out = _map(upd, params, grads, state["mu"], state["nu"], _leaf_kind_tree(params))
     new_params, mu, nu = (_map(lambda o, i=i: o[i], out) for i in range(3))

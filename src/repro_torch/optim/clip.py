@@ -12,6 +12,8 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global norm of at most ``max_norm``, the norm).
+    The gradients are scaled in place: the step owns them."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
-    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), norm
+    return tree_map(lambda g: g.mul_(scale), grads), norm

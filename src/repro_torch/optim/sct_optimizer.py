@@ -55,6 +55,10 @@ class SCTOptimizer:
         return params, opt
 
     def apply(self, state: TrainState, grads: Any) -> TrainState:
+        """The state after one step on ``grads``. The fp32 parameters, the
+        moments and ``grads`` are updated in place (the same bits as the
+        functional update; the reference's jit donates these buffers), so
+        ``state`` is spent: keep a copy to hold on to the old one."""
         with torch.no_grad():
             params, opt = self._update(state["params"], state["opt"],
                                        int(state["step"]), grads)

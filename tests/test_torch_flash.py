@@ -3,7 +3,9 @@
 * The port's ``nn/attention.py:_flash`` (on the CPU: the plain
   ``kernels/flash_ref.py`` forward and backward) against the JAX
   package's ``_flash`` and its ``jax.vjp`` at s = 4096, where the model
-  takes the flash branch, for rep 1 and 4 and head dims 16 and 64.
+  takes the flash branch, for rep 1 and 4 and head dims 16 and 64; and
+  at MLA's widths, q/k wider than v: the reduced deepseek configs' (24,
+  16) at s = 4096 and the full configs' (192, 128) at s = 256.
 * ``flash_attention_ref`` (the reference's oracle, heads folded into
   the batch) against the reference's, and against the grouped path.
 * The port's ``_sdpa`` against the reference's at s = 2048 (direct
@@ -51,12 +53,15 @@ DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, 
 S_FLASH = 4096
 
 
-def _qkv(b, s, g, r, d, seed=0):
+def _qkv(b, s, g, r, d, seed=0, dv=None):
+    """q (b, s, g, r, d), k (b, s, g, d), v (b, s, g, dv), dout (b, s, g,
+    r, dv); dv = d unless given."""
+    dv = d if dv is None else dv
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, s, g, r, d)).astype(np.float32)
     k = rng.standard_normal((b, s, g, d)).astype(np.float32)
-    v = rng.standard_normal((b, s, g, d)).astype(np.float32)
-    do = rng.standard_normal((b, s, g, r, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, g, dv)).astype(np.float32)
+    do = rng.standard_normal((b, s, g, r, dv)).astype(np.float32)
     return q, k, v, do
 
 
@@ -65,12 +70,8 @@ def _close(got, ref, dtype, what):
                         TOLERANCE_LADDER[dtype], err_msg=what)
 
 
-@pytest.mark.parametrize("d", [16, 64])
-@pytest.mark.parametrize("rep", [1, 4])
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_flash_matches_reference_forward_and_vjp(dtype, rep, d):
+def _flash_against_reference(dtype, q, k, v, do):
     tdt, jdt = DTYPES[dtype]
-    q, k, v, do = _qkv(1, S_FLASH, 1, rep, d)
     out_ref, vjp = jax.vjp(lambda a, b, c: jattn._flash(a, b, c, True),
                            *(jnp.asarray(x, jdt) for x in (q, k, v)))
     grads_ref = vjp(jnp.asarray(do, jdt))
@@ -78,9 +79,29 @@ def test_flash_matches_reference_forward_and_vjp(dtype, rep, d):
     out = tattn._flash(tq, tk, tv, True)
     out.backward(torch.tensor(do).to(tdt))
     assert out.dtype == tdt and tq.grad.dtype == tdt and tk.grad.dtype == tdt
+    assert out.shape == do.shape
     _close(out, out_ref, tdt, "out")
     for name, got, ref in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), grads_ref):
+        assert got.shape == ref.shape, name
         _close(got, ref, tdt, name)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_matches_reference_forward_and_vjp(dtype, rep, d):
+    _flash_against_reference(dtype, *_qkv(1, S_FLASH, 1, rep, d))
+
+
+@pytest.mark.parametrize("s, g, dk, dv", [(S_FLASH, 2, 24, 16), (256, 2, 192, 128)],
+                         ids=["reduced-24x16-s4096", "full-192x128-s256"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_matches_reference_at_mla_widths(dtype, s, g, dk, dv):
+    """MLA's expanded form: q and k nope + rope wide, v v_head_dim wide (r
+    1, k expanded to every head): out and dv are dv wide, dq and dk dk
+    wide, the scale 1 / sqrt(dk), against jax.vjp of the reference's
+    ``_flash`` at the ladder's rungs."""
+    _flash_against_reference(dtype, *_qkv(1, s, g, 1, dk, seed=8, dv=dv))
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -118,12 +118,15 @@ MAMBA = [(1, 1, 128, 16), (2, 37, 200, 16), (1, 160, 8192, 16), (2, 300, 96, 4),
 # jamba's prompt, a training length, the smallest state width
 MAMBA_MODEL = [(1, 1, 128, 16), (2, 37, 200, 16), (1, 160, 8192, 16), (1, 4096, 8192, 16),
                (2, 70, 96, 4)]
-# (b, s, g, r, d): rep 1 and 4 at s 256, 1000 (ragged tiles) and 4096, plus
-# head dim 128, a group size that does not divide the 64-row tile, and the
-# largest group (64 heads a kv head: one position a query tile)
+# (b, s, g, r, d[, dv]): rep 1 and 4 at s 256, 1000 (ragged tiles) and 4096,
+# plus head dim 128, a group size that does not divide the 64-row tile, and
+# the largest group (64 heads a kv head: one position a query tile); and
+# MLA's widths, q/k 192 and v 128 (r 1 as in the model, and grouped)
 FLASH = ([(1, s, g, r, 64) for s in (256, 1000, 4096) for g, r in ((4, 1), (2, 4))]
          + [(2, 256, 2, 2, 128), (1, 300, 1, 3, 64), (1, 200, 1, 64, 64),
-            (1, 130, 2, 64, 128)])
+            (1, 130, 2, 64, 128)]
+         + [(1, s, 4, 1, 192, 128) for s in (37, 256, 1000, 4096)]
+         + [(1, 300, 1, 3, 192, 128), (1, 130, 1, 64, 192, 128)])
 
 
 @pytest.fixture
@@ -489,11 +492,20 @@ def test_int8_streaming_engine_on_cuda(cuda):
                                      pcfg.max_seq).max() <= 1.0, r.rid
 
 
-def _flash_inputs(b, s, g, r, d, dtype, device, seed=0):
+def _flash_inputs(b, s, g, r, d, dtype, device, seed=0, dv=None):
+    """q (b, s, g, r, d), k (b, s, g, d), v (b, s, g, dv), dout (b, s, g,
+    r, dv); dv = d unless given."""
+    dv = d if dv is None else dv
     gen = torch.Generator(device=device).manual_seed(seed)
-    q, do = (torch.randn((b, s, g, r, d), generator=gen, device=device) for _ in range(2))
-    k, v = (torch.randn((b, s, g, d), generator=gen, device=device) for _ in range(2))
+    q, do = (torch.randn((b, s, g, r, w), generator=gen, device=device) for w in (d, dv))
+    k, v = (torch.randn((b, s, g, w), generator=gen, device=device) for w in (d, dv))
     return [t.to(dtype) for t in (q, k, v, do)]
+
+
+def _case_inputs(case, dtype, device):
+    """``_flash_inputs`` of a FLASH case (b, s, g, r, d[, dv])."""
+    b, s, g, r, d, *dv = case
+    return _flash_inputs(b, s, g, r, d, dtype, device, dv=dv[0] if dv else None)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -502,7 +514,7 @@ def test_flash_kernels_vs_plain(cuda, case, dtype):
     """Forward (out, m, l) and backward (dq, dk, dv), each against the
     plain version on the same inputs; the backward gets the plain
     forward's out/m/l so it is checked on its own."""
-    q, k, v, do = _flash_inputs(*case, DTYPES[dtype], cuda)
+    q, k, v, do = _case_inputs(case, DTYPES[dtype], cuda)
     before = (LAUNCHES["flash_attention_fwd"], LAUNCHES["flash_attention_bwd"])
     # m and l are fp32, but in bf16 they come from bf16 inputs (and the
     # plain version rounds its scores to bf16): the inputs' rung
@@ -520,12 +532,13 @@ def test_flash_kernels_vs_plain(cuda, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("case", [(1, 4096, 8, 4, 64), (1, 1000, 4, 4, 64)],
+@pytest.mark.parametrize("case", [(1, 4096, 8, 4, 64), (1, 1000, 4, 4, 64),
+                                  (1, 4096, 4, 1, 192, 128), (1, 1000, 2, 1, 192, 128)],
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_backward_is_deterministic(cuda, case, dtype):
     """Two backward calls on the same inputs give the same bits: no
     atomics, every sum in a fixed order."""
-    q, k, v, do = _flash_inputs(*case, DTYPES[dtype], cuda)
+    q, k, v, do = _case_inputs(case, DTYPES[dtype], cuda)
     out, m, l = flash_fwd_ref(q, k, v)
     first = flash_attention_bwd(q, k, v, out, m, l, do)
     second = flash_attention_bwd(q, k, v, out, m, l, do)
@@ -539,7 +552,7 @@ def test_flash_backward_is_deterministic(cuda, case, dtype):
 def test_flash_forward_is_deterministic(cuda, case, dtype, causal):
     """Two forward calls on the same inputs give the same bits, and match
     the plain version with and without the causal mask."""
-    q, k, v, _ = _flash_inputs(*case, DTYPES[dtype], cuda)
+    q, k, v, _ = _case_inputs(case, DTYPES[dtype], cuda)
     first = flash_attention_fwd(q, k, v, causal)
     second = flash_attention_fwd(q, k, v, causal)
     ref = flash_fwd_ref(q, k, v, causal)
@@ -555,7 +568,7 @@ def test_flash_backward_runs_from_the_kernel_forward(cuda, case, dtype):
     """The backward from the kernel forward's own (out, m, l), against the
     plain backward on the same inputs: the statistics the forward writes
     are the ones the backward reads (natural-log m, unclamped l)."""
-    q, k, v, do = _flash_inputs(*case, DTYPES[dtype], cuda)
+    q, k, v, do = _case_inputs(case, DTYPES[dtype], cuda)
     out, m, l = flash_attention_fwd(q, k, v)
     for i, name in enumerate(("dq", "dk", "dv")):
         assert_kernel_matches(lambda *a, i=i: flash_attention_bwd(*a)[i],
@@ -564,9 +577,12 @@ def test_flash_backward_runs_from_the_kernel_forward(cuda, case, dtype):
 
 
 def test_flash_kernel_refuses_other_head_dims(cuda):
-    q, k, v, _ = _flash_inputs(1, 64, 1, 1, 80, torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="head dim 80"):
-        flash_attention_fwd(q, k, v)
+    """Widths no instance takes: 80, and q/k 192 with v 192 (MLA's q/k
+    width with v as wide)."""
+    for d, dv in ((80, 80), (192, 192)):
+        q, k, v, _ = _flash_inputs(1, 64, 1, 1, d, torch.bfloat16, cuda, dv=dv)
+        with pytest.raises(ValueError, match=rf"head dims \(q/k {d}, v {dv}\)"):
+            flash_attention_fwd(q, k, v)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -161,14 +161,18 @@ def test_apply_rope_matches_reference():
 
 
 def test_unported_families_raise():
-    """encdec (whisper) is not ported; moe_lm (deepseek) serves but does
-    not train."""
+    """encdec (whisper) is not ported: neither its init nor its training;
+    moe_lm (deepseek) trains, but only with MLA and RMSNorm."""
     from repro_torch.models.lm import require_family
 
     with pytest.raises(NotImplementedError):
         tm.init_model(get_config("whisper-medium", reduced=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="training the moe_lm family"):
-        require_family(get_config("deepseek-v3-671b", reduced=True), "train")
+    with pytest.raises(NotImplementedError, match="family 'encdec': train is not ported"):
+        require_family(get_config("whisper-medium", reduced=True), "train")
+    require_family(get_config("deepseek-v3-671b", reduced=True), "train")
+    with pytest.raises(NotImplementedError, match="RMSNorm"):
+        require_family(get_config("deepseek-v3-671b", reduced=True).replace(norm="layernorm"),
+                       "train")
 
 
 def test_entry_points_need_a_device_or_cuda(monkeypatch):

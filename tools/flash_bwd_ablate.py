@@ -190,7 +190,7 @@ def variants(src: str) -> dict:
     def no_streaming(s):
         s = _sub(s, dq_a, kv_a, "if (j + kDqAhead < ntiles) issue_kv(j + kDqAhead);",
                  "if (false) issue_kv(j + kDqAhead);")
-        s = _sub(s, dq_a, kv_a, "const unsigned char* ks = ring + (j % kRing) * 2 * S::kKV;",
+        s = _sub(s, dq_a, kv_a, "const unsigned char* ks = ring + (j % kRing) * (S::kK + S::kV);",
                  "const unsigned char* ks = ring;")
         s = _sub(s, kv_a, kv_b, "if (j + kDkvAhead < ntiles) issue_q(j + kDkvAhead);",
                  "if (false) issue_q(j + kDkvAhead);")
@@ -224,7 +224,7 @@ def fwd_variants(src: str) -> dict:
     def no_streaming(s):
         s = _sub(s, a, b, "if (j + kFwdAhead < ntiles) issue_kv(j + kFwdAhead);",
                  "if (false) issue_kv(j + kFwdAhead);")
-        return _sub(s, a, b, "const unsigned char* ks = ring + (j % kRing) * 2 * F::kKV;",
+        return _sub(s, a, b, "const unsigned char* ks = ring + (j % kRing) * (F::kK + F::kV);",
                     "const unsigned char* ks = ring;")
 
     def carveout(s):
