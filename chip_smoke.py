@@ -179,13 +179,13 @@ Phases (any failure exits non-zero and prints no result line):
 25. (T) train xlstm-1.3b at full width cut to 8 blocks (1 period: 7
     mLSTM + 1 sLSTM; d_model 2048, 4 mLSTM heads of 1024, vocab 50304,
     rank 128, cholesky_qr2 retraction, remat, bf16 compute over fp32
-    masters; batch 2 x 4096; random weights from seed 0) for 6 steps
+    masters; batch 2 x 4096; random weights from seed 0) for 5 steps
     through the calls ``Trainer.__init__`` makes (``train_cell``), the
     launch counts zeroed before each step and read after it: 14
     ``mlstm_chunk`` (forward and remat recompute), 7 ``mlstm_chunk_bwd``
     and 32 ``spectral_matmul`` a step; losses finite, orthogonality error
     <= 1e-4, every gradient leaf finite and non-zero (read from each
-    leaf's Adam first moment); warm step (median of steps 3-6), tokens/s,
+    leaf's Adam first moment); warm step (median of steps 3-5), tokens/s,
     peak memory, the sLSTM blocks' share of the step, step 2's device
     time by family (under the profiler);
 26. (R) resume reduced xlstm from its step-3 checkpoint on the card:
@@ -236,7 +236,29 @@ Phases (any failure exits non-zero and prints no result line):
 32. time the flash kernels at the cell's MLA shape (b 2, s 4096, 128
     heads, r 1, q/k 192, v 128) against their plain versions and SDPA
     (the backend it picks named by its kernels), with their outputs' gaps
-    to SDPA's (not gated).
+    to SDPA's (not gated);
+33. (P) train smollm2-1.7b at full width through ``Trainer`` under the
+    ``mixed`` policy (fp32 masters, bf16 compute, dynamic loss scale 2^15)
+    with 2 microbatches: batch 4 x 4096, two of phase 6's 2 x 4096, 6
+    steps: 96 ``flash_attention_fwd``, 48 ``flash_attention_bwd`` and 288
+    ``spectral_matmul`` a step, losses finite, no overflow skip, the scale
+    printed each step, masters and moments fp32, orthogonality error <=
+    1e-4, every leaf's first moment finite and non-zero; the warm step
+    (median of steps 3-6), tokens/s and peak memory; step 2 under the
+    profiler by kernel family, with the loss-scale work (unscale,
+    finiteness) named by the optimizer's ranges;
+34. (F) the fault-tolerant runtime on the reduced smollm2-1.7b on the
+    card: a ``mixed`` run (scale 2^10 growing every 3 steps) restarted
+    after an injected failure at step 8 of 12 ends bit-identical to an
+    uninterrupted one, loss scale included; an injected overflow leaves
+    parameters and moments bit for bit, halves the scale, counts the skip
+    and advances the step; a failure right after an async save flushes the
+    writer (its error swallowed) before the restore; the ``bf16`` policy
+    trains 6 steps (parameters bf16, orthogonality < 0.08) and resumes bit
+    for bit through the bf16 checkpoint layout; the spectral autograd
+    Function over bf16 factors matches its plain version at M 8192 on both
+    MLP shapes; a bf16 gradient clipped on the card is the fp32 product
+    rounded once; a 1e-9 s deadline counts every step as a straggler.
 
 The ``kernels`` line has one entry per kernel: the nine TPU kernels' ports
 and, as their own entries, the flash backward, the mLSTM backward and the
@@ -258,6 +280,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -273,6 +296,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12,
 SEED = 0
 SPIN_CYCLES = 1 << 21   # ~1 ms at the H100's 1.98 GHz: longer than queueing one call
 SM_CLOCK_HZ = 1.98e9    # the H100 SXM's boost clock, for the exp unit's floor
+# time_cold's samples of a slow call (a plain version at a training shape):
+# as many as fit 1 s, at least 5 (30 samples of 200 ms calls took 6 s)
+COLD_BUDGET_MS, COLD_MIN_ITERS = 1000.0, 5
 
 # training: smollm2-1.7b at batch 2 x seq 4096 (train_4k's sequence length)
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm2-1.7b", 2, 4096, 8
@@ -338,9 +364,11 @@ MLSTM_DH, MLSTM_B, MLSTM_S = (32, 1024), (1, 4), (1, 37, 64, 160, 256, 300, 1000
 MLSTM_PREFILL_S = 160           # the cell's longest prompt: the timed shape
 # the xlstm training cell: xlstm-1.3b at full width cut to 8 blocks (one
 # period: 7 mLSTM + 1 sLSTM; 16 blocks took the whole run past 1100 s once
-# deepseek's training cell joined), batch 2 x train_4k's 4096 tokens
-XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 8, 2, 4096, 6
-TRAIN_PROFILED_STEP = 2         # warm (step 1 warms up), outside the median of steps 3-6
+# deepseek's training cell joined), batch 2 x train_4k's 4096 tokens; 5 steps
+# (6 until the mixed-precision cell joined: ~17 s a step, a median of 3 warm
+# steps in place of 4)
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS = 8, 2, 4096, 5
+TRAIN_PROFILED_STEP = 2         # warm (step 1 warms up), outside the median of steps 3 on
 # mLSTM backward checks: head widths, folded batch * heads (xlstm's
 # training batch: 2 x 4 heads), lengths (one token, a ragged chunk, one and
 # two chunks, four, the training length)
@@ -378,6 +406,14 @@ MLA_B = (1, 4)      # absorbed-MLA decode checks: one slot, and 4 with a null sl
 # that length (the expanded form's flash branch)
 DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_BATCH, DEEPSEEK_TRAIN_SEQ = 4, 2, 4096
 DEEPSEEK_TRAIN_STEPS = 6
+# the mixed-precision cell (phase P): smollm2-1.7b at full width under the
+# mixed policy, batch 4 x 4096 in two microbatches of phase 6's 2 x 4096; the
+# loss scale stays at its initial 2^15 (it grows every 2000 finite steps)
+MIXED_BATCH, MIXED_MICROBATCHES, MIXED_STEPS, MIXED_SCALE = 4, 2, 6, 2.0 ** 15
+# the fault-tolerance checks (phase F) on the reduced smollm2-1.7b: steps of a
+# loop (checkpoints every 4, the failure at step 8); the reference's bf16
+# orthonormality tolerance (tests/test_precision.py)
+FAULT_STEPS, ORTHO_BF16 = 12, 0.08
 # spectral autograd checks at M = 8192 beyond smollm2's MLP: deepseek's dense
 # MLP (7168 <-> 18432) and its experts' width (7168 <-> 2048), rank 128
 DEEPSEEK_SPECTRAL = ((7168, 18432), (18432, 7168), (7168, 2048), (2048, 7168))
@@ -406,9 +442,22 @@ def time_cold(torch, fn, iters: int = 30, spin_ahead: bool = True) -> float:
     sample whose spin ended before the host was done is dropped and
     the spin doubled. Without ``spin_ahead`` the events bracket the call
     as the host queues it, gaps included: for a call of thousands of
-    launches, which fill the launch queue behind any spin."""
+    launches, which fill the launch queue behind any spin.
+
+    Two warm-up calls, the second timed on the host: a call whose
+    ``iters`` samples would take more than COLD_BUDGET_MS (a plain
+    version at a training shape) takes as many as fit it, at least
+    COLD_MIN_ITERS, and no third warm-up."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    if call_ms * iters > COLD_BUDGET_MS:
+        iters = max(COLD_MIN_ITERS, min(iters, int(COLD_BUDGET_MS / call_ms)))
+    else:
         fn()
     spin = SPIN_CYCLES
     times = []
@@ -1060,8 +1109,7 @@ def phase_training(torch, device):
         for name in expect:
             totals[name] += launches[name]
     peak_mem = torch.cuda.max_memory_allocated()
-    warm = sorted(step_ms[2:])
-    warm_ms = (warm[len(warm) // 2 - 1] + warm[len(warm) // 2]) / 2
+    warm_ms = statistics.median(step_ms[2:])
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (warm_ms / 1e3)
     print(f"[train] median warm step (steps 3-{TRAIN_STEPS}) {warm_ms:.1f} ms, "
           f"{tokens_per_s:.1f} tokens/s; max_memory_allocated {peak_mem}; launches over "
@@ -1151,7 +1199,6 @@ def time_flash(torch, b, s, h, g, d, gen, sdpa_gaps=False, dv=None):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
     from repro_torch.kernels.flash_ref import flash_bwd_ref, flash_fwd_ref
-    from repro_torch.kernels.testing import kernel_error
 
     dt = torch.bfloat16
     r = h // g
@@ -1217,9 +1264,8 @@ def time_flash(torch, b, s, h, g, d, gen, sdpa_gaps=False, dv=None):
         for got, pl, lib in zip((out, *first), plain,
                                 (back(oh.detach(), False), back(lq, False), back(lk, True),
                                  back(lv, True))):
-            lib = lib.cpu().numpy()
-            gaps.append(kernel_error(got.float().cpu().numpy(), lib).max_scaled)
-            plain_gaps.append(kernel_error(pl.float().cpu().numpy(), lib).max_scaled)
+            gaps.append(card_error(got, lib)[1])
+            plain_gaps.append(card_error(pl, lib)[1])
         fwd["sdpa_scaled_gap"], bwd["sdpa_scaled_gap"] = gaps[0], max(gaps[1:])
         fwd["plain_sdpa_scaled_gap"] = plain_gaps[0]
         bwd["plain_sdpa_scaled_gap"] = max(plain_gaps[1:])
@@ -1362,16 +1408,14 @@ def compare_on_card(torch, got, ref, dtype, label):
         raise AssertionError(f"{label}: kernel shape {tuple(got.shape)} != reference shape "
                              f"{tuple(ref.shape)}")
     rung = TOLERANCE_LADDER[dtype]
-    g, r = got.detach().float(), ref.detach().float()
-    rms = float(r.pow(2).mean().sqrt()) or 1.0
-    err = (g - r).abs()
-    bad = ~(err <= rung.atol * rms + rung.rtol * r.abs())
+    r = ref.detach().float()
+    rms = card_rms(r)
+    bad = ~((got.detach().float() - r).abs() <= rung.atol * rms + rung.rtol * r.abs())
     if bool(bad.any()):
         raise AssertionError(f"{label}: kernel vs reference: {int(bad.sum())} of {bad.numel()} "
-                             f"elements beyond the rung (max error {float(err.max()):.3e}, "
-                             f"RMS {rms:.3e})")
-    e = float(err.max())
-    return e, e / rms
+                             f"elements beyond the rung (max error "
+                             f"{card_error(got, r)[0]:.3e}, RMS {rms:.3e})")
+    return card_error(got, r)
 
 
 def phase_mlstm_bwd_kernels(torch):
@@ -1520,8 +1564,7 @@ def train_cell(torch, device, cfg, tag, what, b, s, steps, expect, profiled_step
         for name in expect:
             totals[name] += launches[name]
     peak_mem = torch.cuda.max_memory_allocated()
-    warm = sorted(step_ms[2:])
-    warm_ms = (warm[len(warm) // 2 - 1] + warm[len(warm) // 2]) / 2
+    warm_ms = statistics.median(step_ms[2:])
     tokens_per_s = b * s / (warm_ms / 1e3)
     print(f"[{tag}] median warm step (steps 3-{steps}) {warm_ms:.1f} ms, {tokens_per_s:.1f} "
           f"tokens/s; max_memory_allocated {peak_mem}; launches over {steps} steps {totals}")
@@ -1572,7 +1615,7 @@ def phase_xlstm_training(torch, device):
     expect = {"mlstm_chunk": 2 * n_mlstm, "mlstm_chunk_bwd": n_mlstm,
               "spectral_matmul": 4 * cfg.n_layers}
     # step 2 runs under the profiler (the sLSTM's loop makes ~375K kernels a
-    # step at 8 blocks, ~750K at 16); the warm median reads steps 3-6
+    # step at 8 blocks, ~750K at 16); the warm median reads steps 3-5
     record, state = train_cell(
         torch, device, cfg, "xlstm-train",
         f"{cfg.name} cut to {cfg.n_layers} blocks ({n_periods(cfg)} period(s): {n_mlstm} mLSTM "
@@ -1910,6 +1953,376 @@ def phase_deepseek_training(torch, device):
     return record
 
 
+def phase_mixed_training(torch, device, legacy_peak):
+    """P: smollm2-1.7b at full width through ``Trainer.step`` under the
+    ``mixed`` policy (fp32 masters, bf16 compute, dynamic loss scale) with
+    MIXED_MICROBATCHES microbatches of phase 6's 2 x 4096: the launch counts
+    zeroed just before each step and required to equal twice phase 6's just
+    after it; losses finite, no overflow skip, the scale MIXED_SCALE at
+    every step (growth_interval 2000), every master and moment fp32,
+    orthogonality error <= ORTHO_LIMIT, every leaf's first moment finite and
+    non-zero. Step TRAIN_PROFILED_STEP runs under the profiler: device time
+    by kernel family, and the loss-scale work (unscale, finiteness) by the
+    optimizer's ``loss_scale.*`` ranges. Its peak memory is printed beside
+    ``legacy_peak``, phase 6's (one batch of 2 x 4096, no accumulator).
+    Returns the ``train_mixed`` record."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import ModelSpec, PrecisionSpec, RunSpec, Trainer, TrainSpec
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.core.tree import max_orthogonality_error
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.models.model import param_count
+
+    b, s, mb, steps = MIXED_BATCH, TRAIN_SEQ, MIXED_MICROBATCHES, MIXED_STEPS
+    spec = RunSpec(model=ModelSpec(TRAIN_ARCH),
+                   train=TrainSpec(steps=steps, batch=b, seq=s, lr=1e-3, microbatches=mb,
+                                   seed=SEED),
+                   precision=PrecisionSpec(mode="mixed"))
+    t0 = time.time()
+    trainer = Trainer(spec, device=device)
+    cfg, pol = trainer.cfg, trainer.optimizer.precision
+    n_params = param_count(trainer.params)
+    torch.cuda.synchronize()
+    print(f"[train-mixed] {cfg.name}: {n_params} parameters, precision {pol.name} "
+          f"({pol.compute_dtype} compute over {pol.param_dtype} masters, loss scale "
+          f"{pol.init_scale:.0f}, growth every {pol.growth_interval} finite steps), batch {b} x "
+          f"{s} in {mb} microbatches of {b // mb} ({pol.accum_dtype} accumulation); init "
+          f"{time.time() - t0:.1f} s")
+    batches = [trainer.make_batch(i) for i in range(steps)]
+    # phase 6's counts, once a microbatch
+    expect = {"flash_attention_fwd": 2 * mb * cfg.n_layers,
+              "flash_attention_bwd": mb * cfg.n_layers, "spectral_matmul": 6 * mb * cfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, orthos, scales = [], [], [], []
+    totals = {name: 0 for name in expect}
+    for i in range(steps):
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+              if i == TRAIN_PROFILED_STEP - 1 else contextlib.nullcontext()) as prof:
+            t1 = time.perf_counter()
+            metrics = trainer.step(batches[i])
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        if prof is not None:
+            wall_ms = ms
+            t_exit = time.perf_counter()
+            rows = [r for r in device_rows(torch, prof) if not r[2].startswith("loss_scale.")]
+            # the optimizer's ranges: the device time of the kernels under each
+            ranges = {key: 0.0 for key in ("loss_scale.unscale", "loss_scale.all_finite")}
+            for ev in prof.events():
+                if ev.name in ranges and ev.device_type == torch.autograd.DeviceType.CPU:
+                    ranges[ev.name] += ev.device_time_total / 1e3
+            print(f"[train-mixed] profiled step {i + 1}: the profiler's stop took "
+                  f"{(t_exit - t1) - ms / 1e3:.1f} s, its rows {time.perf_counter() - t_exit:.1f} s")
+        launches = {name: LAUNCHES.get(name, 0) for name in expect}
+        ortho = float(max_orthogonality_error(trainer.params))
+        scale, overflow = float(metrics["loss_scale"]), float(metrics["overflow"])
+        print(f"[train-mixed] step {i + 1}: loss {loss:.6f}, loss scale {scale:.0f}, overflow "
+              f"{overflow:.0f}, step {ms:.1f} ms, max orthogonality error {ortho:.3e}, "
+              f"launches {launches}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"train-mixed step {i + 1}: loss {loss}")
+        if overflow != 0.0 or scale != MIXED_SCALE:
+            raise AssertionError(f"train-mixed step {i + 1}: overflow {overflow}, scale {scale}")
+        if not ortho <= ORTHO_LIMIT:
+            raise AssertionError(f"train-mixed step {i + 1}: orthogonality error {ortho}")
+        if launches != expect:
+            raise AssertionError(f"train-mixed step {i + 1}: launches {launches}, expected "
+                                 f"{expect}")
+        losses.append(loss)
+        step_ms.append(ms)
+        orthos.append(ortho)
+        scales.append(scale)
+        for name in expect:
+            totals[name] += launches[name]
+    peak_mem = torch.cuda.max_memory_allocated()
+    state = trainer.state
+    ls = {k: float(v) for k, v in state["loss_scale"].items()}
+    print(f"[train-mixed] loss-scale state after {steps} steps: {ls}")
+    if ls["skipped"] != 0 or ls["scale"] != MIXED_SCALE or ls["good_steps"] != steps:
+        raise AssertionError(f"train-mixed: loss-scale state {ls}")
+    dtypes = {str(t.dtype) for t in flatten({"p": state["params"], "mu": state["opt"]["mu"],
+                                             "nu": state["opt"]["nu"]}).values()}
+    if dtypes != {"torch.float32"}:
+        raise AssertionError(f"train-mixed: masters and moments in {dtypes}, not fp32")
+    mu = flatten(state["opt"]["mu"])
+    for path, m in mu.items():
+        if not bool(torch.isfinite(m).all()) or float(m.abs().max()) == 0.0:
+            raise AssertionError(f"train-mixed gradient of {path}: its first moment is finite "
+                                 f"{bool(torch.isfinite(m).all())}, max {float(m.abs().max())}")
+    print(f"[train-mixed] every master and moment fp32; all {len(mu)} parameter leaves got "
+          f"finite, non-zero gradients (their Adam first moments after {steps} steps)")
+    warm_ms = statistics.median(step_ms[2:])
+    tokens_per_s = b * s / (warm_ms / 1e3)
+    print(f"[train-mixed] median warm step (steps 3-{steps}) {warm_ms:.1f} ms, "
+          f"{tokens_per_s:.1f} tokens/s; max_memory_allocated {peak_mem} (phase 6, one "
+          f"batch of {TRAIN_BATCH} x {TRAIN_SEQ} under legacy: {legacy_peak}); launches over {steps} "
+          f"steps {totals}")
+    busy_ms = sum(r[0] for r in rows)
+    ls_ms = sum(ranges.values())
+    print(f"[profile] train-mixed step {TRAIN_PROFILED_STEP} ({b}x{s}, {mb} microbatches): "
+          f"wall {wall_ms:.1f} ms under the profiler, device busy {busy_ms:.1f} ms "
+          f"({100.0 * busy_ms / wall_ms:.1f}% of wall)")
+    for ms, count, key in rows[:20]:
+        print(f"[profile] {ms:10.3f} ms {count:7d}x  {key[:160]}")
+    split = step_split(rows)
+    print("[profile] one train-mixed step's device ms by kernel family: " + ", ".join(
+        f"{name} {ms:.1f} ms ({count}x)" for name, (ms, count) in split.items()))
+    print("[profile] its loss-scale work (the optimizer's ranges, inside the families above): "
+          + ", ".join(f"{key} {ms:.3f} ms" for key, ms in ranges.items())
+          + f"; {100.0 * ls_ms / busy_ms:.2f}% of the device time")
+    return {
+        "arch": cfg.name, "params": n_params, "precision": pol.name, "batch": b, "seq": s,
+        "microbatches": mb, "steps": steps, "losses": losses, "loss_scales": scales,
+        "overflow_steps": int(ls["skipped"]), "step_ms": step_ms, "ortho": orthos,
+        "warm_step_ms": warm_ms, "tokens_per_s": tokens_per_s,
+        "max_memory_allocated": peak_mem, "legacy_max_memory_allocated": legacy_peak,
+        "launches": totals, "launches_per_step": expect,
+        "profile": {"step": TRAIN_PROFILED_STEP, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                    "by_family": {name: ms for name, (ms, _) in split.items()},
+                    "loss_scale_ms": ranges,
+                    "top": [{"ms": ms, "launches": c, "kernel": key[:120]}
+                            for ms, c, key in rows[:20]]},
+    }
+
+
+def reduced_loop(torch, device, directory, *, total=FAULT_STEPS, ckpt_every=4,
+                 failure_hook=None, deadline=None, precision=None):
+    """A ``TrainLoop`` over the reduced TRAIN_ARCH on the card (batch 4 x
+    64: the flash kernels refuse the reduced head width, so the sequence
+    stays on the direct-softmax branch), checkpointing under
+    ``directory``."""
+    from repro_torch.checkpoint.store import to_tensor
+    from repro_torch.config import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_model
+    from repro_torch.optim import make_sct_optimizer
+    from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
+
+    cfg = get_config(TRAIN_ARCH, reduced=True)
+    opt = make_sct_optimizer(cfg, lr=1e-3, warmup=2, total_steps=total, precision=precision)
+    data = SyntheticLMDataset(vocab=cfg.vocab, seq_len=64, seed=SEED)
+
+    def batches(start):
+        step = start
+        while True:
+            tokens, labels = data.batch(step, 4)
+            yield {"tokens": torch.as_tensor(tokens, device=device),
+                   "labels": torch.as_tensor(labels, device=device)}
+            step += 1
+
+    return TrainLoop(
+        step_fn=make_train_step(cfg, opt), batch_iter_factory=batches, ckpt_dir=directory,
+        cfg=TrainLoopConfig(total_steps=total, checkpoint_every=ckpt_every,
+                            step_deadline_s=deadline, max_restarts=3),
+        init_state_fn=lambda: opt.init(init_model(cfg, seed=SEED, device=device)),
+        place_state_fn=lambda tree: tree_map(lambda a: to_tensor(a, device), tree),
+        failure_hook=failure_hook)
+
+
+def states_equal(torch, a, b) -> bool:
+    from repro_torch.checkpoint.store import flatten
+
+    fa, fb = flatten(a), flatten(b)
+    return set(fa) == set(fb) and all(
+        t.dtype == fb[k].dtype and torch.equal(t, fb[k]) for k, t in fa.items())
+
+
+def phase_fault_tolerance(torch, device, errs):
+    """F: the fault-tolerant runtime and the other precision modes on the
+    reduced TRAIN_ARCH on the card.
+
+    * restart under ``mixed`` with a scale that grows every 3 steps
+      (init 2^10): FAULT_STEPS steps, a checkpoint every 4, an uninterrupted
+      loop against one whose ``failure_hook`` raises at step 8: one restart,
+      the full state (parameters, moments, loss scale) bit-identical, the
+      scale grown;
+    * an injected overflow through ``optimizer.apply``: parameters and
+      moments bit for bit as they were, the scale halved, one skip counted,
+      the step advanced;
+    * a failure right after an async save (step 4): the flush comes before
+      the restore, its writer error is swallowed, the run ends bit-identical;
+    * the ``bf16`` policy through ``Trainer``: 6 steps, parameters bf16,
+      orthogonality error < 0.08, a save at step 3 resumed bit for bit
+      through the bf16 checkpoint layout; the spectral autograd Function
+      over bf16 factors against autograd through its plain version at M
+      8192 on both MLP shapes (the bf16 rung); a bf16 gradient clipped in
+      place on the card equal to the fp32 product rounded once;
+    * a 1e-9 s step deadline counts every step as a straggler."""
+    import tempfile
+    from repro_torch.api import CheckpointSpec, ModelSpec, PrecisionSpec, RunSpec, Trainer
+    from repro_torch.api import TrainSpec
+    from repro_torch.checkpoint.store import flatten, load_pytree, unflatten
+    from repro_torch.config import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.tree import max_orthogonality_error
+    from repro_torch.kernels.ops import spectral_matmul
+    from repro_torch.kernels.ref import spectral_matmul_ref
+    from repro_torch.models.model import init_model
+    from repro_torch.optim import make_sct_optimizer
+    from repro_torch.optim.clip import clip_by_global_norm
+
+    record = {}
+
+    def bomb_at(at, events=None):
+        done = {"crashed": False}
+
+        def bomb(step):
+            if step == at and not done["crashed"]:
+                done["crashed"] = True
+                if events is not None:
+                    events.append("crash")
+                raise RuntimeError("injected node failure")
+        return bomb, done
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # restart under mixed, the scale growing
+        fast = PrecisionPolicy(name="mixed-fastgrow", compute_dtype="bfloat16",
+                               loss_scaling=True, init_scale=2.0 ** 10, growth_interval=3)
+        straight = reduced_loop(torch, device, f"{tmp}/mixed-a", precision=fast).run()
+        bomb, _ = bomb_at(8)
+        loop = reduced_loop(torch, device, f"{tmp}/mixed-b", failure_hook=bomb, precision=fast)
+        resumed = loop.run()
+        scale = float(resumed["loss_scale"]["scale"])
+        same = states_equal(torch, straight, resumed)
+        print(f"[fault] mixed restart: {loop.restarts} restart(s) after a failure at step 8 of "
+              f"{FAULT_STEPS}; scale {2.0 ** 10:.0f} -> {scale:.0f}, overflow skips "
+              f"{loop.overflow_steps}; the full state bit-identical to the uninterrupted "
+              f"run: {same}")
+        if loop.restarts != 1 or not same or not scale > 2.0 ** 10:
+            raise AssertionError("mixed restart on the card")
+        record["restart_mixed"] = {"restarts": loop.restarts, "scale": scale,
+                                   "bit_identical": same}
+
+        # an injected overflow
+        cfg = get_config(TRAIN_ARCH, reduced=True)
+        opt = make_sct_optimizer(cfg, lr=1e-3, precision="mixed")
+        state = opt.init(init_model(cfg, seed=SEED, device=device))
+        before = {k: v.clone() for k, v in flatten(state).items()}
+        bad = {k: torch.full_like(v, math.inf) for k, v in flatten(state["params"]).items()}
+        after = opt.apply(state, unflatten(bad))
+        kept = all(torch.equal(flatten(after)[k], v) for k, v in before.items()
+                   if k.startswith(("params/", "opt/mu/", "opt/nu/")))
+        ls = {k: float(v) for k, v in after["loss_scale"].items()}
+        print(f"[fault] injected overflow: parameters and moments bit for bit {kept}; loss "
+              f"scale {float(before['loss_scale/scale']):.0f} -> {ls['scale']:.0f}, skipped "
+              f"{ls['skipped']:.0f}, step {int(after['step'])}")
+        if not (kept and ls["scale"] == float(before["loss_scale/scale"]) / 2
+                and ls["skipped"] == 1 and int(after["step"]) == 1):
+            raise AssertionError("injected overflow on the card")
+        record["overflow"] = {"kept": kept, **ls}
+        del state, after, before, bad
+
+        # a failure right after an async save: flush, then restore
+        events = []
+        bomb, done = bomb_at(4, events)
+        loop = reduced_loop(torch, device, f"{tmp}/flush", failure_hook=bomb)
+        mgr = loop.mgr
+        orig_wait, orig_restore = mgr.wait, mgr.restore_latest
+        raised = {"done": False}
+
+        def wait():
+            events.append("wait_postcrash" if done["crashed"] else "wait")
+            orig_wait()
+            if done["crashed"] and not raised["done"]:
+                raised["done"] = True
+                raise OSError("flaky writer")
+
+        def restore_latest():
+            events.append("restore")
+            return orig_restore()
+
+        mgr.wait, mgr.restore_latest = wait, restore_latest
+        resumed = loop.run()
+        plain = reduced_loop(torch, device, f"{tmp}/flush-a").run()
+        after_crash = events[events.index("crash") + 1:]
+        same = states_equal(torch, plain, resumed)
+        print(f"[fault] failure right after the step-4 async save: events after the crash "
+              f"{after_crash[:3]}; the writer's error swallowed; bit-identical: {same}")
+        if after_crash[0] != "wait_postcrash" or "restore" not in after_crash or not same:
+            raise AssertionError("flush before restore on the card")
+        record["flush_before_restore"] = {"events": after_crash[:3], "bit_identical": same}
+
+        # the bf16 policy through Trainer, and its checkpoint layout
+        def spec(name):
+            return RunSpec(model=ModelSpec(TRAIN_ARCH, reduced=True),
+                           train=TrainSpec(steps=6, batch=2, seq=64, lr=1e-3, seed=SEED),
+                           precision=PrecisionSpec(mode="bf16"),
+                           checkpoint=CheckpointSpec(directory=f"{tmp}/{name}", every=3))
+
+        straight = Trainer(spec("bf16-a"), device=device)
+        losses = [float(straight.step()["loss"]) for _ in range(6)]
+        first = Trainer(spec("bf16-b"), device=device)
+        for _ in range(3):
+            first.step()
+        first.save()
+        on_disk = {str(a.dtype) for a in flatten(
+            load_pytree(f"{tmp}/bf16-b/step_00000003.npz")["params"]).values()}
+        resumed = Trainer.resume(f"{tmp}/bf16-b", device=device)
+        tail = [float(resumed.step()["loss"]) for _ in range(3)]
+        dtypes = {str(t.dtype) for t in flatten(straight.params).values()}
+        ortho = float(max_orthogonality_error(straight.params))
+        same = tail == losses[3:] and states_equal(torch, straight.state, resumed.state)
+        print(f"[fault] bf16 policy: losses {losses}; parameters {dtypes}, on disk {on_disk}; "
+              f"orthogonality error {ortho:.3e} (< {ORTHO_BF16}); resumed from step 3 bit for "
+              f"bit: {same}")
+        if dtypes != {"torch.bfloat16"} or on_disk != {"|V2"} or not ortho < ORTHO_BF16:
+            raise AssertionError("bf16 policy on the card")
+        if not same or not all(math.isfinite(x) for x in losses):
+            raise AssertionError("bf16 resume on the card is not bit-identical")
+        record["bf16"] = {"losses": losses, "ortho": ortho, "resumed": tail,
+                          "bit_identical": same}
+
+        # stragglers
+        loop = reduced_loop(torch, device, f"{tmp}/straggle", total=4, deadline=1e-9)
+        loop.run()
+        print(f"[fault] a 1e-9 s deadline: {loop.straggler_steps} straggler steps of 4")
+        if loop.straggler_steps != 4:
+            raise AssertionError("straggler count on the card")
+        record["straggler_steps"] = loop.straggler_steps
+
+    # the spectral autograd Function over bf16 factors, and bf16 clipping
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    full = get_config(TRAIN_ARCH)
+    M = TRAIN_BATCH * TRAIN_SEQ
+    for m, n in ((full.d_model, full.d_ff), (full.d_ff, full.d_model)):
+        x, U, sv, V = spectral_inputs(torch, M, m, n, full.sct.rank, torch.bfloat16, gen)
+        sv = sv.to(torch.bfloat16)
+        dy = torch.randn((M, n), generator=gen, device="cuda").to(torch.bfloat16)
+
+        def run(fn):
+            leaves = [t.detach().clone().requires_grad_() for t in (x, U, sv, V)]
+            y = fn(*leaves)
+            y.backward(dy)
+            return [y.detach()] + [t.grad for t in leaves]
+
+        for what, g, r in zip(("y", "dx", "dU", "ds", "dV"), run(spectral_matmul),
+                              run(spectral_matmul_ref)):
+            if not g.dtype == r.dtype == torch.bfloat16:
+                raise AssertionError(f"spectral autograd (bf16 factors) {what}: {g.dtype}")
+            note(errs, "spectral_matmul" if what == "y" else "spectral_autograd",
+                 compare_on_card(torch, g, r, torch.bfloat16,
+                                 f"spectral autograd (bf16 factors) {what} {M}x{m}->{n}"))
+        del x, U, sv, V, dy
+    g = (torch.randn((4096, 2048), generator=gen, device="cuda") * 3.0).to(torch.bfloat16)
+    clipped, norm = clip_by_global_norm({"g": g.clone()}, 1.0)
+    scale = torch.clamp(1.0 / (norm + 1e-12), max=1.0)
+    once = bool(torch.equal(clipped["g"].view(torch.int16),
+                            (g.float() * scale).to(torch.bfloat16).view(torch.int16)))
+    print(f"[fault] spectral autograd over bf16 factors matches its plain version at M={M} on "
+          f"both MLP shapes (bf16 rung); a bf16 gradient clipped in place (scale "
+          f"{float(scale):.3e}) == the fp32 product rounded once: {once}")
+    if not once:
+        raise AssertionError("bf16 clipping on the card is not the fp32 product rounded once")
+    record["bf16_clip_rounds_once"] = once
+    torch.cuda.empty_cache()
+    return record
+
+
 def phase_deepseek_train_timing(torch, launches, errs):
     """The flash kernels at deepseek's MLA training shape (b 2, s 4096, 128
     heads, r 1, q/k 192, v 128, bf16) against their plain versions and
@@ -1945,7 +2358,7 @@ def phase_jamba_train_timing(torch, cfg, launches, errs):
     from repro_torch.kernels.mamba_ref import (mamba_scan_bwd_ref, mamba_scan_fwd_ref,
                                                mamba_scan_twin_ref)
     from repro_torch.kernels.mamba_scan import mamba_scan_bwd_cuda, mamba_scan_cuda
-    from repro_torch.kernels.testing import kernel_error, mamba_inputs, mamba_model_layout
+    from repro_torch.kernels.testing import mamba_inputs, mamba_model_layout
 
     b, S = JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ
     di, ds = cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
@@ -1994,8 +2407,7 @@ def phase_jamba_train_timing(torch, cfg, launches, errs):
                                                              args[5])]
     yt, _ = mamba_scan_twin_ref(*leaves)
     twin = torch.autograd.grad(yt, leaves, dy)
-    gaps = [kernel_error(g.float().cpu().numpy(), t.float().cpu().numpy()).max_scaled
-            for g, t in zip(got, twin)]
+    gaps = [card_error(g, t)[1] for g, t in zip(got, twin)]
     print(f"[kernels] mamba_scan_bwd vs the reference model's scan (h carried in bf16) at the "
           f"training shape, not gated: max scaled gaps du/ddt/dB/dC/dA/dD "
           + "/".join(f"{x:.2e}" for x in gaps))
@@ -3497,14 +3909,29 @@ def merge_errs(errs, more):
         note(errs, name, e)
 
 
+def card_error(y, yr):
+    """``kernel_error`` of ``y`` against ``yr`` where they lie (on the card):
+    (max |y - yr|, the same over ``yr``'s RMS, 1 for an all-zero ``yr``),
+    in fp32, without copying outputs of 200 M elements to the host."""
+    y, yr = y.detach().float(), yr.detach().float()
+    if not yr.numel():
+        return 0.0, 0.0
+    err = float((y - yr).abs().max())
+    return err, err / card_rms(yr)
+
+
+def card_rms(yr):
+    """The root mean square of ``yr`` (fp32, on the card), 1 for all zeros."""
+    rms = float(yr.pow(2).mean().sqrt()) if yr.numel() else 0.0
+    return rms if rms > 0.0 else 1.0
+
+
 def add_err(t, y, yr):
     """Fold the error of a timed kernel's output ``y`` against its plain
     version's ``yr`` into ``t["err"]`` (max abs) and ``t["scaled"]``."""
-    from repro_torch.kernels.testing import kernel_error
-
-    e = kernel_error(y.detach().float().cpu().numpy(), yr.detach().float().cpu().numpy())
-    t["err"] = max(t.get("err", 0.0), e.max_abs)
-    t["scaled"] = max(t.get("scaled", 0.0), e.max_scaled)
+    err, scaled = card_error(y, yr)
+    t["err"] = max(t.get("err", 0.0), err)
+    t["scaled"] = max(t.get("scaled", 0.0), scaled)
 
 
 def kernel_entry(name, source, replaces, t, peak_key, shape, launches, errs):
@@ -3654,6 +4081,11 @@ def main() -> int:
         lap("deepseek training")
         flash_mla = phase_deepseek_train_timing(torch, deepseek_train["launches"], errs)
         lap("deepseek training timing")
+        train_mixed = phase_mixed_training(torch, device, train["max_memory_allocated"])
+        torch.cuda.empty_cache()
+        lap("mixed training")
+        fault = phase_fault_tolerance(torch, device, errs)
+        lap("fault tolerance")
     except Exception:                            # every phase failure fails the run
         traceback.print_exc()
         return fail("a phase failed")
@@ -3681,6 +4113,9 @@ def main() -> int:
         kern["launches_deepseek_train"] = at["launches"]
         kern["at_mla"] = at
     kernels[0]["launches_deepseek_train"] = deepseek_train["launches"]["spectral_matmul"]
+    kernels[0]["launches_train_mixed"] = train_mixed["launches"]["spectral_matmul"]
+    for kern in flash:
+        kern["launches_train_mixed"] = train_mixed["launches"][kern["name"]]
     kernels += (kernels_int8 + [kernel_mlstm, kernel_mamba] + kernels_mla
                 + [kernel_mlstm_bwd, kernel_mamba_bwd])
     for kern in kernels:                        # checks of later phases count too
@@ -3723,6 +4158,8 @@ def main() -> int:
     print(json.dumps({"xlstm_train": xlstm_train}))
     print(json.dumps({"jamba_train": jamba_train}))
     print(json.dumps({"deepseek_train": deepseek_train}))
+    print(json.dumps({"train_mixed": train_mixed}))
+    print(json.dumps({"fault_tolerance": fault}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

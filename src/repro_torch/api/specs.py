@@ -110,9 +110,10 @@ class TrainSpec(_Spec):
 
 @_spec
 class PrecisionSpec(_Spec):
-    """The precision mode: ``legacy`` (compute in ``ModelConfig.dtype``
-    over fp32 masters) or ``fp32``; ``bf16`` and ``mixed`` are valid
-    specs whose policy raises NotImplementedError here."""
+    """The precision mode (``core/precision.py``): ``legacy`` (compute in
+    ``ModelConfig.dtype`` over fp32 masters), ``fp32``, ``bf16`` (bf16
+    factors and compute) or ``mixed`` (fp32 masters, bf16 compute,
+    dynamic loss scaling with overflow skip)."""
     mode: str = "legacy"
 
     def __post_init__(self):

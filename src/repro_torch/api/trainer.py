@@ -9,19 +9,19 @@ reference's ``api/trainer.py`` on one device).
     newest checkpoint under a directory, whichever package wrote it.
 
 The run is on the CUDA device unless the caller passes ``device="cpu"``
-(without a GPU and without a device it raises). Rank schedules,
-telemetry and microbatching are not ported and raise.
+(without a GPU and without a device it raises). Every precision mode and
+microbatching are ported; rank schedules and telemetry raise.
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Callable, Dict, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.api.specs import RunSpec
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.store import to_tensor
 from repro_torch.core.tree import tree_map
 from repro_torch.data.synthetic import SyntheticLMDataset
 from repro_torch.device import DeviceLike, resolve_device
@@ -34,10 +34,14 @@ __all__ = ["Trainer", "log_metrics"]
 
 
 def log_metrics(step: int, metrics: Dict[str, float]) -> None:
-    """The CLI's train-log line: the loss, its cross-entropy and its MoE
-    load-balance part (``aux``, 0 for a family without an MoE)."""
-    print(f"step {step:6d}  loss {metrics['loss']:.4f}  ce {metrics['ce_loss']:.4f}  "
-          f"aux {metrics.get('aux_loss', 0.0):.4f}", flush=True)
+    """The CLI's train-log line: the loss, its cross-entropy, its MoE
+    load-balance part (``aux``, 0 for a family without an MoE) and, under
+    loss scaling, the scale."""
+    line = (f"step {step:6d}  loss {metrics['loss']:.4f}  ce {metrics['ce_loss']:.4f}  "
+            f"aux {metrics.get('aux_loss', 0.0):.4f}")
+    if "loss_scale" in metrics:
+        line += f"  scale {metrics['loss_scale']:.0f}"
+    print(line, flush=True)
 
 
 class Trainer:
@@ -46,10 +50,12 @@ class Trainer:
     :meth:`fit`. Parameters materialize on the first :meth:`fit` /
     :meth:`step` / :meth:`save`. Each step updates the state's parameters
     and moments in place (``make_train_step``): :attr:`state` returns
-    the live tensors, which later steps change."""
+    the live tensors, which later steps change. ``failure_hook(step)`` is
+    the loop's chaos-drill injection point (:meth:`fit`)."""
 
     def __init__(self, spec: RunSpec, *, device: DeviceLike = None,
-                 metrics_cb: Optional[Callable[[int, Dict], None]] = None):
+                 metrics_cb: Optional[Callable[[int, Dict], None]] = None,
+                 failure_hook: Optional[Callable[[int], None]] = None):
         self.spec = spec
         self.device = resolve_device(device)
         self.cfg = spec.model.config()
@@ -60,6 +66,7 @@ class Trainer:
         self._step_fn = make_train_step(self.cfg, self.optimizer,
                                         microbatches=t.microbatches, telemetry=t.telemetry)
         self.metrics_cb = metrics_cb
+        self.failure_hook = failure_hook
         self.dataset = SyntheticLMDataset(vocab=self.cfg.vocab, seq_len=t.seq, seed=t.seed)
         self.manager: Optional[CheckpointManager] = None
         if spec.checkpoint.directory is not None:
@@ -90,7 +97,7 @@ class Trainer:
 
     def _place(self, state):
         """A restored tree of numpy arrays as the device state."""
-        return tree_map(lambda a: torch.as_tensor(np.asarray(a), device=self.device), state)
+        return tree_map(lambda a: to_tensor(a, self.device), state)
 
     # ----------------------------------------------------------------- fit --
     def fit(self) -> Any:
@@ -103,9 +110,10 @@ class Trainer:
         if self._state is not None:
             # progress made with step() lands on disk first, or the loop
             # would re-run it from the last checkpoint
+            self.manager.wait()
             latest = self.manager.list_steps()
             if self._step > (latest[-1] if latest else -1):
-                self.manager.save(self._step, self._state)
+                self.manager.save(self._step, self._state, block=True)
         self.loop = TrainLoop(
             step_fn=self._step_fn,
             batch_iter_factory=self._batch_iter,
@@ -116,6 +124,7 @@ class Trainer:
             init_state_fn=self._init_state,
             place_state_fn=self._place,
             metrics_cb=self.metrics_cb,
+            failure_hook=self.failure_hook,
             checkpoint_manager=self.manager,
         )
         self._state = self.loop.run()
@@ -150,17 +159,19 @@ class Trainer:
 
     # ---------------------------------------------------------------- save --
     def save(self) -> int:
-        """Checkpoint the current state at the current step; returns it."""
+        """Checkpoint the current state at the current step, written
+        before this returns; returns the step."""
         if self.manager is None:
             raise ValueError("Trainer.save needs spec.checkpoint.directory")
         self._ensure_state()
-        self.manager.save(self._step, self._state)
+        self.manager.save(self._step, self._state, block=True)
         return self._step
 
     # -------------------------------------------------------------- resume --
     @classmethod
     def resume(cls, ckpt_dir: str, *, device: DeviceLike = None,
                metrics_cb: Optional[Callable[[int, Dict], None]] = None,
+               failure_hook: Optional[Callable[[int], None]] = None,
                **overrides) -> "Trainer":
         """A Trainer rebuilt from the RunSpec in the newest checkpoint under
         ``ckpt_dir`` (either package's); ``overrides`` are
@@ -176,7 +187,8 @@ class Trainer:
         spec = RunSpec.from_dict(spec_dict)
         merged = {"checkpoint.directory": ckpt_dir}
         merged.update(overrides)
-        return cls(spec.replace(**merged), device=device, metrics_cb=metrics_cb)
+        return cls(spec.replace(**merged), device=device, metrics_cb=metrics_cb,
+                   failure_hook=failure_hook)
 
     # --------------------------------------------------------------- state --
     @property

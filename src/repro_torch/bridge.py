@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.checkpoint.store import flatten, load_pytree, unflatten
+from repro_torch.checkpoint.store import flatten, load_pytree, to_tensor, unflatten
 from repro_torch.config.model_config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.lm import init_lm
@@ -56,7 +56,7 @@ def params_from_numpy(tree_or_flat_npz, cfg: ModelConfig,
         arr = np.asarray(leaf)
         if arr.shape != want[key]:
             raise ValueError(f"{key}: shape {arr.shape}, expected {want[key]}")
-        out[key] = torch.tensor(arr, device=dev)
+        out[key] = to_tensor(arr, dev)
     return unflatten(out)
 
 

@@ -1,11 +1,15 @@
 """Checkpoint lifecycle (the reference's ``checkpoint/manager.py``):
-rotation, latest-discovery, and the ``.meta.json`` sidecar.
+rotation, latest-discovery, async saves and the ``.meta.json`` sidecar.
 
 Checkpoints are ``step_<8 digits>.npz`` files in the reference's npz
 layout (``checkpoint/store.py``) beside a sidecar holding the step, the
 per-group spectral ranks and, when the manager has one, the serialized
-RunSpec, so either package resumes from the other's files. Saves are
-synchronous; a checkpoint is visible only after its atomic rename.
+RunSpec, so either package resumes from the other's files. A save takes
+its host snapshot on the caller's thread (training steps update the
+state in place, so the writer must never read the live tensors), then
+writes the npz, the sidecar and the rotation on a background thread
+unless the caller blocks, one save in flight at a time. A checkpoint is visible only after
+its atomic rename, so a crash mid-write never corrupts the restore path.
 Cross-rank restore (``target_rank``) is not ported.
 """
 from __future__ import annotations
@@ -13,9 +17,10 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
-from repro_torch.checkpoint.store import load_pytree, save_pytree
+from repro_torch.checkpoint.store import host_tree, load_pytree, save_pytree
 from repro_torch.core.spectral import is_spectral
 
 _CKPT_RE = re.compile(r"^step_(\d+)\.npz$")
@@ -39,6 +44,8 @@ class CheckpointManager:
         self.directory = directory
         self.keep = keep
         self.run_spec = run_spec
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[Exception] = None
         os.makedirs(directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -51,19 +58,47 @@ class CheckpointManager:
         return sorted(int(m.group(1)) for m in map(_CKPT_RE.match, os.listdir(self.directory))
                       if m)
 
-    def save(self, step: int, state: Any) -> None:
-        """Write ``state`` (tensors are fetched to the host) and its
-        sidecar, then drop all but the ``keep`` newest checkpoints."""
-        save_pytree(state, self._path(step))
-        params = state.get("params", state) if isinstance(state, dict) else state
+    def save(self, step: int, state: Any, block: bool = False) -> None:
+        """Checkpoint ``state`` at ``step``: its host snapshot now (tensors
+        copied off the device, or off their live CPU storage), then the
+        npz, its sidecar and the rotation to the ``keep`` newest, on the
+        writer thread unless ``block``. A save in flight is waited for
+        first."""
+        self.wait()
+        snapshot = host_tree(state)
+        params = snapshot.get("params", snapshot) if isinstance(snapshot, dict) else snapshot
         meta = {"step": step, "ranks": rank_metadata(params)}
         if self.run_spec is not None:
             meta["run_spec"] = self.run_spec
-        tmp = self._meta_path(step) + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(meta, f, indent=1, sort_keys=True)
-        os.replace(tmp, self._meta_path(step))
-        self._rotate()
+
+        def write():
+            save_pytree(snapshot, self._path(step))
+            tmp = self._meta_path(step) + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(meta, f, indent=1, sort_keys=True)
+            os.replace(tmp, self._meta_path(step))
+            self._rotate()
+
+        if not block:
+            def run():
+                try:
+                    write()
+                except Exception as e:  # noqa: BLE001 — re-raised by wait()
+                    self._error = e
+
+            self._thread = threading.Thread(target=run, name=f"ckpt-{step}", daemon=True)
+            self._thread.start()
+        else:
+            write()
+
+    def wait(self) -> None:
+        """Join the save in flight, if any; a writer's error is raised here."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
     def run_spec_for(self, step: int) -> Optional[Dict[str, Any]]:
         """The serialized RunSpec embedded at ``step``'s save, or None."""
@@ -76,6 +111,7 @@ class CheckpointManager:
     def latest_run_spec(self) -> Tuple[Optional[int], Optional[Dict[str, Any]]]:
         """(step, serialized RunSpec) of the newest checkpoint, or
         (None, None) for an empty directory."""
+        self.wait()
         steps = self.list_steps()
         if not steps:
             return None, None
@@ -92,6 +128,7 @@ class CheckpointManager:
     def restore_latest(self) -> Tuple[Optional[int], Any]:
         """(step, state as numpy arrays) of the newest checkpoint, or
         (None, None)."""
+        self.wait()
         steps = self.list_steps()
         if not steps:
             return None, None

@@ -1,11 +1,14 @@
-"""Pytree (de)serialization in the reference's npz layout, numpy only.
+"""Pytree (de)serialization in the reference's npz layout.
 
 A checkpoint is one ``.npz``: every leaf under its ``/``-joined path
 (``layers/mlp/up/U``; list items as ``[i]``) plus a ``__struct__`` json
-treedef. The layout is byte-compatible with the JAX package's
-``checkpoint/store.py``, so either side can read what the other wrote.
-Leaves may be numpy arrays or torch tensors (fetched to host); loads
-return numpy arrays — ``bridge.params_from_numpy`` places them.
+treedef. The layout is the JAX package's ``checkpoint/store.py``'s, so
+either side can read what the other wrote. Leaves may be numpy arrays or
+torch tensors: a tensor is copied to the host (a copy even when it lies
+on the CPU, so a later in-place step never changes what is written), and
+a bf16 tensor is written as the reference writes one, its raw bits as a
+2-byte void (``V2``: numpy has no bfloat16). Loads return numpy arrays;
+:func:`to_tensor` places one, a ``V2`` leaf as bf16 bit for bit.
 Atomic: write to ``<path>.tmp``, fsync, rename.
 """
 from __future__ import annotations
@@ -15,8 +18,10 @@ import os
 from typing import Any
 
 import numpy as np
+import torch
 
 _SEP = "/"
+_BF16_BITS = np.dtype("V2")   # a bf16 leaf's raw bits on disk
 
 
 def _flatten_with_paths(tree: Any, prefix=""):
@@ -53,15 +58,40 @@ def _rebuild(struct, leaves: dict, prefix=""):
     return leaves[prefix]
 
 
-def _to_numpy(leaf: Any) -> np.ndarray:
-    if hasattr(leaf, "detach"):                  # torch.Tensor
-        return leaf.detach().cpu().numpy()
+def to_numpy(leaf: Any) -> np.ndarray:
+    """A host copy of one leaf in the npz layout: a tensor is copied (on
+    the CPU too), a bf16 tensor's bits become a ``V2`` array."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16_BITS)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def to_tensor(leaf: Any, device=None) -> torch.Tensor:
+    """A loaded leaf as a tensor on ``device`` (a copy: the tensor never
+    aliases the array): a 2-byte void array (``V2`` from a file, or
+    ml_dtypes' bfloat16 from ``jax.device_get``) is bf16, bit for bit."""
+    arr = np.asarray(leaf)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.tensor(arr, device=device)
+
+
+def host_tree(tree: Any) -> Any:
+    """The tree with every leaf fetched by :func:`to_numpy`: a snapshot a
+    background writer can save while the caller's tensors change."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_tree(v) for v in tree)
+    return to_numpy(tree)
 
 
 def save_pytree(tree: Any, path: str) -> None:
     """Atomic save of a nested dict/list of arrays or tensors."""
-    arrays = {p: _to_numpy(leaf) for p, leaf in _flatten_with_paths(tree)}
+    arrays = {p: to_numpy(leaf) for p, leaf in _flatten_with_paths(tree)}
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(tmp, "wb") as f:

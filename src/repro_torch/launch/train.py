@@ -9,10 +9,14 @@ reference's ``launch/train.py`` on one device).
       --reduced --steps 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b \\
       --reduced --steps 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm2-1.7b \\
+      --reduced --steps 4 --precision mixed --microbatches 2 --device cpu
 
 The port trains the dense_lm, ssm_lm (xlstm), hybrid (jamba) and moe_lm
 (deepseek-v2/v3) families; the log line carries the MoE's load-balance
-loss (``aux``) beside the cross-entropy.
+loss (``aux``) beside the cross-entropy, and under ``--precision mixed``
+the loss scale; a loss-scaled run ends with the scale and its count of
+overflow-skipped steps.
 
 Without ``--device`` the run is on the CUDA device, and raises when
 there is none. ``--dump-spec`` prints the resolved RunSpec JSON (the
@@ -46,9 +50,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--precision", choices=["legacy", "fp32"], default="legacy",
+    ap.add_argument("--precision", choices=["legacy", "fp32", "bf16", "mixed"],
+                    default="legacy",
                     help="legacy: compute in the config dtype over fp32 masters; "
-                         "fp32: everything fp32")
+                         "fp32: everything fp32; bf16: bf16 factors and compute; "
+                         "mixed: fp32 masters, bf16 compute, dynamic loss scaling "
+                         "with overflow skip")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="split each batch into this many equal slices and "
+                         "accumulate their gradients in fp32")
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -65,7 +75,7 @@ def build_spec(args: argparse.Namespace) -> RunSpec:
     return RunSpec(
         model=ModelSpec(arch=args.arch, reduced=args.reduced),
         train=TrainSpec(steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
-                        seed=args.seed),
+                        microbatches=args.microbatches, seed=args.seed),
         precision=PrecisionSpec(mode=args.precision),
         checkpoint=CheckpointSpec(directory=args.ckpt_dir, every=args.ckpt_every),
     )
@@ -80,6 +90,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     trainer = Trainer(spec, device=args.device, metrics_cb=log_metrics)
     state = trainer.fit()
     print("final ortho error:", float(max_orthogonality_error(state["params"])))
+    if "loss_scale" in state:
+        print(f"loss scale: {float(state['loss_scale']['scale']):.0f}  "
+              f"overflow-skipped steps: {int(state['loss_scale']['skipped'])} "
+              f"(loop saw {trainer.loop.overflow_steps})")
 
 
 if __name__ == "__main__":

@@ -66,7 +66,8 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
     arithmetic runs in fp32 on ``t.to(torch.float32)``, which is the leaf
     itself for fp32 leaves, and is stored back with ``copy_``, which
     returns at once when the source is the destination: an fp32 leaf is
-    updated where it lies, with the functional form's bits, and a
+    updated where it lies, with the functional form's bits (a bf16 leaf is
+    updated in fp32 and rounded once, as the reference's ``astype``), and a
     functional update would hold old and new params, mu and nu of the
     whole tree at once, which a full-width deepseek step cannot spare."""
     count = state["count"] + 1

@@ -1,13 +1,18 @@
 """The SCT training step as an optimizer wrapper (the reference's
-``optim/sct_optimizer.py``, its unscaled branch): AdamW on every
-parameter, then the Stiefel retraction of every spectral U/V (paper
-Algorithm 1), every ``retract_every`` steps.
+``optim/sct_optimizer.py``): AdamW on every parameter, then the Stiefel
+retraction of every spectral U/V (paper Algorithm 1), every
+``retract_every`` steps.
 
 The state is the reference's TrainState layout
-``{"params", "opt": {"mu", "nu", "count"}, "step"}`` (``step`` an int32
-0-d tensor), so a checkpoint of either package restores in the other.
-Loss scaling (the reference's ``mixed`` policy) and rank resizing are
-not ported.
+``{"params", "opt": {"mu", "nu", "count"}, "step"[, "loss_scale"]}``
+(``step`` an int32 0-d tensor), so a checkpoint of either package
+restores in the other. Under a loss-scaling policy (``mixed``) the state
+carries ``loss_scale`` and ``apply`` takes scaled gradients: it unscales
+them, decides on the device whether they are all finite (one host read),
+and only then clips, updates and retracts; an overflowed step leaves
+parameters, moments and factors as they were, bit for bit, halves the
+scale and counts the skip. Master parameters are stored in the policy's
+``param_dtype``. Rank resizing is not ported.
 """
 from __future__ import annotations
 
@@ -16,13 +21,21 @@ from typing import Any, Optional, Union
 
 import torch
 
-from repro_torch.core.precision import PrecisionPolicy, precision_policy
-from repro_torch.core.tree import retract_tree, tree_map
+from repro_torch.core.precision import (
+    PrecisionPolicy,
+    all_finite,
+    cast_tree,
+    loss_scale_init,
+    loss_scale_update,
+    precision_policy,
+    unscale_grads,
+)
+from repro_torch.core.tree import retract_tree
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.clip import clip_by_global_norm
 from repro_torch.optim.schedule import ScheduleConfig, make_schedule
 
-TrainState = dict  # {"params", "opt", "step"}
+TrainState = dict  # {"params", "opt", "step"[, "loss_scale"]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,11 +49,14 @@ class SCTOptimizer:
 
     def init(self, params: Any) -> TrainState:
         if self.precision is not None:
-            dt = self.precision.param_torch
-            params = tree_map(lambda t: t.to(dt) if t.is_floating_point() else t, params)
+            params = cast_tree(params, self.precision.param_torch)
         opt = adamw_init(params, self.adamw.moment_dtype)
-        return {"params": params, "opt": opt,
-                "step": torch.zeros((), dtype=torch.int32, device=opt["count"].device)}
+        device = opt["count"].device
+        state = {"params": params, "opt": opt,
+                 "step": torch.zeros((), dtype=torch.int32, device=device)}
+        if self.precision is not None and self.precision.loss_scaling:
+            state["loss_scale"] = loss_scale_init(self.precision, device)
+        return state
 
     def _update(self, params: Any, opt: Any, step: int, grads: Any):
         """One AdamW step and, on the cadence, the retraction. ``step``
@@ -58,11 +74,32 @@ class SCTOptimizer:
         """The state after one step on ``grads``. The fp32 parameters, the
         moments and ``grads`` are updated in place (the same bits as the
         functional update; the reference's jit donates these buffers), so
-        ``state`` is spent: keep a copy to hold on to the old one."""
-        with torch.no_grad():
-            params, opt = self._update(state["params"], state["opt"],
-                                       int(state["step"]), grads)
+        ``state`` is spent: keep a copy to hold on to the old one.
+
+        Gradients are taken as scaled only when the policy scales AND the
+        state has ``loss_scale`` (as the step builder decides whether to
+        scale), so a state written under another policy trains unscaled
+        on both sides. The step counter advances on a skip too."""
+        pol = self.precision
+        step = int(state["step"])
         out = dict(state)
+        with torch.no_grad():
+            if pol is None or not pol.loss_scaling or "loss_scale" not in state:
+                params, opt = self._update(state["params"], state["opt"], step, grads)
+            else:
+                ls = state["loss_scale"]
+                # unscale, then decide, and only then clip and update in place;
+                # the ranges name the loss-scale work in a profile
+                with torch.profiler.record_function("loss_scale.unscale"):
+                    grads = unscale_grads(grads, ls)
+                with torch.profiler.record_function("loss_scale.all_finite"):
+                    finite = all_finite(grads)
+                    ok = bool(finite)
+                if ok:
+                    params, opt = self._update(state["params"], state["opt"], step, grads)
+                else:
+                    params, opt = state["params"], state["opt"]
+                out["loss_scale"] = loss_scale_update(ls, finite, pol)
         out.update(params=params, opt=opt, step=state["step"] + 1)
         return out
 

@@ -334,10 +334,11 @@ def test_unported_paths_raise(models):
     from repro_torch.launch.steps import make_train_step
 
     _, _, tcfg, tp = models
-    # the family trains (tests/test_torch_deepseek_train.py); microbatched
-    # gradient accumulation is not ported for any family
-    with pytest.raises(NotImplementedError, match="microbatched"):
-        make_train_step(tcfg, microbatches=2)
+    # the family trains (tests/test_torch_deepseek_train.py), microbatched
+    # too (tests/test_torch_runtime.py); rank telemetry is not ported
+    assert callable(make_train_step(tcfg, microbatches=2))
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        make_train_step(tcfg, microbatches=2, telemetry=True)
     pcfg = PagedCacheConfig(page_size=4, num_pages=12, max_slots=2, max_pages_per_seq=4)
     with pytest.raises(NotImplementedError, match="int8"):
         ServingEngine(tcfg, tp, pcfg, device="cpu", quantize="int8")

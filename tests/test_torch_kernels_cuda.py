@@ -606,6 +606,69 @@ def test_spectral_autograd_vs_plain(cuda, dtype):
         assert_kernel_matches(lambda: g, lambda: r, (), dtype=DTYPES[dtype], label=name)
 
 
+@pytest.mark.parametrize("mn", [(2048, 8192), (8192, 2048)], ids=["up", "down"])
+def test_spectral_autograd_bf16_factors_vs_plain(cuda, mn):
+    """The bf16 policy's path: bf16 activations over bf16 factors (s too),
+    y and the gradients (dx, dU, ds, dV) through the kernel's autograd
+    Function against autograd through the plain version at the bf16 rung,
+    every gradient in its input's dtype."""
+    m, n = mn
+    x, U, s, V = (t.to(torch.bfloat16) for t in _spectral(256, m, n, 128, torch.float32, cuda))
+    dy = torch.randn((256, n), device=cuda).to(torch.bfloat16)
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, U, s, V)]
+        y = fn(*leaves)
+        y.backward(dy)
+        return [y] + [t.grad for t in leaves]
+
+    got = run(spectral_matmul)
+    ref = run(lambda a, u, sv, vv: spectral_matmul_ref(a, u, sv, vv))
+    for name, g, r in zip(("y", "dx", "dU", "ds", "dV"), got, ref):
+        assert g.dtype == r.dtype == torch.bfloat16, name
+        assert_kernel_matches(lambda: g, lambda: r, (), dtype=torch.bfloat16, label=name)
+
+
+def test_clip_and_adamw_on_bf16_cuda_leaves(cuda):
+    """In-place clipping of a bf16 gradient on the card equals the fp32
+    product rounded once (the reference's ``astype``), an fp32 one the
+    product itself; AdamW on a bf16 parameter equals the update of its
+    fp32 copy rounded once, with the same moments, bit for bit."""
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.clip import clip_by_global_norm
+
+    rng = np.random.default_rng(11)
+    g32 = torch.tensor(rng.standard_normal((1000, 300)) * 3.0, dtype=torch.float32, device=cuda)
+    gb = torch.tensor(rng.standard_normal((513, 77)) * 3.0, dtype=torch.float32,
+                      device=cuda).to(torch.bfloat16)
+    grads = {"a": gb.clone(), "b": g32.clone()}
+    clipped, norm = clip_by_global_norm(grads, 1.0)
+    scale = torch.clamp(1.0 / (norm + 1e-12), max=1.0)
+    assert float(scale) < 1.0
+    assert clipped["a"] is grads["a"] and clipped["a"].dtype == torch.bfloat16
+    assert torch.equal(clipped["a"].view(torch.int16),
+                       (gb.float() * scale).to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(clipped["b"], g32 * scale)
+
+    cfg = AdamWConfig(lr=3e-3)
+    p32 = torch.tensor(rng.standard_normal((513, 77)), dtype=torch.float32, device=cuda)
+    pb = p32.to(torch.bfloat16)
+    wide = {"w": pb.float()}
+    narrow = {"w": pb.clone()}
+    st_w, st_n = adamw_init(wide), adamw_init(narrow)
+    for i in range(3):
+        g = torch.tensor(rng.standard_normal((513, 77)), dtype=torch.float32,
+                         device=cuda).to(torch.bfloat16)
+        wide, st_w = adamw_update(wide, {"w": g.clone()}, st_w, cfg)
+        narrow, st_n = adamw_update(narrow, {"w": g.clone()}, st_n, cfg)
+        assert narrow["w"].dtype == torch.bfloat16
+        assert torch.equal(narrow["w"].view(torch.int16),
+                           wide["w"].to(torch.bfloat16).view(torch.int16)), i
+        assert torch.equal(st_n["mu"]["w"], st_w["mu"]["w"])
+        assert torch.equal(st_n["nu"]["w"], st_w["nu"]["w"])
+        wide = {"w": narrow["w"].float()}   # the bf16 run keeps only the rounded value
+
+
 @pytest.mark.parametrize("with_state", [False, True], ids=["empty", "state"])
 @pytest.mark.parametrize("profile", MLSTM_PROFILES)
 @pytest.mark.parametrize("case", MLSTM, ids=lambda c: "x".join(map(str, c)))

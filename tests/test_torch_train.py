@@ -265,6 +265,9 @@ def test_spec_json_is_the_reference_format(tmp_path):
 
 @pytest.mark.parametrize("what", ["bf16", "mixed", "microbatches", "telemetry", "rank"])
 def test_unported_training_options_raise(what, tmp_path):
+    """bf16, mixed and microbatches are ported: the Trainer builds and
+    takes a finite step in the asked mode; telemetry and a rank schedule
+    still raise."""
     data = _spec(tmp_path).to_dict()
     if what in ("bf16", "mixed"):
         data["precision"]["mode"] = what
@@ -272,8 +275,16 @@ def test_unported_training_options_raise(what, tmp_path):
         data["rank"] = {"schedule": "static:8"}
     else:
         data["train"][what] = 2 if what == "microbatches" else True
-    with pytest.raises(NotImplementedError):
-        Trainer(RunSpec.from_dict(data), device="cpu")
+    if what in ("telemetry", "rank"):
+        with pytest.raises(NotImplementedError):
+            Trainer(RunSpec.from_dict(data), device="cpu")
+        return
+    trainer = Trainer(RunSpec.from_dict(data), device="cpu")
+    metrics = trainer.step()
+    assert np.isfinite(float(metrics["loss"])) and trainer.current_step == 1
+    dtypes = {t.dtype for t in flatten(trainer.params).values()}
+    assert dtypes == {torch.bfloat16 if what == "bf16" else torch.float32}
+    assert ("loss_scale" in metrics) == (what == "mixed")
 
 
 def test_train_cli_runs_on_cpu(tmp_path, capsys):
