@@ -94,8 +94,8 @@ Phases (any failure exits non-zero and prints no result line):
     f at either saturation), with and without an initial state: y, C, n
     and m at the fp32 rung; and the spectral kernel at xlstm's four
     projection shapes (2048->8192, 4096->2048, 2048->5460, 2730->2048);
-14. serve xlstm-1.3b at full width (48 blocks: 6 periods of 7 mLSTM + 1
-    sLSTM, d_model 2048, 4 heads of 1024 in the mLSTM, vocab 50304, rank
+14. serve xlstm-1.3b at full width cut from 48 blocks to 16 (2 periods of
+    7 mLSTM + 1 sLSTM; cut to pay for phases Q, D8 and S), d_model 2048, 4 heads of 1024 in the mLSTM, vocab 50304, rank
     128, bf16; random weights from seed 0) on phase 3's trace and
     geometry: the mLSTM kernel launched 42 times per prefilled request and
     never in decode, the spectral kernel 96 times per model forward;
@@ -116,8 +116,8 @@ Phases (any failure exits non-zero and prints no result line):
     jamba's MLP shapes (rank 256, M in {4, 160}) and the paged decode at
     head dim 128 (b 4, kvh 8, rep 4, ragged lengths, a null-page slot),
     bf16 and fp32;
-17. serve jamba-v0.1-52b at full width (32 layers: 4 periods of 7 mamba +
-    1 attention, MoE of 16 experts top-2 on every other layer, d_model
+17. serve jamba-v0.1-52b at full width cut from 32 layers to 16 (2
+    periods of 7 mamba + 1 attention; cut to pay for phases Q, D8 and S), MoE of 16 experts top-2 on every other layer, d_model
     4096, 32/8 heads of 128, d_ff 14336, vocab 65536, rank 256, bf16;
     random weights from seed 0; capacity factor 8.0, the JAX package's
     tests' pin) on phase 3's trace and geometry: the scan kernel launched
@@ -277,12 +277,16 @@ the repository around it: alone, or without a CUDA device, it fails.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -355,8 +359,10 @@ STREAM_TRACE = [(96, 192, 0), (32, 40, 0), (128, 176, 0), (24, 48, 0),
                 (160, 160, 4), (40, 36, 4), (192, 176, 4), (16, 56, 4)]
 SNAPSHOT_STEP = 150
 
-# the xlstm cell: xlstm-1.3b at full width on slice 1's trace and geometry
-XLSTM_ARCH = "xlstm-1.3b"
+# the xlstm cell: xlstm-1.3b at full width on slice 1's trace and geometry,
+# cut from 48 blocks to 16 (two periods) to pay for the serving front end's
+# phases Q, D8 and S
+XLSTM_ARCH, XLSTM_SERVE_LAYERS = "xlstm-1.3b", 16
 # mLSTM kernel checks: head widths (the reduced config's 32, xlstm-1.3b's
 # 1024), folded batch * heads, prompt lengths (one token, ragged chunks,
 # the cell's longest prompt, one and two chunks of 256, four)
@@ -376,8 +382,9 @@ MLSTM_BWD_DH, MLSTM_BWD_B = (32, 1024), (1, 8)
 MLSTM_BWD_S = (1, 37, 256, 300, 1000, 4096)
 
 # the jamba cell: jamba-v0.1-52b at full width on slice 1's trace and
-# geometry, at the capacity factor the JAX package's tests pin
-JAMBA_ARCH, JAMBA_CAPACITY = "jamba-v0.1-52b", 8.0
+# geometry, at the capacity factor the JAX package's tests pin, cut from 32
+# layers to 16 (two periods) to pay for phases Q, D8 and S
+JAMBA_ARCH, JAMBA_CAPACITY, JAMBA_SERVE_LAYERS = "jamba-v0.1-52b", 8.0, 16
 # selective-scan checks: batch, prompt lengths (one token, ragged 32-step
 # tiles, the cell's longest prompt, long), channels (one block, a ragged
 # edge, jamba's 8192)
@@ -414,6 +421,12 @@ MIXED_BATCH, MIXED_MICROBATCHES, MIXED_STEPS, MIXED_SCALE = 4, 2, 6, 2.0 ** 15
 # loop (checkpoints every 4, the failure at step 8); the reference's bf16
 # orthonormality tolerance (tests/test_precision.py)
 FAULT_STEPS, ORTHO_BF16 = 12, 0.08
+# the qwen2-vl cell (phase Q): qwen2-vl-72b at full width cut from 80 layers
+# to 16, bf16, text-only M-RoPE, on slice 1's trace and geometry
+QWEN_ARCH, QWEN_LAYERS = "qwen2-vl-72b", 16
+# the front end (phase S): the Server over phase 6's checkpoint, two tenants
+# with loose deadlines (engine steps); the static CLI mode on llama3.2-1b
+FRONT_DEADLINE, STATIC_ARCH = 1000, "llama3.2-1b"
 # spectral autograd checks at M = 8192 beyond smollm2's MLP: deepseek's dense
 # MLP (7168 <-> 18432) and its experts' width (7168 <-> 2048), rank 128
 DEEPSEEK_SPECTRAL = ((7168, 18432), (18432, 7168), (7168, 2048), (2048, 7168))
@@ -429,6 +442,29 @@ def nvidia_smi() -> str:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     return out.stdout.strip()
+
+
+def release(torch, label: str) -> int:
+    """Collects garbage and returns the allocator's cache to the card, so a
+    peak read later counts no tensor that an earlier phase left in a
+    reference cycle. Names the kinds of unreachable objects when they held
+    card memory; returns the bytes still allocated."""
+    live = torch.cuda.memory_allocated()
+    gc.set_debug(gc.DEBUG_SAVEALL)          # keep the garbage to name it
+    try:
+        gc.collect()
+        kinds = collections.Counter(type(o).__qualname__ for o in gc.garbage)
+    finally:
+        gc.garbage.clear()
+        gc.set_debug(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    if live != after:
+        print(f"[memory] {label}: collecting garbage freed {live - after} bytes on the card, "
+              f"{after} stay allocated; unreachable objects by kind "
+              f"{dict(kinds.most_common(12))}")
+    return after
 
 
 def time_cold(torch, fn, iters: int = 30, spin_ahead: bool = True) -> float:
@@ -1050,12 +1086,14 @@ def phase_mla_prefill(torch, device):
     return {"mla_prefill": (e.max_abs, row_scaled)}
 
 
-def phase_training(torch, device):
+def phase_training(torch, device, ckpt_dir):
     """Full-width smollm2-1.7b through Trainer.step(); returns the train
     record. Launch counts are zeroed just before each step and read just
-    after it."""
+    after it. The trained parameters are saved under ``ckpt_dir`` with the
+    run's spec, whose ``serve`` section the front-end phase serves from."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.api import ModelSpec, RunSpec, Trainer, TrainSpec
+    from repro_torch.api import ModelSpec, RunSpec, ServeSpec, Trainer, TrainSpec
+    from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.checkpoint.store import flatten, unflatten
     from repro_torch.core.tree import max_orthogonality_error
     from repro_torch.kernels.build import LAUNCHES
@@ -1063,7 +1101,10 @@ def phase_training(torch, device):
 
     spec = RunSpec(model=ModelSpec(TRAIN_ARCH),
                    train=TrainSpec(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                                   lr=1e-3, seed=SEED))
+                                   lr=1e-3, seed=SEED),
+                   serve=ServeSpec(slots=SLOTS, page_size=PAGE, num_pages=NUM_PAGES,
+                                   pages_per_seq=PAGES_PER_SEQ, prefill_budget=64,
+                                   scheduler="slo", shed=True))
     t0 = time.time()
     trainer = Trainer(spec, device=device)
     cfg = trainer.cfg
@@ -1082,6 +1123,7 @@ def phase_training(torch, device):
     # run forward and recompute; the spectral backward is plain GEMMs
     expect = {"flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
               "spectral_matmul": 6 * cfg.n_layers}
+    live = release(torch, "phase 6, before its counted steps")
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms, orthos = [], [], []
     totals = {name: 0 for name in expect}
@@ -1112,8 +1154,8 @@ def phase_training(torch, device):
     warm_ms = statistics.median(step_ms[2:])
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (warm_ms / 1e3)
     print(f"[train] median warm step (steps 3-{TRAIN_STEPS}) {warm_ms:.1f} ms, "
-          f"{tokens_per_s:.1f} tokens/s; max_memory_allocated {peak_mem}; launches over "
-          f"{TRAIN_STEPS} steps {totals}")
+          f"{tokens_per_s:.1f} tokens/s; max_memory_allocated {peak_mem} ({live} allocated "
+          f"at the reset); launches over {TRAIN_STEPS} steps {totals}")
 
     # every gradient leaf is finite and non-zero (one more forward and
     # backward on the trained weights, after the counted steps)
@@ -1126,6 +1168,10 @@ def phase_training(torch, device):
                                  f"max |g| {float(g.abs().max())}")
     print(f"[train] all {len(grads)} parameter leaves get finite, non-zero gradients")
     del leaves, grads, loss
+    t1 = time.time()
+    CheckpointManager(ckpt_dir, run_spec=spec.to_dict()).save(
+        TRAIN_STEPS, {"params": trainer.params}, block=True)
+    print(f"[train] step {TRAIN_STEPS}'s parameters and spec saved in {time.time() - t1:.1f} s")
 
     # one warm step under the profiler: device time by kernel, busy share
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1147,7 +1193,8 @@ def phase_training(torch, device):
         "arch": cfg.name, "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms, "ortho": orthos,
         "warm_step_ms": warm_ms, "tokens_per_s": tokens_per_s,
-        "max_memory_allocated": peak_mem, "launches": totals, "launches_per_step": expect,
+        "max_memory_allocated": peak_mem, "allocated_at_reset": live,
+        "launches": totals, "launches_per_step": expect,
         "profile": {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
                     "by_family": {name: ms for name, (ms, _) in split.items()},
                     "top": [{"ms": ms, "launches": c, "kernel": key[:120]}
@@ -1527,6 +1574,7 @@ def train_cell(torch, device, cfg, tag, what, b, s, steps, expect, profiled_step
                 "labels": torch.as_tensor(labels, device=device)}
 
     batches = [batch(i) for i in range(steps)]
+    release(torch, f"{tag}, before its counted steps")
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms, orthos, aux = [], [], [], []
     totals = {name: 0 for name in expect}
@@ -1992,6 +2040,7 @@ def phase_mixed_training(torch, device, legacy_peak):
     # phase 6's counts, once a microbatch
     expect = {"flash_attention_fwd": 2 * mb * cfg.n_layers,
               "flash_attention_bwd": mb * cfg.n_layers, "spectral_matmul": 6 * mb * cfg.n_layers}
+    release(torch, "mixed training, before its counted steps")
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms, orthos, scales = [], [], [], []
     totals = {name: 0 for name in expect}
@@ -2954,7 +3003,7 @@ def phase_xlstm_serving(torch, device):
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.paged_cache import PagedCacheConfig
 
-    cfg = get_config(XLSTM_ARCH)
+    cfg = get_config(XLSTM_ARCH).replace(n_layers=XLSTM_SERVE_LAYERS)
     t0 = time.time()
     masters = init_model(cfg, seed=SEED, device=device)
     n_params = param_count(masters)
@@ -3209,7 +3258,8 @@ def phase_jamba_serving(torch, device):
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.paged_cache import PagedCacheConfig
 
-    cfg = get_config(JAMBA_ARCH).replace(capacity_factor=JAMBA_CAPACITY)
+    cfg = get_config(JAMBA_ARCH).replace(capacity_factor=JAMBA_CAPACITY,
+                                         n_layers=JAMBA_SERVE_LAYERS)
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
     masters = init_model(cfg, seed=SEED, device=device)
@@ -3957,6 +4007,402 @@ def kernel_entry(name, source, replaces, t, peak_key, shape, launches, errs):
     return entry
 
 
+# ------------------------------------------------- serving, the rest (Q, D8, S) --
+
+def qwen_config():
+    from repro_torch.config import get_config
+
+    return get_config(QWEN_ARCH).replace(n_layers=QWEN_LAYERS)
+
+
+def phase_qwen_kernels(torch, cfg):
+    """#1 at qwen2-vl's MLP (8192 <-> 29568, rank 256: a 3696-row m slice
+    a cluster block on the down projection) and #3 at its attention (8
+    kv heads, rep 8, head dim 128) against their plain versions."""
+    from repro_torch.kernels.ops import spectral_matmul
+    from repro_torch.kernels.paged_decode import paged_gqa_decode
+    from repro_torch.kernels.paged_ref import paged_gqa_decode_ref
+    from repro_torch.kernels.ref import spectral_matmul_ref
+    from repro_torch.kernels.testing import compare_kernel, ragged_seq_lens
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    errs = {}
+    k, rep = cfg.sct.rank, cfg.n_heads // cfg.n_kv_heads
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, n in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+            for M in (1, SLOTS, 64, 160):
+                args = spectral_inputs(torch, M, m, n, k, dtype, gen)
+                note(errs, "spectral_matmul", compare_kernel(
+                    spectral_matmul, spectral_matmul_ref, args,
+                    label=f"spectral_matmul {M}x{m}->{n} rank {k} {dtype}"))
+        n_pages = 12
+        lens = ragged_seq_lens(8, PAGE * n_pages - 1, PAGE, seed=SEED).tolist()
+        args = paged_inputs(torch, lens, n_pages, cfg.n_kv_heads, rep, cfg.head_dim, dtype,
+                            gen, null_slot=True)
+        for part, what in ((slice(1, None), "live slots"), (slice(0, 1), "null slot")):
+            note(errs, "paged_gqa_decode", compare_kernel(
+                lambda *a: paged_gqa_decode(*a)[part], lambda *a: paged_gqa_decode_ref(*a)[part],
+                args, label=f"paged_gqa_decode rep {rep} hd {cfg.head_dim} {dtype} {what}"))
+        require_rows_alone(torch, paged_gqa_decode, args, (0, 3, 4),
+                           f"paged_gqa_decode rep {rep} {dtype}")
+    x, U, s, V = spectral_inputs(torch, 64, cfg.d_ff, cfg.d_model, k, torch.bfloat16, gen)
+    full = spectral_matmul(x, U, s, V)
+    for i in (0, 31, 63):
+        if not torch.equal(spectral_matmul(x[i:i + 1], U, s, V)[0], full[i]):
+            raise AssertionError(f"spectral_matmul {cfg.d_ff}->{cfg.d_model} bf16: row {i} of "
+                                 "M=64 differs from the row alone")
+    torch.cuda.synchronize()
+    print(f"[qwen] kernels: spectral_matmul at {cfg.d_model}<->{cfg.d_ff} rank {k} (M in "
+          f"1/{SLOTS}/64/160, bf16 and fp32; bf16 rows == the row alone) and paged_gqa_decode "
+          f"at kvh {cfg.n_kv_heads} rep {rep} hd {cfg.head_dim} (ragged lens {lens}, null "
+          f"slot; two calls the same bits, every row == the slot alone) match their plain "
+          f"versions")
+    return errs
+
+
+def phase_qwen_serving(torch, device):
+    """qwen2-vl-72b at full width cut to QWEN_LAYERS layers through the
+    engine on slice 1's trace and geometry (text-only M-RoPE); returns
+    the record."""
+    from repro_torch.models.model import init_model, param_count
+
+    cfg = qwen_config()
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    masters = init_model(cfg, seed=SEED, device=device)
+    n_params = param_count(masters)
+    engine = serving_engine(cfg, masters, device)
+    del masters
+    torch.cuda.synchronize()
+    init_peak, init_s = torch.cuda.max_memory_allocated(), time.time() - t0
+    print(f"[qwen] {cfg.name}: {n_params} parameters, {cfg.n_layers} layers (the config has "
+          f"80), d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, QKV bias {cfg.qkv_bias}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"rank {cfg.sct.rank}, rope {cfg.rope} {cfg.mrope_sections} theta {cfg.rope_theta}, "
+          f"{cfg.dtype}; LM head tied to the embedding (as the JAX package builds every "
+          f"family); weight_bytes {engine.weight_bytes} served ({engine.weight_bytes_fp} fp32 "
+          f"masters); init + load {init_s:.1f} s, peak device memory {init_peak} bytes")
+    engine.run(make_trace(cfg.vocab, SEED + 3, rid0=len(TRACE)))       # warm-up
+    trace = make_trace(cfg.vocab, SEED)
+    out, launches, st = run_measured(torch, engine, trace)
+    engine.sched.check_invariants()
+    steps, chunks = int(st["decode_steps"]), int(st["prefill_chunks"])
+    require_launches(launches, {"spectral_matmul": 3 * cfg.n_layers * (steps + chunks),
+                                "paged_gqa_decode": cfg.n_layers * steps,
+                                "spectral_matmul_q8": 0, "paged_gqa_decode_cold": 0,
+                                "flash_attention_fwd": 0})
+    require_finished(engine, trace, out, cfg, "qwen")
+    print(f"[qwen] {int(st['requests'])} requests, {int(st['prefill_tokens'])} prefill + "
+          f"{int(st['generated_tokens'])} generated tokens in {st['wall_s']:.3f} s "
+          f"({st['tokens_per_s']:.1f} tok/s), {steps} decode steps + {chunks} prefill chunks, "
+          f"ITL p50 {st['itl_p50_s'] * 1e3:.3f} ms p99 {st['itl_p99_s'] * 1e3:.3f} ms; "
+          f"launches {launches} = {3 * cfg.n_layers} spectral_matmul a forward, "
+          f"{cfg.n_layers} paged_gqa_decode a step")
+    gap = check_oracles(engine, trace, out, trace, "qwen")
+    record = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+              "weight_bytes": engine.weight_bytes, "weight_bytes_fp32": engine.weight_bytes_fp,
+              "init_s": init_s, "init_peak_memory": init_peak,
+              "identical_to_replay_alone": len(trace), "max_static_gap": gap,
+              **serving_numbers(st, launches)}
+    del engine
+    torch.cuda.empty_cache()
+    return record
+
+
+def serving_engine(cfg, params, device, **kw):
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.paged_cache import PagedCacheConfig
+
+    pcfg = PagedCacheConfig(page_size=PAGE, num_pages=NUM_PAGES, max_slots=SLOTS,
+                            max_pages_per_seq=PAGES_PER_SEQ)
+    return ServingEngine(cfg, params, pcfg, device=device, prefill_token_budget=64, **kw)
+
+
+def require_finished(engine, trace, out, cfg, tag):
+    for r in trace:
+        got = out[r.rid]
+        if (engine.last_statuses.get(r.rid) != "finished" or len(got) != r.max_new_tokens
+                or got.min() < 0 or got.max() >= cfg.vocab):
+            raise AssertionError(f"{tag} request {r.rid}: status "
+                                 f"{engine.last_statuses.get(r.rid)}, tokens {got}")
+
+
+def serving_numbers(st, launches):
+    return {"requests": int(st["requests"]), "prefill_tokens": int(st["prefill_tokens"]),
+            "generated_tokens": int(st["generated_tokens"]),
+            "decode_steps": int(st["decode_steps"]), "prefill_chunks": int(st["prefill_chunks"]),
+            "wall_s": st["wall_s"], "tokens_per_s": st["tokens_per_s"],
+            "itl_gaps": st["itl_gaps"], "itl_p50_ms": st["itl_p50_s"] * 1e3,
+            "itl_p99_ms": st["itl_p99_s"] * 1e3, "launches": launches}
+
+
+def spectral_layer_time(torch, M, shapes, k, gen, q8=False):
+    """One MLP's three projections at M rows: kernel, plain and library
+    (the three-GEMM chain; over pre-dequantized bf16 factors for int8)
+    device times, with the bytes and operations of the bound."""
+    from repro_torch.core.spectral import spectral_apply
+    from repro_torch.kernels.ops import spectral_matmul
+    from repro_torch.kernels.ref import spectral_matmul_q8_ref, spectral_matmul_ref
+    from repro_torch.kernels.spectral_matmul_q8 import spectral_matmul_q8_cuda
+    from repro_torch.serving.quantize import dequantize_int8
+
+    dt = torch.bfloat16
+    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0, "err": 0.0}
+    for m, n in shapes:
+        if q8:
+            x, U, s, V = q8_inputs(torch, M, m, n, k, "unit", dt, gen)
+            gain = U["scale"] * s * V["scale"]
+            t["ms"] += time_cold(torch, lambda: spectral_matmul_q8_cuda(x, U["q8"], gain,
+                                                                         V["q8"]))
+            t["plain_ms"] += time_cold(
+                torch, lambda: spectral_matmul_q8_ref(x, U["q8"], gain, V["q8"]))
+            fac = {"U": dequantize_int8(U, dt), "s": s, "V": dequantize_int8(V, dt)}
+            t["bytes"] += 2 * (M * m + M * n) + (m + n) * k + 3 * 4 * k
+            add_err(t, spectral_matmul_q8_cuda(x, U["q8"], gain, V["q8"]),
+                    q8_plain(x, U, s, V))
+        else:
+            x, U, s, V = spectral_inputs(torch, M, m, n, k, dt, gen)
+            t["ms"] += time_cold(torch, lambda: spectral_matmul(x, U, s, V))
+            t["plain_ms"] += time_cold(torch, lambda: spectral_matmul_ref(x, U, s, V))
+            fac = {"U": U, "s": s, "V": V}
+            t["bytes"] += 2 * (M * m + m * k + n * k + M * n) + 4 * k
+            add_err(t, spectral_matmul(x, U, s, V), spectral_matmul_ref(x, U, s, V))
+        t["library_ms"] += time_cold(torch, lambda: spectral_apply(fac, x))
+        t["flops"] += 2 * M * k * (m + n)
+    return t
+
+
+def timed_row(t, peak_key, shape, launches):
+    return {"shape": shape, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "max_abs_err": t["err"],
+            "max_scaled_err": t["scaled"], "launches": launches, **bound_of(t, peak_key)}
+
+
+def phase_qwen_timing(torch, cfg, launches):
+    """#1 at qwen2-vl's decode layer (M = slots) and #3 at its decode
+    attention (b 4, kvh 8, rep 8, hd 128, the trace's first wave mid-way:
+    ~160 tokens a slot), each against its plain version and one library
+    call, in device time only."""
+    from repro_torch.kernels.paged_decode import paged_gqa_decode
+    from repro_torch.kernels.paged_ref import paged_gqa_decode_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    d, f, k = cfg.d_model, cfg.d_ff, cfg.sct.rank
+    sm = spectral_layer_time(torch, SLOTS, [(d, f), (d, f), (f, d)], k, gen)
+    lens = [r_len + new // 2 for r_len, new in TRACE[:SLOTS]]
+    lens = [max(n, 150) for n in lens]
+    kvh, rep, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    q, kp, vp, bt, sl = paged_inputs(torch, lens, PAGES_PER_SEQ, kvh, rep, hd, torch.bfloat16,
+                                     gen, null_slot=False)
+    live = sum(n + 1 for n in lens)
+    pd = {"ms": time_cold(torch, lambda: paged_gqa_decode(q, kp, vp, bt, sl)),
+          "plain_ms": time_cold(torch, lambda: paged_gqa_decode_ref(q, kp, vp, bt, sl)),
+          "library_ms": gqa_library_ms(torch, q, kp, vp, bt, sl),
+          "bytes": (2 * live * kvh * hd * 2 + 2 * q.numel() * 2 + bt.numel() * 4
+                    + sl.numel() * 4),
+          "flops": 4 * cfg.n_heads * hd * live}
+    add_err(pd, paged_gqa_decode(q, kp, vp, bt, sl), paged_gqa_decode_ref(q, kp, vp, bt, sl))
+    return (timed_row(sm, "bfloat16",
+                      f"qwen2-vl's decode layer MLP: 2x({SLOTS},{d})->{f} + ({SLOTS},{f})->{d}, "
+                      f"rank {k}, bf16; library: the three-GEMM chain",
+                      launches.get("spectral_matmul", 0)),
+            timed_row(pd, "float32",
+                      f"qwen2-vl's decode attention: b={len(lens)} kvh={kvh} rep={rep} hd={hd} "
+                      f"page={PAGE} lens={lens}, bf16 pools, fp32 math; library: SDPA over "
+                      f"pre-gathered pages", launches.get("paged_gqa_decode", 0)))
+
+
+def phase_deepseek_int8_kernels(torch, cfg):
+    """#2 at deepseek's dense MLP (7168 <-> 18432, rank 128) against its
+    plain version, bf16 and fp32 activations, two scale profiles."""
+    from repro_torch.kernels.ops import spectral_matmul_q8
+    from repro_torch.kernels.testing import compare_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, n in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+            for profile in ("unit", "extreme"):
+                for M in (1, SLOTS, 64):
+                    args = q8_inputs(torch, M, m, n, cfg.sct.rank, profile, dtype, gen)
+                    note(errs, "spectral_matmul_q8", compare_kernel(
+                        spectral_matmul_q8, q8_plain, args,
+                        label=f"spectral_matmul_q8 {M}x{m}->{n} {profile} {dtype}"))
+    torch.cuda.synchronize()
+    print(f"[deepseek-int8] kernels: spectral_matmul_q8 at {cfg.d_model}<->{cfg.d_ff} rank "
+          f"{cfg.sct.rank} (M in 1/{SLOTS}/64, unit and extreme scales, bf16 and fp32) "
+          f"matches its plain version")
+    return errs
+
+
+def phase_deepseek_int8(torch, device, bf16_weight_bytes):
+    """deepseek-v3-671b at the deepseek serving phase's geometry (8
+    layers, capacity 32.0) with int8 weights quantized from the same
+    seeded fp32 masters, on the same trace; returns (record, timing row
+    of #2 at the dense layer)."""
+    import numpy as np
+    from repro_torch.launch.serve import static_logit_gaps
+    from repro_torch.models.model import init_model, serving_params
+    from repro_torch.serving.quantize import dequantize_tree
+
+    cfg = deepseek_config(DEEPSEEK_LAYERS)
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    masters = init_model(cfg, seed=SEED, device=device)
+    engine = serving_engine(cfg, masters, device, quantize="int8")
+    del masters
+    torch.cuda.synchronize()
+    init_peak, init_s = torch.cuda.max_memory_allocated(), time.time() - t0
+    weight_bytes = engine.weight_bytes
+    print(f"[deepseek-int8] {cfg.name}, {cfg.n_layers} layers: weight_bytes {engine.weight_bytes} "
+          f"int8 against {bf16_weight_bytes} bf16 ({bf16_weight_bytes / engine.weight_bytes:.3f}x "
+          f"smaller; the MoE subtree and wukv raw; fp32 masters {engine.weight_bytes_fp}); "
+          f"init + quantize {init_s:.1f} s, peak device memory {init_peak} bytes")
+    engine.run(make_trace(cfg.vocab, SEED + 3, rid0=len(TRACE)))       # warm-up
+    trace = make_trace(cfg.vocab, SEED)
+    out, launches, st = run_measured(torch, engine, trace)
+    engine.sched.check_invariants()
+    steps, chunks = int(st["decode_steps"]), int(st["prefill_chunks"])
+    moe = cfg.n_layers - cfg.first_dense_layers
+    require_launches(launches, {"spectral_matmul_q8": 3 * cfg.first_dense_layers * (steps + chunks),
+                                "spectral_matmul": 3 * moe * (steps + chunks),
+                                "paged_mla_decode": cfg.n_layers * steps,
+                                "paged_mla_decode_cold": 0, "paged_gqa_decode": 0,
+                                "flash_attention_fwd": 0})
+    require_finished(engine, trace, out, cfg, "deepseek-int8")
+    print(f"[deepseek-int8] {int(st['requests'])} requests, {int(st['prefill_tokens'])} prefill "
+          f"+ {int(st['generated_tokens'])} generated tokens in {st['wall_s']:.3f} s "
+          f"({st['tokens_per_s']:.1f} tok/s), {steps} decode steps + {chunks} prefill chunks, "
+          f"ITL p50 {st['itl_p50_s'] * 1e3:.3f} ms p99 {st['itl_p99_s'] * 1e3:.3f} ms; launches "
+          f"{launches} = {3 * cfg.first_dense_layers} spectral_matmul_q8 and {3 * moe} "
+          f"spectral_matmul a forward, {cfg.n_layers} paged_mla_decode a step")
+    check_oracles(engine, trace, out, [], "deepseek-int8")
+    oracle = serving_params(dequantize_tree(engine.params), cfg, device)
+    worst, exact, total = 0.0, 0, 0
+    for r in trace:
+        gaps = static_logit_gaps(cfg, oracle, r.prompt, out[r.rid], engine.pcfg.max_seq,
+                                 device=device)
+        worst, exact, total = max(worst, float(gaps.max())), exact + int(np.sum(gaps == 0)), \
+            total + len(gaps)
+        if gaps.max() > 1.0:
+            first = int(np.argmax(gaps > 1.0))
+            raise AssertionError(f"deepseek-int8 request {r.rid}: token {first} is "
+                                 f"{gaps[first]:.3f}x the ladder's allowance below the static "
+                                 f"path's best logit over the dequantized weights")
+    print(f"[deepseek-int8] every token within the ladder of the static path over the "
+          f"dequantized weights, teacher-forced (largest gap {worst:.3f} of the allowance), "
+          f"{exact}/{total} exactly its choice")
+    del oracle, engine
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    d, f, k = cfg.d_model, cfg.d_ff, cfg.sct.rank
+    t = spectral_layer_time(torch, SLOTS, [(d, f), (d, f), (f, d)], k, gen, q8=True)
+    row = timed_row(t, "bfloat16",
+                    f"deepseek's dense decode layer MLP: 2x({SLOTS},{d})->{f} + ({SLOTS},{f})->"
+                    f"{d}, rank {k}, int8 factors, bf16 activations, gain computed beforehand; "
+                    f"library: the three-GEMM chain over pre-dequantized bf16 factors",
+                    launches.get("spectral_matmul_q8", 0))
+    record = {"arch": cfg.name, "n_layers": cfg.n_layers, "weight_bytes": weight_bytes,
+              "bf16_weight_bytes": bf16_weight_bytes, "init_s": init_s,
+              "init_peak_memory": init_peak, "identical_to_replay_alone": len(trace),
+              "max_static_gap": worst, "static_exact": exact, "static_tokens": total,
+              **serving_numbers(st, launches)}
+    return record, row
+
+
+def phase_front_end(torch, device, ckpt_dir):
+    """The serving front end: ``Server.from_checkpoint`` with no flags on
+    the checkpoint phase 6 wrote (smollm2-1.7b at full width; its spec
+    says SLO scheduling with shedding), two tenants with mixed
+    priorities and loose deadlines, plus one request that cannot meet its
+    deadline; then the static CLI mode on llama3.2-1b at full width,
+    plain and with ``--quantize int8 --verify``."""
+    import io
+
+    import numpy as np
+    from repro_torch.api import Server
+    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving.scheduler import Request
+
+    t0 = time.time()
+    server = Server.from_checkpoint(ckpt_dir, device=device)
+    sv = server.spec.serve
+    if sv.scheduler != "slo" or not sv.shed:
+        raise AssertionError(f"the checkpoint's spec serves with {sv.scheduler}, shed {sv.shed}")
+    print(f"[front] Server.from_checkpoint: step {server.checkpoint_step}, {server.cfg.name}, "
+          f"scheduler {sv.scheduler} (shed {sv.shed}), {sv.slots} slots, page {sv.page_size}, "
+          f"{sv.num_pages} pages, budget {sv.prefill_budget}; load {time.time() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 5)
+    reqs = []
+    for i, (plen, new) in enumerate(TRACE):
+        prompt = rng.integers(0, server.cfg.vocab, size=(plen,)).astype(np.int32)
+        rid = server.submit(prompt, new, arrival=i // SLOTS * ARRIVE_EVERY,
+                            tenant=f"t{i % 2}", priority=(i // 2) % 2, deadline=FRONT_DEADLINE)
+        reqs.append(Request(rid=rid, prompt=prompt, max_new_tokens=new, tenant=f"t{i % 2}"))
+    doomed = server.submit(reqs[0].prompt, 32, arrival=0, tenant="t1", deadline=8)
+    admitted = []
+    admit = server.engine.sched.admit
+
+    def admit_and_record():
+        seqs = admit()
+        admitted.extend(seq.request.rid for seq in seqs)
+        return seqs
+
+    server.engine.sched.admit = admit_and_record
+    LAUNCHES.clear()
+    out = server.run()
+    launches = dict(LAUNCHES)
+    server.engine.sched.admit = admit
+    st = server.stats()
+    statuses = server.last_statuses
+    if statuses.get(doomed) != "shed" or len(out[doomed]) or doomed in admitted:
+        raise AssertionError(f"the doomed request: status {statuses.get(doomed)}, "
+                             f"{len(out[doomed])} tokens, admitted {doomed in admitted}")
+    if st["shed"] != 1 or any(statuses[r.rid] != "finished" for r in reqs):
+        raise AssertionError(f"front end: shed {st['shed']}, statuses {statuses}")
+    if launches.get("spectral_matmul", 0) <= 0 or launches.get("paged_gqa_decode", 0) <= 0:
+        raise AssertionError(f"front end: launches {launches}")
+    want = {}
+    for r in reqs:
+        want[f"tenant_{r.tenant}_tokens"] = (want.get(f"tenant_{r.tenant}_tokens", 0)
+                                            + r.prompt_len + r.max_new_tokens)
+    got = {key: int(v) for key, v in st.items() if key.startswith("tenant_")}
+    if got != want:
+        raise AssertionError(f"served tokens per tenant {got}, expected {want}")
+    check_oracles(server.engine, reqs, out, [], "front")
+    print(f"[front] {len(reqs)} requests of tenants t0/t1 (priorities 0/1, deadline "
+          f"{FRONT_DEADLINE} steps) all finished, admission order {admitted}; the 32-token "
+          f"request with an 8-step deadline came back shed, never admitted; served tokens per "
+          f"tenant {got}; launches {launches}; {st['tokens_per_s']:.1f} tok/s")
+    record = {"checkpoint_step": server.checkpoint_step, "arch": server.cfg.name,
+              "requests": len(reqs), "shed": int(st["shed"]), "admission_order": admitted,
+              "served_tokens": got, "launches": launches, "wall_s": st["wall_s"]}
+    del server
+    torch.cuda.empty_cache()
+    static = {}
+    for tag, extra in (("plain", []), ("int8_verify", ["--quantize", "int8", "--verify"])):
+        argv = ["--arch", STATIC_ARCH, "--batch", str(SLOTS), "--prompt-len", "96", "--gen",
+                "32", "--seed", str(SEED)] + extra
+        buf = io.StringIO()
+        LAUNCHES.clear()
+        try:
+            with contextlib.redirect_stdout(buf):
+                serve_cli.main(argv)
+        except SystemExit as e:
+            raise AssertionError(f"static CLI {' '.join(argv)}: {e}") from None
+        launches = dict(LAUNCHES)
+        text = buf.getvalue()
+        for line in text.strip().splitlines():
+            print(f"[front] static {tag}: {line}")
+        kernel = "spectral_matmul_q8" if extra else "spectral_matmul"
+        if launches.get(kernel, 0) <= 0 or (extra and "verify: every token" not in text):
+            raise AssertionError(f"static CLI {tag}: launches {launches}")
+        static[tag] = {"launches": launches, "verified": bool(extra)}
+    record["static"] = static
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -3977,9 +4423,12 @@ def main() -> int:
     train_cfg = get_config(TRAIN_ARCH)
     t_start = time.time()
     clock = {}
+    ckpt_dir = tempfile.mkdtemp(prefix="sct_smoke_ckpt_")
 
     def lap(name):
+        release(torch, f"after {name}")
         clock[name] = time.time() - t_start - sum(clock.values())
+        print(f"[phase] {name} {clock[name]:.1f} s", flush=True)
 
     try:
         phase_build()
@@ -3996,7 +4445,6 @@ def main() -> int:
         serving["profile"] = phase_profile(torch, cfg, engine)
         bf16_weight_bytes = engine.weight_bytes
         del engine
-        torch.cuda.empty_cache()
         lap("serving")
         from repro_torch.models.model import init_model
 
@@ -4008,7 +4456,6 @@ def main() -> int:
         engine, stream = phase_streaming(torch, cfg, device, masters)
         stream["profile"] = phase_profile(torch, cfg, engine)
         del engine, masters
-        torch.cuda.empty_cache()
         lap("streaming")
         xlstm_cfg = get_config(XLSTM_ARCH)
         merge_errs(errs, phase_xlstm_kernels(torch, xlstm_cfg))
@@ -4018,7 +4465,6 @@ def main() -> int:
         # (thousands of profiler events a prompt); the stretch is about decode
         xlstm["profile"] = phase_profile(torch, xlstm_cfg, engine, prompt_len=16)
         del engine
-        torch.cuda.empty_cache()
         lap("xlstm serving")
         kernel_mlstm = phase_xlstm_timing(torch, xlstm_cfg, xlstm["launches"], errs)
         lap("xlstm timing")
@@ -4028,7 +4474,6 @@ def main() -> int:
         engine, jamba = phase_jamba_serving(torch, device)
         jamba["profile"] = phase_profile(torch, engine.cfg, engine)
         del engine
-        torch.cuda.empty_cache()
         lap("jamba serving")
         kernel_mamba = phase_jamba_timing(torch, jamba_cfg, jamba["launches"], errs)
         lap("jamba timing")
@@ -4040,10 +4485,8 @@ def main() -> int:
         lap("deepseek serving")
         deepseek["streaming"] = phase_deepseek_streaming(torch, device, engine.params)
         del engine
-        torch.cuda.empty_cache()
         lap("deepseek streaming")
         deepseek["fp32"] = phase_deepseek_fp32(torch, device)
-        torch.cuda.empty_cache()
         lap("deepseek fp32")
         kernels_mla = phase_deepseek_timing(torch, ds_cfg, deepseek["launches"],
                                             deepseek["streaming"]["launches"], errs)
@@ -4051,7 +4494,7 @@ def main() -> int:
         kernels_int8 = phase_int8_timing(torch, cfg, int8["launches"], stream["launches"],
                                          errs)
         lap("int8 timing")
-        train = phase_training(torch, device)
+        train = phase_training(torch, device, ckpt_dir)
         torch.cuda.empty_cache()
         train["resume"] = phase_resume(torch, device)
         lap("training")
@@ -4082,13 +4525,26 @@ def main() -> int:
         flash_mla = phase_deepseek_train_timing(torch, deepseek_train["launches"], errs)
         lap("deepseek training timing")
         train_mixed = phase_mixed_training(torch, device, train["max_memory_allocated"])
-        torch.cuda.empty_cache()
         lap("mixed training")
         fault = phase_fault_tolerance(torch, device, errs)
         lap("fault tolerance")
+        merge_errs(errs, phase_qwen_kernels(torch, qwen_config()))
+        lap("qwen kernel checks")
+        qwen = phase_qwen_serving(torch, device)
+        lap("qwen serving")
+        qwen_rows = phase_qwen_timing(torch, qwen_config(), qwen["launches"])
+        lap("qwen timing")
+        merge_errs(errs, phase_deepseek_int8_kernels(torch, ds_cfg))
+        lap("deepseek int8 kernel checks")
+        deepseek_int8, q8_row = phase_deepseek_int8(torch, device, deepseek["weight_bytes"])
+        lap("deepseek int8 serving")
+        front = phase_front_end(torch, device, ckpt_dir)
+        lap("front end")
     except Exception:                            # every phase failure fails the run
         traceback.print_exc()
         return fail("a phase failed")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     kernels[0]["launches_train"] = train["launches"]["spectral_matmul"]
     for key, entry in zip(("at_train_shape", "at_train_down_shape"), at_train):
         kernels[0][key] = {name: entry[name] for name in (
@@ -4116,6 +4572,16 @@ def main() -> int:
     kernels[0]["launches_train_mixed"] = train_mixed["launches"]["spectral_matmul"]
     for kern in flash:
         kern["launches_train_mixed"] = train_mixed["launches"][kern["name"]]
+    kernels[0]["at_qwen_decode_layer"] = qwen_rows[0]
+    kernels[0]["launches_qwen"] = qwen["launches"].get("spectral_matmul", 0)
+    kernels[1]["at_qwen_rep8"] = qwen_rows[1]
+    kernels[1]["launches_qwen"] = qwen["launches"].get("paged_gqa_decode", 0)
+    kernels_int8[0]["at_deepseek_dense_layer"] = q8_row
+    kernels_int8[0]["launches_deepseek_int8"] = deepseek_int8["launches"].get(
+        "spectral_matmul_q8", 0)
+    kernels[0]["launches_deepseek_int8"] = deepseek_int8["launches"].get("spectral_matmul", 0)
+    kernels_mla[0]["launches_deepseek_int8"] = deepseek_int8["launches"].get(
+        "paged_mla_decode", 0)
     kernels += (kernels_int8 + [kernel_mlstm, kernel_mamba] + kernels_mla
                 + [kernel_mlstm_bwd, kernel_mamba_bwd])
     for kern in kernels:                        # checks of later phases count too
@@ -4135,7 +4601,10 @@ def main() -> int:
              dict(flash_hd128[0], name="flash_attention_fwd (jamba, hd 128)"),
              dict(flash_hd128[1], name="flash_attention_bwd (jamba, hd 128)"),
              dict(flash_mla[0], name="flash_attention_fwd (deepseek MLA, q/k 192 v 128)"),
-             dict(flash_mla[1], name="flash_attention_bwd (deepseek MLA, q/k 192 v 128)")]
+             dict(flash_mla[1], name="flash_attention_bwd (deepseek MLA, q/k 192 v 128)"),
+             dict(qwen_rows[0], name="spectral_matmul (qwen2-vl decode layer, rank 256)"),
+             dict(qwen_rows[1], name="paged_gqa_decode (qwen2-vl, rep 8, hd 128)"),
+             dict(q8_row, name="spectral_matmul_q8 (deepseek dense decode layer)")]
     for kern in kernels + extra:
         lib = "none" if kern["library_ms"] is None else f"{kern['library_ms']:.4f} ms"
         beside = "".join(f", {key} {kern[key]:.4f}"
@@ -4160,6 +4629,9 @@ def main() -> int:
     print(json.dumps({"deepseek_train": deepseek_train}))
     print(json.dumps({"train_mixed": train_mixed}))
     print(json.dumps({"fault_tolerance": fault}))
+    print(json.dumps({"qwen_serving": qwen}))
+    print(json.dumps({"deepseek_int8_serving": deepseek_int8}))
+    print(json.dumps({"front_end": front}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,8 @@
-"""Serving launcher of the port: continuous batching over the paged KV
-cache, replaying a staggered trace of variable-length requests.
+"""Serving launcher of the port: a thin argparse adapter over the
+experiment API. Flags map onto a RunSpec (``api/specs.py``;
+``--dump-spec`` prints it, the reference's JSON for the same flags), and
+the paged mode replays a staggered trace of variable-length requests
+through :class:`repro_torch.api.Server`.
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --paged --stream --verify
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
@@ -50,8 +53,9 @@ width its 61 layers (65 G parameters) do not fit one card; ``--reduced``
 runs anywhere, and ``chip_smoke.py`` serves it cut to 8 layers.
 
 ``--quantize int8`` serves int8 weights (spectral factors and dense
-projections; not for ``moe_lm``). Its ``--verify`` oracle is the static path over the
-engine's own int8 tree. The reference CLI's oracle is the fp32 static
+projections; for ``moe_lm`` the embedding, the MoE subtree and ``wukv``
+stay raw, as in the reference). Its ``--verify`` oracle is the static
+path over the engine's own int8 tree. The reference CLI's oracle is the fp32 static
 path over ``dequantize_tree(engine.params)``; here that agreement, and
 the agreement with the unquantized weights, are printed as diagnostics
 only: on the card the dequantized oracle runs the bf16 kernel, whose
@@ -73,18 +77,40 @@ the tolerance ladder.
 window of W pages resident per sequence; ``--cold-kv int8`` demotes the
 resident pages older than the window to int8 shadow pools.
 
-The reference's static mode, speculative, tensor-parallel and
-disaggregated options are not ported yet.
+``--arch qwen2-vl-72b`` serves the dense family with QKV bias and M-RoPE
+(text-only positions: three equal streams); its LM head is the
+embedding's transpose, as the reference builds every family.
+
+``--scheduler slo`` admits through the SLO scheduler (per-tenant fair
+share, priority, earliest deadline; doomed requests shed).
+``--ckpt-dir DIR`` serves the newest training checkpoint under DIR (the
+flags still give the geometry; ``Server.from_checkpoint`` is the
+zero-flag form).
+
+Static mode (neither ``--paged`` nor ``--stream``): one batch of
+``--batch`` prompts of ``--prompt-len`` tokens from a seeded torch
+generator (the reference draws them with ``jax.random``), one prefill
+and ``--gen - 1`` batched decode steps over the dense static cache
+(:func:`run_static`). ``--quantize int8`` serves the int8 tree there;
+its ``--verify`` holds the int8 tokens to the static path over the
+dequantized weights: token for token in fp32 compute, within the ladder
+teacher-forced in bf16 (:func:`static_logit_gaps`, as the paged
+``--verify`` does).
+
+Refused, with the ROADMAP queue 1 item that ports them: ``--serve-rank``
+(item 9), ``--speculative-rank`` (item 6), ``--disaggregate`` and
+``--tp`` above 1 (item 8).
 """
 from __future__ import annotations
 
 import argparse
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.config import get_config
+from repro_torch.api import ModelSpec, RunSpec, Server, ServeSpec, ShardingSpec, StreamingSpec
 from repro_torch.device import compute_dtype, resolve_device
 from repro_torch.kernels.testing import tolerance_for
 from repro_torch.models.decode import ATTN_STATE_KEYS, recurrent_slot_axes
@@ -97,11 +123,11 @@ from repro_torch.models.model import (
     serving_params,
 )
 from repro_torch.nn.moe import capacity
-from repro_torch.serving.engine import ServingEngine
-from repro_torch.serving.paged_cache import PagedCacheConfig, slot_write
-from repro_torch.serving.quantize import dequantize_tree
+from repro_torch.serving.engine import ServingEngine, params_from_checkpoint
+from repro_torch.serving.paged_cache import slot_write
+from repro_torch.serving.quantize import dequantize_tree, param_bytes
 from repro_torch.serving.scheduler import Request
-from repro_torch.serving.streaming import StreamingConfig, identity_horizon
+from repro_torch.serving.streaming import identity_horizon
 
 
 def build_trace(args, vocab, pcfg):
@@ -144,11 +170,15 @@ def _static_start(cfg, params, prompt, max_seq, rows, dev, page_size=None):
     attention caches then become paged pools in logical order (row i's
     positions on pages i n .. i n + n - 1, n = max_seq / page_size, and a
     null page) that the decode steps read through the engine's paged
-    decode. Returns (logits, state, the block table or None)."""
-    toks = torch.as_tensor(np.asarray(prompt), dtype=torch.int64).to(dev)[None]
-    state = init_decode_state(cfg, 1, max_seq, device=dev)
+    decode. A 2-D ``prompt`` (batch, prompt_len) prefills the batch at
+    once, one row a prompt (``rows`` is then its batch). Returns (logits,
+    state, the block table or None)."""
+    toks = torch.as_tensor(np.asarray(prompt), dtype=torch.int64).to(dev)
+    if toks.ndim == 1:
+        toks = toks[None]
+    state = init_decode_state(cfg, toks.shape[0], max_seq, device=dev)
     logits, state = prefill(params, toks, cfg, state)
-    if rows > 1:
+    if rows > toks.shape[0]:
         full = init_decode_state(cfg, rows, max_seq, device=dev)
         for key, axis in recurrent_slot_axes(cfg).items():
             slot_write(full[key], axis, 0, state[key])
@@ -169,14 +199,18 @@ def _static_start(cfg, params, prompt, max_seq, rows, dev, page_size=None):
 
 
 def _static_step(cfg, params, tok, state, pos, rows, dev, block_table=None):
+    """One decode step at position ``pos`` over ``rows`` rows: ``tok`` (an
+    int, or one token a row of a batch) in the leading rows, the logits of
+    those rows returned."""
+    tok = torch.as_tensor(np.atleast_1d(np.asarray(tok)), dtype=torch.int64).to(dev)
     toks = torch.zeros((rows, 1), dtype=torch.int64, device=dev)
-    toks[0, 0] = int(tok)
+    toks[:tok.shape[0], 0] = tok
     if block_table is None:
         logits, state = decode_step(params, toks, state, pos, cfg)
     else:
         lens = torch.full((rows,), pos, dtype=torch.int32, device=dev)
         logits, state = decode_step_paged(params, toks, state, block_table, lens, cfg)
-    return logits[:1], state
+    return logits[:tok.shape[0]], state
 
 
 def static_rows(engine: ServingEngine) -> int:
@@ -326,29 +360,21 @@ def decode_capacity_binds(cfg, slots: int) -> Optional[int]:
     return cap if cap < slots else None
 
 
-def paged_config(args) -> PagedCacheConfig:
-    return PagedCacheConfig(page_size=args.page_size, num_pages=args.num_pages,
-                            max_slots=args.slots, max_pages_per_seq=args.pages_per_seq)
-
-
-def run_stream(args, cfg, params) -> ServingEngine:
-    pcfg = paged_config(args)
-    scfg = (StreamingConfig(sink_pages=args.sink_pages, window_pages=args.streaming_window,
-                            cold_kv=args.cold_kv)
-            if args.streaming_window is not None else None)
-    engine = ServingEngine(cfg, params, pcfg, device=args.device,
-                           prefill_token_budget=args.prefill_budget,
-                           quantize=args.quantize,
-                           prefix_cache=args.prefix_cache,
-                           chunked_prefill=args.chunked_prefill,
-                           streaming=scfg)
+def run_stream(args, spec: RunSpec, params) -> ServingEngine:
+    """Replay the trace of ``args`` through a :class:`Server` built from
+    ``spec`` over ``params``; print the run's numbers and, with
+    ``--verify``, check it (:func:`verify`). Returns the engine."""
+    server = Server(spec, params, device=args.device)
+    engine = server.engine
+    pcfg, scfg = engine.pcfg, engine.streaming
+    cfg = server.cfg
     trace = build_trace(args, cfg.vocab, pcfg)
     print(f"streaming {len(trace)} requests, prompt lens "
           f"{sorted({r.prompt_len for r in trace})}, slots={pcfg.max_slots}, "
           f"pool={pcfg.num_pages}x{pcfg.page_size} tokens, device={engine.device}")
-    out = engine.run(trace)
+    out = server.run(trace)
     engine.sched.check_invariants()
-    st = engine.stats()
+    st = server.stats()
     print(f"served {int(st['requests'])} requests: "
           f"{int(st['prefill_tokens'])} prefill + {int(st['generated_tokens'])} generated "
           f"tokens in {st['wall_s']:.2f}s ({st['tokens_per_s']:.1f} tok/s)")
@@ -370,6 +396,9 @@ def run_stream(args, cfg, params) -> ServingEngine:
             line += (f", {int(st['stream_demotions'])} demoted to int8 "
                      f"({int(st['cold_page_bytes'])} shadow bytes)")
         print(line)
+    if args.request_timeout is not None or args.scheduler == "slo":
+        print(f"deadlines: {int(st['timed_out'])} timed out, {int(st['cancelled'])} cancelled"
+              + (f", {int(st['shed'])} shed" if args.scheduler == "slo" else ""))
     if args.quantize:
         print(f"weights: {int(st['weight_bytes'])} bytes {args.quantize} "
               f"(fp32 {int(st['weight_bytes_fp'])} bytes, "
@@ -378,6 +407,87 @@ def run_stream(args, cfg, params) -> ServingEngine:
     if args.verify:
         verify(engine, trace, out, params)
     return engine
+
+
+def static_prompts(args, vocab: int) -> np.ndarray:
+    """The static mode's (batch, prompt_len) prompts from a seeded torch
+    generator on the host."""
+    gen = torch.Generator().manual_seed(args.seed)
+    return torch.randint(0, vocab, (args.batch, args.prompt_len), generator=gen,
+                         dtype=torch.int64).numpy().astype(np.int32)
+
+
+@torch.no_grad()
+def run_static(args, cfg, params, prompts: Optional[np.ndarray] = None, *,
+               device=None, quiet: bool = False) -> np.ndarray:
+    """The static (non-paged) mode: one batch of prompts (``prompts``, or
+    :func:`static_prompts`), one prefill and ``args.gen - 1`` batched
+    greedy decode steps over the dense (batch, prompt_len + gen) cache
+    (the reference's ``src/repro/launch/serve.py:263``). ``params`` are
+    cast (or already quantized) as the engine serves them. Returns the
+    (batch, gen) int32 tokens."""
+    dev = resolve_device(device if device is not None else args.device)
+    if prompts is None:
+        prompts = static_prompts(args, cfg.vocab)
+    prompts = np.asarray(prompts, dtype=np.int32)
+    batch, plen = prompts.shape
+    max_seq = plen + args.gen
+    params = serving_params(params, cfg, dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t0 = time.time()
+    logits, state, _ = _static_start(cfg, params, prompts, max_seq, batch, dev)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    sync()
+    t_prefill = time.time() - t0
+    out = [tok.cpu()]
+    t0 = time.time()
+    for i in range(args.gen - 1):
+        logits, state = _static_step(cfg, params, tok.cpu().numpy(), state, plen + i, batch,
+                                     dev)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        out.append(tok.cpu())
+    sync()
+    t_decode = time.time() - t0
+    gen = torch.stack(out, dim=1).numpy().astype(np.int32)
+    if not quiet:
+        print(f"prefill: {t_prefill * 1e3:.1f} ms for {batch}x{plen} tokens")
+        print(f"decode:  {t_decode / max(args.gen - 1, 1) * 1e3:.2f} ms/token "
+              f"({batch} sequences)")
+        print("generated token ids (first sequence):", gen[0][:16], "...")
+    return gen
+
+
+def verify_static_int8(args, cfg, qparams, prompts, gen_q) -> None:
+    """``--quantize int8 --verify`` in static mode: the int8 tokens
+    against the static path over the dequantized weights, token for token
+    in fp32 compute, within the ladder teacher-forced in bf16."""
+    dev = resolve_device(args.device)
+    dequant = dequantize_tree(qparams)
+    if compute_dtype(cfg) == torch.float32:
+        gen_ref = run_static(args, cfg, dequant, prompts, quiet=True)
+        if not np.array_equal(gen_q, gen_ref):
+            bad = int(np.sum(np.any(gen_q != gen_ref, axis=1)))
+            raise SystemExit(f"{bad}/{len(prompts)} sequences: int8 path diverged from "
+                             f"the fp32 static path over dequantized weights")
+        print(f"verify: all {len(prompts)} sequences match the fp32 static path over the "
+              f"dequantized weights token-for-token")
+        return
+    worst, exact, total = 0.0, 0, 0
+    for b, prompt in enumerate(prompts):
+        gaps = static_logit_gaps(cfg, dequant, prompt, gen_q[b], prompt.shape[0] + args.gen,
+                                 device=dev)
+        worst = max(worst, float(gaps.max()))
+        exact += int(np.sum(gaps == 0.0))
+        total += len(gaps)
+        if gaps.max() > 1.0:
+            first = int(np.argmax(gaps > 1.0))
+            raise SystemExit(f"verify failed: sequence {b}: token {first} is "
+                             f"{gaps[first]:.3f}x the ladder's allowance below the static "
+                             f"path's best logit over the dequantized weights")
+    print(f"verify: every token of all {len(prompts)} sequences lies within the {cfg.dtype} "
+          f"ladder of the static path over the dequantized weights, teacher-forced "
+          f"(largest gap {worst:.3f} of the allowance); {exact}/{total} tokens are exactly "
+          f"its choice")
 
 
 def verify(engine: ServingEngine, trace, out, params) -> None:
@@ -441,6 +551,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' runs the "
                          "kernels' plain versions)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="static mode: sequences in the batch")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
@@ -465,6 +577,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "interleaved with decode steps")
     ap.add_argument("--request-timeout", type=int, default=None,
                     help="per-request deadline in engine steps")
+    ap.add_argument("--scheduler", choices=["fifo", "slo"], default="fifo",
+                    help="admission policy: fifo (arrival order) or slo (per-tenant fair "
+                         "share, priority, earliest deadline; doomed requests shed)")
+    ap.add_argument("--speculative-rank", default=None,
+                    help="self-speculative decoding (not ported: ROADMAP queue 1 item 6)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel decode devices (above 1 not ported: ROADMAP "
+                         "queue 1 item 8)")
+    ap.add_argument("--disaggregate", action="store_true",
+                    help="prefill on a separate worker (not ported: ROADMAP queue 1 item 8)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many shared system-prompt tokens to "
                          "every request")
@@ -484,15 +606,57 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--verify", action="store_true",
                     help="check outputs against the static path: token for token in "
                          "fp32; in bf16, each request equal to itself served alone and "
-                         "every token within the ladder of the static path")
+                         "every token within the ladder of the static path; static "
+                         "mode with --quantize int8: the int8 tokens against the static "
+                         "path over the dequantized weights")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the newest training checkpoint under this directory "
+                         "instead of random weights")
+    ap.add_argument("--serve-rank", type=int, default=None,
+                    help="resize spectral groups at load (not ported: ROADMAP queue 1 "
+                         "item 9)")
+    ap.add_argument("--dump-spec", action="store_true",
+                    help="print the resolved RunSpec JSON and exit")
     return ap
+
+
+def build_spec(args: argparse.Namespace) -> RunSpec:
+    """argparse Namespace -> RunSpec, as the reference's CLI builds it.
+    The trace's shape (--requests, --arrive-every, --shared-prefix,
+    --seed) stays on the CLI: it describes the workload, not the
+    runtime."""
+    return RunSpec(
+        model=ModelSpec(arch=args.arch, reduced=args.reduced),
+        serve=ServeSpec(
+            mode="paged" if args.paged else "static",
+            slots=args.slots, page_size=args.page_size, num_pages=args.num_pages,
+            pages_per_seq=args.pages_per_seq, prefill_budget=args.prefill_budget,
+            prefix_cache=args.prefix_cache, chunked_prefill=args.chunked_prefill,
+            request_timeout=args.request_timeout, scheduler=args.scheduler,
+            quantize=args.quantize, rank=args.serve_rank, batch=args.batch,
+            prompt_len=args.prompt_len, gen=args.gen,
+            speculative_rank=args.speculative_rank, disaggregate=args.disaggregate,
+            streaming=StreamingSpec(sink_pages=args.sink_pages,
+                                    window_pages=args.streaming_window,
+                                    cold_kv=args.cold_kv)),
+        sharding=ShardingSpec(decode_mesh=args.tp if args.tp > 1 else None),
+    )
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    if not (args.paged and args.stream):
-        raise SystemExit("the port serves with --paged --stream (static mode is "
-                         "not ported)")
+    if args.paged != args.stream:
+        raise SystemExit("--paged and --stream go together (static mode: neither)")
+    for flag, given, item in (("--serve-rank", args.serve_rank is not None, 9),
+                              ("--speculative-rank", args.speculative_rank is not None, 6),
+                              ("--disaggregate", args.disaggregate, 8),
+                              ("--tp above 1", args.tp > 1, 8)):
+        if given:
+            raise SystemExit(f"{flag} is not ported (ROADMAP queue 1 item {item})")
+    if args.tp < 1:
+        raise SystemExit(f"--tp {args.tp} must be >= 1")
+    if args.streaming_window is not None and not args.paged:
+        raise SystemExit("--streaming-window needs --paged --stream")
     if args.streaming_window is None and args.cold_kv != "none":
         raise SystemExit("--cold-kv needs --streaming-window")
     if args.streaming_window is not None:
@@ -502,9 +666,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if cap > args.pages_per_seq:
             raise SystemExit(f"streaming resident cap {cap} pages (sink + window + "
                              f"growth) exceeds --pages-per-seq {args.pages_per_seq}")
-    cfg = get_config(args.arch, reduced=args.reduced)
+    spec = build_spec(args)
+    if args.dump_spec:
+        print(spec.to_json(indent=2))
+        return
+    cfg = spec.model.config()
     cap = decode_capacity_binds(cfg, args.slots)
-    if args.verify and cap is not None:
+    if args.paged and args.verify and cap is not None:
         raise SystemExit(
             f"--verify: {cfg.name}'s decode step gives each expert a capacity of {cap} "
             f"tokens (capacity_factor {cfg.capacity_factor} x {args.slots} slots x top_k "
@@ -512,8 +680,32 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             f"engine's batched step then drops other tokens than the static path, and the "
             f"token identity --verify checks does not hold. The reference's own tests pin "
             f"capacity_factor=8.0, where capacity does not bind.")
-    params = init_model(cfg, seed=args.seed, device=args.device)
-    run_stream(args, cfg, params)
+    if not args.paged and args.verify and not args.quantize:
+        raise SystemExit("--verify needs --paged --stream or --quantize int8")
+    if args.ckpt_dir:
+        try:
+            step, params = params_from_checkpoint(args.ckpt_dir,
+                                                  device=resolve_device(args.device))
+        except FileNotFoundError as e:
+            raise SystemExit(str(e))
+        print(f"loaded checkpoint step {step} from {args.ckpt_dir}")
+    else:
+        params = init_model(cfg, seed=args.seed, device=args.device)
+    if args.paged:
+        run_stream(args, spec, params)
+        return
+    dev = resolve_device(args.device)
+    if args.quantize:
+        qparams = serving_params(params, cfg, dev, quantize=args.quantize)
+        print(f"weights: {param_bytes(qparams)} bytes {args.quantize} "
+              f"(fp32 {param_bytes(params)} bytes, "
+              f"{param_bytes(params) / param_bytes(qparams):.2f}x smaller)")
+        prompts = static_prompts(args, cfg.vocab)
+        gen_q = run_static(args, cfg, qparams, prompts)
+        if args.verify:
+            verify_static_int8(args, cfg, qparams, prompts, gen_q)
+    else:
+        run_static(args, cfg, params)
 
 
 if __name__ == "__main__":

@@ -48,7 +48,7 @@ from repro_torch.kernels.paged_decode import (
 )
 from repro_torch.nn.linear import apply_linear, init_linear
 from repro_torch.nn.norms import apply_rmsnorm, init_rmsnorm
-from repro_torch.nn.rotary import apply_rope, rope_tables
+from repro_torch.nn.rotary import apply_rope, mrope_tables, rope_tables
 from repro_torch.serving.paged_cache import (
     paged_append,
     paged_gather,
@@ -146,12 +146,19 @@ def init_gqa(cfg, *, generator, device, dtype=torch.float32):
 def step_rope(cfg, positions):
     """The (cos, sin) tables every layer of one step shares (None
     without RoPE). MLA rotates only its ``qk_rope_dim`` channels (q_rope
-    and the shared krope), so its tables are built at that width."""
+    and the shared krope), so its tables are built at that width. Under
+    ``rope="mrope"`` text-only positions (b, s) are broadcast to three
+    equal streams (the reference's ``src/repro/nn/attention.py:271-274``);
+    positions (3, b, s) are taken as given."""
     if cfg.rope == "rope":
         dim = cfg.qk_rope_dim if cfg.attention == "mla" else cfg.head_dim
         return rope_tables(positions, dim, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        if positions.ndim == 2:
+            positions = positions[None].expand(3, *positions.shape)
+        return mrope_tables(positions, cfg.head_dim, cfg.mrope_sections, cfg.rope_theta)
     if cfg.rope != "none":
-        raise NotImplementedError(f"rope={cfg.rope!r} is not ported")
+        raise ValueError(f"unknown rope {cfg.rope!r}; options rope, mrope, none")
     return None
 
 

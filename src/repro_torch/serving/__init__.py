@@ -10,11 +10,17 @@ from repro_torch.serving.paged_cache import (
     paged_gather,
     paged_write_slice,
 )
-from repro_torch.serving.scheduler import ContinuousBatchingScheduler, PrefixCache, Request
+from repro_torch.serving.scheduler import (
+    ContinuousBatchingScheduler,
+    PrefixCache,
+    Request,
+    SLOScheduler,
+)
 
 __all__ = [
     "PagedCacheConfig", "PagePool", "PrefixCache", "copy_page", "paged_append",
     "paged_gather", "paged_write_slice", "ContinuousBatchingScheduler", "Request",
+    "SLOScheduler",
     "ServingEngine",
 ]
 

@@ -40,13 +40,23 @@ test holds it.
 The ``moe_lm`` family (deepseek, MLA + MoE) takes the paged chunk path
 like ``dense_lm``: its MLA layers write their latent and rope key into
 the pages and decode through the absorbed-MLA kernel (the cold one
-under ``cold_kv="int8"``); ``quantize="int8"`` raises for it.
+under ``cold_kv="int8"``). Under ``quantize="int8"`` its dense MLPs run
+the int8 kernel and its MLA projections dequantize per call, while the
+embedding, the whole ``moe`` subtree (router, expert banks, shared
+experts) and ``wukv`` stay raw, as the reference leaves them
+(``src/repro/serving/quantize.py:34-40``).
 
-Not ported yet (they raise ``NotImplementedError``): tensor-parallel
-serving (``mesh``) and the SLO scheduler (``scheduler="slo"``).
+``scheduler="slo"`` admits through :class:`SLOScheduler` (per-tenant fair
+share, then priority, then earliest deadline; ``shed=True`` refuses a
+request that cannot meet its deadline with status ``"shed"``).
+:func:`params_from_checkpoint` loads a training checkpoint's params.
+
+Not ported yet (it raises ``NotImplementedError``): tensor-parallel
+serving (``mesh``, ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence
@@ -55,7 +65,9 @@ import numpy as np
 import torch
 
 from repro_torch.config.model_config import ModelConfig
-from repro_torch.core.tree import tree_leaves
+from repro_torch.checkpoint.manager import CheckpointManager, rank_metadata
+from repro_torch.checkpoint.store import to_tensor
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.decode import (
     ATTN_STATE_KEYS,
@@ -73,12 +85,46 @@ from repro_torch.models.model import (
 )
 from repro_torch.serving.paged_cache import PagedCacheConfig, paged_write_pages, slot_write
 from repro_torch.serving.quantize import param_bytes, quantize_kv_pages
-from repro_torch.serving.scheduler import ContinuousBatchingScheduler, Request, SeqState
+from repro_torch.serving.scheduler import (
+    ContinuousBatchingScheduler,
+    Request,
+    SeqState,
+    SLOScheduler,
+)
 from repro_torch.serving.streaming import StreamingConfig
 
 # inter-token latency samples kept for percentile stats; bounded so a
 # long-lived engine under continuous traffic cannot leak host memory
 LATENCY_WINDOW = 4096
+
+
+def params_from_checkpoint(ckpt_dir: str, *, rank: Optional[int] = None,
+                           step: Optional[int] = None, device: DeviceLike = None):
+    """(step, params) from a training checkpoint directory (the newest, or
+    ``step``), on ``device`` (the card unless the caller passes
+    ``device="cpu"``, as everywhere in the port). A full TrainState is stripped to its ``params``; a
+    bare params tree passes through. The reference's
+    ``src/repro/serving/engine.py:66``; resizing to another ``rank`` at
+    load (``rank/resize.py``) is not ported (ROADMAP queue 1 item 9), so
+    ``rank`` must be None or the checkpoint's own rank."""
+    dev = resolve_device(device)
+    if not os.path.isdir(ckpt_dir):
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir!r}")
+    mgr = CheckpointManager(ckpt_dir)
+    if step is None:
+        step, state = mgr.restore_latest()
+        if state is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir!r}")
+    else:
+        state = mgr.restore(step)
+    params = state["params"] if isinstance(state, dict) and "params" in state else state
+    params = tree_map(lambda a: to_tensor(a, dev), params)
+    ranks = set(rank_metadata(params).values())
+    if rank is not None and ranks != {int(rank)}:
+        raise NotImplementedError(
+            f"serving at rank {rank} from a checkpoint of rank(s) {sorted(ranks)} needs "
+            "rank/resize.py, which is not ported (ROADMAP queue 1 item 9)")
+    return step, params
 
 
 class ServingEngine:
@@ -98,23 +144,24 @@ class ServingEngine:
                  prefix_cache: bool = False,
                  chunked_prefill: bool = False,
                  scheduler: str = "fifo",
+                 shed: bool = True,
                  streaming: Optional[StreamingConfig] = None,
                  mesh=None):
         if mesh is not None:
-            raise NotImplementedError("ServingEngine(mesh=...) is not ported yet")
-        if scheduler == "slo":
-            raise NotImplementedError("the SLO scheduler is not ported yet")
-        if scheduler != "fifo":
-            raise ValueError(f"unknown scheduler {scheduler!r}; options: fifo")
+            raise NotImplementedError("ServingEngine(mesh=...): tensor-parallel serving is "
+                                      "not ported (ROADMAP queue 1 item 8)")
+        if scheduler not in ("fifo", "slo"):
+            raise ValueError(f"unknown scheduler {scheduler!r}; options: fifo, slo")
         require_family(cfg, "serve")
         self._offset_prefill = supports_prefix_sharing(cfg)
         if streaming is not None and not self._offset_prefill:
             raise NotImplementedError(
                 "streaming KV needs the offset-prefill paged path; family "
                 f"{cfg.family!r} carries recurrent state that cannot drop evicted history")
-        if quantize is not None and (not self._offset_prefill or cfg.family == "moe_lm"):
+        if quantize is not None and not self._offset_prefill:
             raise NotImplementedError(
-                f"quantize={quantize!r} on the family {cfg.family!r} is not ported yet")
+                f"quantize={quantize!r} on the recurrent family {cfg.family!r} is not "
+                "ported (no test of the reference serves it)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.weight_bytes_fp = param_bytes(params)
@@ -135,9 +182,14 @@ class ServingEngine:
         self._cold = streaming is not None and streaming.cold_kv == "int8"
         self.state = init_paged_state(cfg, pcfg, device=self.device,
                                       cold_kv="int8" if self._cold else "none")
-        self.sched = ContinuousBatchingScheduler(
-            pcfg, prefill_token_budget, prefix_sharing=self.prefix_cache,
-            streaming=streaming)
+        if scheduler == "slo":
+            self.sched: ContinuousBatchingScheduler = SLOScheduler(
+                pcfg, prefill_token_budget, prefix_sharing=self.prefix_cache,
+                streaming=streaming, shed=shed)
+        else:
+            self.sched = ContinuousBatchingScheduler(
+                pcfg, prefill_token_budget, prefix_sharing=self.prefix_cache,
+                streaming=streaming)
         self.scheduler = scheduler
         self._next_input = np.zeros((pcfg.max_slots,), dtype=np.int64)
 
@@ -170,6 +222,7 @@ class ServingEngine:
         self.generated_total = 0
         self.cancelled = 0
         self.timed_out = 0
+        self.shed = 0
         self.wall_s = 0.0
         self.step_times: Deque[float] = deque(maxlen=LATENCY_WINDOW)
         self.last_statuses: Dict[int, str] = {}
@@ -257,6 +310,8 @@ class ServingEngine:
                 self.cancelled += 1
             elif seq.status == "timeout":
                 self.timed_out += 1
+            elif seq.status == "shed":
+                self.shed += 1
         return drained
 
     # ------------------------------------------------------------- steps --
@@ -437,6 +492,7 @@ class ServingEngine:
             "requests": float(self.requests_done),
             "cancelled": float(self.cancelled),
             "timed_out": float(self.timed_out),
+            "shed": float(self.shed),
             "peak_pages": float(self.peak_pages),
             "prefill_tokens": float(self.prefill_tokens),
             "prefill_chunks": float(self.prefill_chunks),
@@ -459,4 +515,6 @@ class ServingEngine:
             out["cold_page_bytes"] = float(self.cold_page_bytes)
         if self.sched.prefix_cache is not None:
             out.update({k: float(v) for k, v in self.sched.prefix_cache.stats().items()})
+        if isinstance(self.sched, SLOScheduler):
+            out.update({k: float(v) for k, v in self.sched.stats().items()})
         return out

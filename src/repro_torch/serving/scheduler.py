@@ -1,5 +1,6 @@
-"""Continuous-batching scheduler: a FIFO request queue feeding a fixed
-set of decode slots, with refcounted page-pool accounting, an optional
+"""Continuous-batching scheduler: a FIFO request queue (or the SLO-aware
+:class:`SLOScheduler`'s fair-share order) feeding a fixed set of decode
+slots, with refcounted page-pool accounting, an optional
 shared-prefix index, chunked prefill, and cancellation/deadlines.
 
 Policy (host-side, cheap — the device only ever sees static shapes):
@@ -738,3 +739,98 @@ class ContinuousBatchingScheduler:
                 for p in seq.pinned:
                     assert self.pool.pin_count(p) >= 1
                 assert seq.evicted_tokens % self.pcfg.page_size == 0
+
+
+class SLOScheduler(ContinuousBatchingScheduler):
+    """SLO-aware multi-tenant admission over the continuous-batching
+    machinery (the reference's ``src/repro/serving/scheduler.py:715``).
+    Page accounting, prefill chunking, copy-on-write, deadlines and
+    eviction are inherited; only which waiting request admits next
+    changes, plus deadline-aware shedding:
+
+      * **per-tenant fair share** — every token served (the uncached
+        prompt tail at admission, then each generated token) is charged
+        to its request's tenant; admission picks from the tenant with the
+        least service so far;
+      * **priority classes** — within that tenant, lower
+        ``Request.priority`` admits first (class 0 is the most urgent);
+        priority ranks below fairness;
+      * **earliest deadline first** among equal priorities, then queue
+        order (ties break as in the reference: FIFO);
+      * **shedding** — with ``shed=True`` a waiting request that cannot
+        finish inside its deadline even if served from now on, one token
+        a step, is refused with status ``"shed"`` (at selection and on
+        every clock tick) and never holds a slot.
+
+    With no request shed, admission order is the only difference from
+    FIFO, and greedy decoding is per request: the tokens are the static
+    path's."""
+
+    def __init__(self, pcfg: PagedCacheConfig,
+                 prefill_token_budget: Optional[int] = None,
+                 prefix_sharing: bool = False,
+                 streaming: Optional[StreamingConfig] = None, *,
+                 shed: bool = True):
+        super().__init__(pcfg, prefill_token_budget, prefix_sharing=prefix_sharing,
+                         streaming=streaming)
+        self.shed = shed
+        self.served_tokens: Dict[str, int] = {}        # tenant -> tokens charged
+        self.shed_count = 0
+
+    # ---------------------------------------------------- accounting --
+    def _charge(self, tenant: str, tokens: int) -> None:
+        self.served_tokens[tenant] = self.served_tokens.get(tenant, 0) + tokens
+
+    def _on_admitted(self, seq: SeqState) -> None:
+        self._charge(seq.request.tenant, seq.request.prompt_len - seq.shared_len)
+
+    def on_token(self, slot: int, token: int) -> Optional[SeqState]:
+        self._charge(self.active[slot].request.tenant, 1)
+        return super().on_token(slot, token)
+
+    def on_prefill_token(self, slot: int, token: int) -> Optional[SeqState]:
+        self._charge(self.active[slot].request.tenant, 1)
+        return super().on_prefill_token(slot, token)
+
+    # ----------------------------------------------------- admission --
+    def _doomed(self, req: Request) -> bool:
+        """Cannot meet its deadline: admitted now, its prefill done this
+        step and one token a step after, the last token would still land
+        at or past expiry (``clock - anchor >= deadline``)."""
+        if req.deadline is None:
+            return False
+        remaining = req.deadline_anchor + req.deadline - self._now
+        return remaining < req.max_new_tokens
+
+    def _shed_doomed(self) -> None:
+        if not self.shed:
+            return
+        for req in [r for r in self.waiting if self._doomed(r)]:
+            self.cancel(req.rid, status="shed")
+            self.shed_count += 1
+
+    def expire_deadlines(self, clock: int) -> int:
+        self._now = clock
+        self._shed_doomed()
+        return super().expire_deadlines(clock)
+
+    def _next_request(self) -> Optional[Request]:
+        self._shed_doomed()
+        if not self.waiting:
+            return None
+        return min(
+            enumerate(self.waiting),
+            key=lambda iv: (self.served_tokens.get(iv[1].tenant, 0),
+                            iv[1].priority,
+                            (iv[1].deadline_anchor + iv[1].deadline
+                             if iv[1].deadline is not None else float("inf")),
+                            iv[0]),
+        )[1]
+
+    def stats(self) -> Dict[str, int]:
+        """``shed`` and ``tenant_<name>_tokens`` (tokens charged to each
+        tenant so far)."""
+        out = {"shed": self.shed_count}
+        for tenant, tokens in sorted(self.served_tokens.items()):
+            out[f"tenant_{tenant}_tokens"] = tokens
+        return out

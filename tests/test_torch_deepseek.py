@@ -339,7 +339,11 @@ def test_unported_paths_raise(models):
     assert callable(make_train_step(tcfg, microbatches=2))
     with pytest.raises(NotImplementedError, match="telemetry"):
         make_train_step(tcfg, microbatches=2, telemetry=True)
+    # int8 weights are served (tests/test_torch_quantize_moe.py): the MoE
+    # subtree and wukv stay raw; tensor-parallel serving raises
     pcfg = PagedCacheConfig(page_size=4, num_pages=12, max_slots=2, max_pages_per_seq=4)
-    with pytest.raises(NotImplementedError, match="int8"):
-        ServingEngine(tcfg, tp, pcfg, device="cpu", quantize="int8")
+    engine = ServingEngine(tcfg, tp, pcfg, device="cpu", quantize="int8")
+    assert torch.is_tensor(engine.params["moe_layers"]["moe"]["router"]["w"])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ServingEngine(tcfg, tp, pcfg, device="cpu", mesh=object())
 

@@ -97,9 +97,20 @@ def test_build_trace_matches_reference():
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"scheduler": "slo"}],
                          ids=["mesh", "slo"])
 def test_unported_engine_options_raise(models, kw):
+    """Tensor-parallel serving raises, naming its ROADMAP item; the SLO
+    scheduler is ported (tests/test_torch_slo.py) and an unknown
+    scheduler's name raises."""
+    from repro_torch.serving.scheduler import SLOScheduler
+
     _, _, tcfg, tp = models
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tcfg, tp, PagedCacheConfig(**GEOM), device="cpu", **kw)
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="item 8"):
+            ServingEngine(tcfg, tp, PagedCacheConfig(**GEOM), device="cpu", **kw)
+        return
+    engine = ServingEngine(tcfg, tp, PagedCacheConfig(**GEOM), device="cpu", **kw)
+    assert isinstance(engine.sched, SLOScheduler)
+    with pytest.raises(ValueError, match="fifo, slo"):
+        ServingEngine(tcfg, tp, PagedCacheConfig(**GEOM), device="cpu", scheduler="edf")
 
 
 def test_cli_serves_and_verifies_on_cpu(capsys):

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the spectral matmul (and its autograd), its int8 variant, the
-paged GQA decode and its cold-tier variant, the absorbed-MLA paged
+card: the spectral matmul (and its autograd; also at qwen2-vl-72b's MLP,
+rank 256), its int8 variant (also at deepseek's dense MLP), the paged GQA
+decode (also at qwen2-vl's rep 8, head dim 128) and its cold-tier variant, the absorbed-MLA paged
 decode and its cold-tier variant, the flash-attention forward and
 backward, the chunkwise mLSTM (forward and backward) and the selective
 scan (forward and backward); the reduced xlstm's training step, and the
@@ -92,6 +93,7 @@ SPECTRAL_Q8 = SPECTRAL_Q8_SHAPES
 # b, kvh, rep, hd, page, n_pages_per_seq
 PAGED = [(5, 2, 3, 64, 4, 6), (4, 1, 4, 20, 3, 5), (4, 4, 1, 48, 8, 4), (8, 8, 4, 64, 16, 12),
          (4, 8, 4, 128, 16, 12),     # jamba's attention layers: head dim 128
+         (4, 8, 8, 128, 16, 12),     # qwen2-vl-72b's: 64 heads over 8, head dim 128
          (4, 8, 4, 64, 16, 256),     # a 4096-token table: 32 units a warp
          (2, 4, 2, 64, 16, 600)]     # 9600 tokens: past 32 units a warp
 # b, h, lat, rope, page, n_pages_per_seq of the absorbed-MLA decode: the
@@ -226,6 +228,38 @@ def test_spectral_matmul_q8_rows_are_batch_invariant(cuda, dtype, profile):
             for i in range(M):
                 assert torch.equal(spectral_matmul_q8(x[i:i + 1], U, s, V)[0], full[i]), (
                     m, M, i)
+
+
+# qwen2-vl-72b's MLP at decode and in a 64-token chunk: 8192 -> 29568 (up,
+# gate) and 29568 -> 8192 (down: a 3696-row m slice a cluster block), rank 256
+QWEN_MLP = [(4, 8192, 29568, 256), (4, 29568, 8192, 256), (64, 29568, 8192, 256)]
+# deepseek-v3-671b's dense MLP under int8 weights: 7168 <-> 18432, rank 128
+DEEPSEEK_Q8 = [(4, 7168, 18432, 128), (4, 18432, 7168, 128), (64, 18432, 7168, 128)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", QWEN_MLP, ids=lambda s: "x".join(map(str, s)))
+def test_spectral_matmul_at_qwen2_vl_mlp(cuda, shape, dtype):
+    args = _spectral(*shape, DTYPES[dtype], cuda)
+    before = LAUNCHES["spectral_matmul"]
+    assert_kernel_matches(spectral_matmul, spectral_matmul_ref, args)
+    assert LAUNCHES["spectral_matmul"] == before + 1
+    if dtype == "bfloat16":
+        x, U, s, V = args
+        full = spectral_matmul(x, U, s, V)
+        for i in sorted({0, x.shape[0] - 1}):
+            assert torch.equal(spectral_matmul(x[i:i + 1], U, s, V)[0], full[i]), i
+
+
+@pytest.mark.parametrize("profile", ["unit", "extreme"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", DEEPSEEK_Q8, ids=lambda s: "x".join(map(str, s)))
+def test_spectral_matmul_q8_at_deepseek_dense_mlp(cuda, shape, dtype, profile):
+    args = _q8(*shape, profile, DTYPES[dtype], cuda)
+    before = LAUNCHES["spectral_matmul_q8"]
+    assert_kernel_matches(spectral_matmul_q8, _q8_plain, args,
+                          label=f"spectral_matmul_q8 {shape} {dtype} {profile}")
+    assert LAUNCHES["spectral_matmul_q8"] == before + 1
 
 
 def test_spectral_matmul_q8_refuses_other_ranks(cuda):

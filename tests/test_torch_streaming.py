@@ -433,13 +433,18 @@ def test_cli_streaming_flag_checks(argv, match):
 
 
 def test_unported_streaming_options_raise(llama):
-    """What the slice leaves out still raises: tensor-parallel serving
-    (with or without streaming) and the SLO scheduler."""
+    """What the port leaves out still raises: tensor-parallel serving
+    with streaming. Streaming under the SLO scheduler builds (the
+    scheduler is ported)."""
+    from repro_torch.serving.scheduler import SLOScheduler
+
     _, _, tcfg, tp = llama
     pcfg = PagedCacheConfig(**GEOM)
-    for kw in ({"streaming": StreamingConfig(1, 2, "int8"), "mesh": object()},
-               {"streaming": StreamingConfig(1, 2), "scheduler": "slo"}):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(tcfg, tp, pcfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ServingEngine(tcfg, tp, pcfg, device="cpu", streaming=StreamingConfig(1, 2, "int8"),
+                      mesh=object())
+    engine = ServingEngine(tcfg, tp, pcfg, device="cpu", streaming=StreamingConfig(1, 2),
+                           scheduler="slo")
+    assert isinstance(engine.sched, SLOScheduler) and engine.sched.streaming is not None
     with pytest.raises(ValueError, match="int4"):
         ServingEngine(tcfg, tp, pcfg, device="cpu", quantize="int4")
